@@ -1,0 +1,49 @@
+"""kissmpc_tpu_torch — the PyTorch/CUDA port of the batched MPC engine.
+
+A second package beside `kissmpc_tpu` (the JAX reference it is held
+against), for an NVIDIA H100.  Plain tensor code is PyTorch; the TPU's
+Pallas kernels become hand-written CUDA kernels under `csrc/`.  It imports
+neither `jax` nor `kissmpc_tpu`.
+
+Ported so far: config, models, obstacles, problem builders, the plain and
+CUDA Riccati solves, the batched IPM and `solve_batch` with the "split"
+backend, the benchmark scenario pools, and the numpy bridge.  Every public
+entry point takes ``device=None``, which means ``"cuda"``; pass
+``device="cpu"`` to run on the CPU.
+"""
+
+from . import bridge, scenarios
+from .config import CostConfig, MPCConfig, SolverConfig
+from .obstacles import ObstacleSet, dynamic_set, static_set
+from .solver.api import make_batch_solver, solve_batch
+from .solver.problem import (
+    Diagnostics,
+    Problem,
+    Solution,
+    complete_warm_start,
+    default_problem,
+    problem_with_obstacles,
+    repair_warm_start,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CostConfig",
+    "MPCConfig",
+    "SolverConfig",
+    "ObstacleSet",
+    "dynamic_set",
+    "static_set",
+    "Problem",
+    "Solution",
+    "Diagnostics",
+    "default_problem",
+    "problem_with_obstacles",
+    "repair_warm_start",
+    "complete_warm_start",
+    "make_batch_solver",
+    "solve_batch",
+    "bridge",
+    "scenarios",
+]

@@ -1,0 +1,34 @@
+"""Device resolution shared by every public entry point of the port.
+
+``device=None`` means the card (``"cuda"``).  If CUDA is absent and the
+caller did not ask for the CPU, the entry point raises: the port never runs
+on the CPU unless asked to.
+
+On the card, float32 matrix products run in full float32: TF32 keeps about
+three decimal digits, which corrupts the 3x3 Riccati algebra the same way
+bf16 passes do on the TPU (`kissmpc_tpu/solver/ipm.py:836-842`).  Both
+switches are pinned whenever a CUDA device is resolved.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pin_full_f32() -> None:
+    """Disable TF32 for float32 matmuls and convolutions on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; raise when CUDA is asked for but absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the port "
+                "on the CPU explicitly"
+            )
+        pin_full_f32()
+    return dev

@@ -1,0 +1,143 @@
+"""Wrapper of the hand-written CUDA Riccati kernel (`csrc/riccati.cu`).
+
+`solve_lqr_cuda(data, reg)` has the contract of `ops/lqr.py::solve_lqr`
+(dx, du, and the gains K and k as views of the kernel's [B, N, 8] scratch).
+It replaces the TPU kernel `kissmpc_tpu/ops/pallas/riccati.py`.
+For tensors on the CPU it runs that plain version; for CUDA tensors it
+launches the kernel or raises, and counts each launch in
+``solve_lqr_cuda.launches``.
+
+The kernel is built from the package's own source with ``nvcc`` at first
+use, into ``build/kissmpc_tpu_torch/`` at the repository root (git-ignored),
+as a shared library with a plain C interface loaded through ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .lqr import LQRData, LQRSolution, solve_lqr
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "riccati.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kissmpc_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA Riccati kernel cannot be built")
+
+
+def build() -> Path:
+    """Compile `csrc/riccati.cu` (once per source content); return the .so.
+
+    The library name carries a hash of the source, so an edited kernel is
+    rebuilt and a stale one is never loaded.  The compiler's register and
+    spill report (``-Xptxas -v``) is kept beside it as ``.log``.
+    """
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    lib = BUILD_DIR / f"libkissmpc_riccati-{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        capture_output=True,
+        text=True,
+    )
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
+    lib.with_suffix(".log").write_text(log)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    args = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_double, ctypes.c_void_p]
+    for name in ("kissmpc_riccati_f32", "kissmpc_riccati_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.kissmpc_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.kissmpc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(data: LQRData) -> tuple[int, int]:
+    """Validate the batch the kernel takes; return (B, N)."""
+    Bsz, N = data.A.shape[0], data.A.shape[1]
+    expected = {
+        "A": (Bsz, N, 3, 3), "B": (Bsz, N, 3, 2), "d": (Bsz, N, 3),
+        "d0": (Bsz, 3), "Qxx": (Bsz, N + 1, 3, 3), "qx": (Bsz, N + 1, 3),
+        "Quu": (Bsz, N, 2, 2), "qu": (Bsz, N, 2),
+    }
+    dtype, device = data.A.dtype, data.A.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"Riccati kernel takes float32 or float64, got {dtype}")
+    for name, shape in expected.items():
+        x = getattr(data, name)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"LQRData.{name} has shape {tuple(x.shape)}, expected {shape}")
+        if x.dtype != dtype or x.device != device:
+            raise TypeError(
+                f"LQRData.{name} is {x.dtype} on {x.device}; expected {dtype} on {device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"LQRData.{name} must be contiguous")
+    return Bsz, N
+
+
+def solve_lqr_cuda(data: LQRData, reg: float = 0.0) -> LQRSolution:
+    """Batched Riccati solve: CUDA kernel for CUDA tensors, plain torch on
+    the CPU.  Returns dx [B, N+1, 3], du [B, N, 2], K [B, N, 2, 3], k [B, N, 2]."""
+    Bsz, N = _check(data)
+    device, dtype = data.A.device, data.A.dtype
+    if device.type == "cpu":
+        return solve_lqr(data, reg)
+    if device.type != "cuda":
+        raise ValueError(f"Riccati kernel runs on CUDA or CPU tensors, got {device}")
+    lib = _library()
+    fn = lib.kissmpc_riccati_f32 if dtype == torch.float32 else lib.kissmpc_riccati_f64
+    dx = torch.empty((Bsz, N + 1, 3), dtype=dtype, device=device)
+    du = torch.empty((Bsz, N, 2), dtype=dtype, device=device)
+    gains = torch.empty((Bsz, N, 8), dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            data.A.data_ptr(), data.B.data_ptr(), data.d.data_ptr(),
+            data.d0.data_ptr(), data.Qxx.data_ptr(), data.qx.data_ptr(),
+            data.Quu.data_ptr(), data.qu.data_ptr(),
+            dx.data_ptr(), du.data_ptr(), gains.data_ptr(),
+            Bsz, N, float(reg), stream,
+        )
+    if err != 0:
+        msg = lib.kissmpc_cuda_error_string(err).decode()
+        raise RuntimeError(f"Riccati kernel launch failed: {msg} ({err})")
+    solve_lqr_cuda.launches += 1
+    return LQRSolution(
+        dx=dx, du=du, K=gains[..., :6].unflatten(-1, (2, 3)), k=gains[..., 6:]
+    )
+
+
+solve_lqr_cuda.launches = 0

@@ -1,0 +1,129 @@
+"""Public solve API: batched solve with staged tail refinement (torch).
+
+Port of `kissmpc_tpu/solver/api.py`.  PyTorch runs eagerly, so
+`make_batch_solver` returns a plain closure over the config; `solve_batch`
+runs the batched IPM (`ipm.solve`) and then each refinement stage.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from .._device import resolve_device
+from ..config import MPCConfig
+from . import ipm
+from .problem import Diagnostics, Problem, Solution, gather, to_device
+
+
+def _dispatch(cfg: MPCConfig, problems: Problem, *,
+              iterations: int | None = None,
+              mu_sigma=None) -> Solution:
+    """Backend dispatch for one batched solve (no refinement).
+
+    ``iterations`` / ``mu_sigma`` are per-call schedule overrides (refine
+    stages), folded into the config as on the reference's jnp path.  Only
+    the "split" backend is ported: the torch IPM loop around the Riccati
+    kernel.  "fused" raises rather than running split in its place.
+    """
+    sc = cfg.solver
+    if sc.elastic_obstacles and sc.mehrotra != "off":
+        raise ValueError(
+            "mehrotra predictor-corrector does not support "
+            "elastic_obstacles (the elastic condensation has no affine/"
+            "corrector split); disable one of the two flags"
+        )
+    if sc.solve_backend == "fused":
+        raise NotImplementedError(
+            "solve_backend='fused' (the fused IPM kernel) is ported in a "
+            "later slice; use solve_backend='split'"
+        )
+    if sc.solve_backend != "split":
+        raise ValueError(f"unknown solve_backend {sc.solve_backend!r}")
+    if sc.lqr_backend != "auto":
+        raise ValueError(
+            "the port picks the Riccati engine from the tensors' device; "
+            f"lqr_backend must be 'auto', got {sc.lqr_backend!r}"
+        )
+    if iterations is not None or mu_sigma is not None:
+        if mu_sigma is not None and getattr(mu_sigma, "ndim", 0):
+            raise ValueError(
+                "per-scenario mu_sigma arrays are supported by the fused "
+                "backend only; the split path folds mu_sigma into the "
+                "config (pass a scalar)"
+            )
+        cfg = cfg.replace(
+            solver=dataclasses.replace(
+                sc,
+                iterations=sc.iterations if iterations is None else iterations,
+                mu_sigma=sc.mu_sigma if mu_sigma is None else float(mu_sigma),
+            )
+        )
+    return ipm.solve(cfg, problems)
+
+
+def _refine_stages(cfg: MPCConfig):
+    """Normalized refinement plan: ((fraction, iterations, mu_sigma), ...)."""
+    if cfg.solver.refine_stages:
+        return tuple(
+            (float(f), int(it), float(ms)) for f, it, ms in cfg.solver.refine_stages
+        )
+    if cfg.solver.refine_fraction > 0.0:
+        return (
+            (
+                cfg.solver.refine_fraction,
+                cfg.solver.refine_iterations,
+                cfg.solver.mu_sigma,
+            ),
+        )
+    return ()
+
+
+def _merge(full: torch.Tensor, new: torch.Tensor, take: torch.Tensor, idx):
+    t = take.reshape(take.shape + (1,) * (new.dim() - 1))
+    out = full.clone()
+    out[idx] = torch.where(t, new, full[idx])
+    return out
+
+
+def solve_batch(cfg: MPCConfig, problems: Problem, *, device=None) -> Solution:
+    """Batched solve with staged second-chance refinement.
+
+    Each stage gathers the worst ``fraction`` of the batch by convergence
+    (non-converged first, ties in batch order as `jax.lax.top_k` breaks
+    them), re-solves it warm-started from the current iterates for the
+    stage's ``iterations`` at its ``mu_sigma``, and merges back wherever the
+    re-solve converged and the running solution had not.  Untouched
+    scenarios come back bit-identical.
+
+    ``device=None`` runs on the card; the problems are moved there.
+    """
+    dev = resolve_device(device)
+    problems = to_device(problems, dev)
+    sol = _dispatch(cfg, problems)
+    B = problems.initial_state.shape[0]
+    for frac, iters, mu_sigma in _refine_stages(cfg):
+        n = min(B, max(1, int(round(B * frac))))
+        score = 1.0 - sol.diagnostics.converged.to(torch.float32)
+        idx = torch.sort(score, descending=True, stable=True).indices[:n]
+        sub = gather(problems, idx)._replace(
+            warm_states=sol.states[idx], warm_controls=sol.controls[idx]
+        )
+        sol2 = _dispatch(cfg, sub, iterations=iters, mu_sigma=mu_sigma)
+        take = sol2.diagnostics.converged & ~sol.diagnostics.converged[idx]
+        sol = Solution(
+            states=_merge(sol.states, sol2.states, take, idx),
+            controls=_merge(sol.controls, sol2.controls, take, idx),
+            diagnostics=Diagnostics(
+                *(_merge(f, g, take, idx)
+                  for f, g in zip(sol.diagnostics, sol2.diagnostics))
+            ),
+        )
+    return sol
+
+
+def make_batch_solver(cfg: MPCConfig, *, device=None):
+    """Batched solver closed over the config: Problem [B] -> Solution [B]."""
+    return functools.partial(solve_batch, cfg, device=device)

@@ -1,0 +1,134 @@
+"""Port parity and contract: `solve_batch` with staged refinement, the
+refusals, the device convention and the import boundary."""
+
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import kissmpc_tpu_torch
+from kissmpc_tpu import MPCConfig as JConfig
+from kissmpc_tpu.scenarios import obstacle_problems as j_obstacle_problems
+from kissmpc_tpu.solver.api import solve_batch as j_solve_batch
+from kissmpc_tpu_torch import MPCConfig as TConfig
+from kissmpc_tpu_torch import make_batch_solver, solve_batch
+from kissmpc_tpu_torch.bridge import problem_from_numpy, solution_to_numpy
+from kissmpc_tpu_torch.solver.api import _dispatch
+
+PACKAGE = Path(kissmpc_tpu_torch.__file__).parent
+STAGES = ((0.5, 16, 0.2), (0.25, 24, 0.7))
+
+
+def _configs(**solver):
+    kw = dict(horizon=12, time_step=0.1, max_obstacles=3)
+    skw = dict(iterations=6, refine_stages=STAGES, **solver)
+    j, t = JConfig(**kw), TConfig(**kw)
+    return (
+        j.replace(solver=dataclasses.replace(j.solver, solve_backend="split", **skw)),
+        t.replace(solver=dataclasses.replace(t.solver, solve_backend="split", **skw)),
+    )
+
+
+@pytest.fixture(scope="module")
+def batch():
+    jcfg, _ = _configs()
+    jp = j_obstacle_problems(jcfg, 8, seed=4, dtype=jax.numpy.float64)
+    arrays = {k: np.asarray(v) for k, v in jp._asdict().items()}
+    return jp, arrays
+
+
+def test_solve_batch_with_refinement_matches_jax(batch):
+    """A 6-iteration base solve leaves most scenarios unconverged, so both
+    refinement stages gather, re-solve and merge real sub-batches."""
+    jp, arrays = batch
+    jcfg, tcfg = _configs()
+    ref = j_solve_batch(jcfg, jp)
+    base = solution_to_numpy(_dispatch(tcfg, problem_from_numpy(arrays, device="cpu")))
+    got = solution_to_numpy(solve_batch(tcfg, problem_from_numpy(arrays, device="cpu"),
+                                        device="cpu"))
+    assert not base.diagnostics.converged.all()
+    assert got.diagnostics.converged.sum() > base.diagnostics.converged.sum()
+    np.testing.assert_array_equal(got.diagnostics.converged,
+                                  np.asarray(ref.diagnostics.converged))
+    np.testing.assert_allclose(got.controls, np.asarray(ref.controls), atol=1e-6, rtol=0)
+    for name in ("final_cost", "final_mu", "kkt_feasibility"):
+        np.testing.assert_allclose(getattr(got.diagnostics, name),
+                                   np.asarray(getattr(ref.diagnostics, name)),
+                                   rtol=1e-9, atol=1e-9, err_msg=name)
+    # Scenarios that refinement did not take come back bit-identical.
+    kept = got.diagnostics.converged == base.diagnostics.converged
+    np.testing.assert_array_equal(got.controls[kept], base.controls[kept])
+    # make_batch_solver is the same solve closed over the config.
+    again = make_batch_solver(tcfg, device="cpu")(problem_from_numpy(arrays, device="cpu"))
+    np.testing.assert_array_equal(again.controls.numpy(), got.controls)
+
+
+@pytest.mark.parametrize(
+    "solver,err",
+    [
+        (dict(solve_backend="fused"), NotImplementedError),
+        (dict(solve_backend="Split"), ValueError),
+        (dict(lqr_backend="xla"), ValueError),
+        (dict(mehrotra="pc"), NotImplementedError),
+        (dict(mehrotra="sco"), ValueError),
+        (dict(elastic_obstacles=True), NotImplementedError),
+        (dict(elastic_obstacles=True, mehrotra="pc"), ValueError),
+    ],
+)
+def test_solve_batch_refusals(batch, solver, err):
+    _, arrays = batch
+    _, tcfg = _configs()
+    cfg = tcfg.replace(solver=dataclasses.replace(tcfg.solver, **solver))
+    with pytest.raises(err):
+        solve_batch(cfg, problem_from_numpy(arrays, device="cpu"), device="cpu")
+
+
+def test_per_scenario_mu_sigma_refused(batch):
+    _, arrays = batch
+    _, tcfg = _configs()
+    with pytest.raises(ValueError):
+        _dispatch(tcfg, problem_from_numpy(arrays, device="cpu"),
+                  mu_sigma=torch.full((8,), 0.5))
+
+
+def test_default_device_needs_cuda(batch):
+    if torch.cuda.is_available():
+        pytest.skip("the refusal is for machines without CUDA")
+    _, arrays = batch
+    _, tcfg = _configs()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        problem_from_numpy(arrays)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_batch(tcfg, problem_from_numpy(arrays, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kissmpc_tpu_torch.scenarios.free_problems(tcfg, 2)
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, kissmpc_tpu_torch, kissmpc_tpu_torch.ops.riccati\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'kissmpc_tpu' or m.startswith('kissmpc_tpu.')]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_module_of_the_port_imports_jax():
+    pattern = re.compile(
+        r"^\s*(import\s+(jax|kissmpc_tpu)\b|from\s+(jax|kissmpc_tpu)\b)",
+        re.M,
+    )
+    files = sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        hits = pattern.findall(path.read_text())
+        assert not hits, f"{path} imports {hits}"
