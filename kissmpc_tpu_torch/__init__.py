@@ -6,8 +6,9 @@ Pallas kernels become hand-written CUDA kernels under `csrc/`.  It imports
 neither `jax` nor `kissmpc_tpu`.
 
 Ported so far: config, models, obstacles, problem builders, the plain and
-CUDA Riccati solves, the batched IPM and `solve_batch` with the "split"
-backend, the benchmark scenario pools, and the numpy bridge.  Every public
+CUDA Riccati solves, the batched IPM, the fused IPM kernel, the trip-count
+probe, `solve_batch` with both backends ("fused", the default, and
+"split"), the benchmark scenario pools, and the numpy bridge.  Every public
 entry point takes ``device=None``, which means ``"cuda"``; pass
 ``device="cpu"`` to run on the CPU.
 """

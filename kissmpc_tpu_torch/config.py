@@ -15,14 +15,21 @@ Semantic switches where the reference code and its README differ:
 
 Fields the port reads differently from the JAX package:
 
-* ``solve_backend``: only ``"split"`` is ported (the torch IPM loop around
-  the CUDA Riccati kernel); ``"fused"`` raises NotImplementedError.
+* ``solve_backend``: ``"fused"`` (the default) runs the whole IPM as one
+  hand-written CUDA kernel per solve stage (`ops/ipm_fused.py`,
+  `csrc/ipm_fused.cu`) for float32 problems; float64 problems take
+  ``"split"``, the torch IPM loop around the CUDA Riccati kernel.
 * ``lqr_backend``: the port picks the Riccati engine from the tensors'
   device (CUDA kernel on the card, plain torch on the CPU) and accepts only
   ``"auto"``.
-* ``mehrotra``: only ``"off"``; ``elastic_obstacles``: only False.
-* ``fused_block``, ``fused_affine_tracks``, ``fused_sublanes``: read by the
-  fused kernel only, which is not ported yet.
+* ``mehrotra``: only ``"off"``; the fused backend raises ValueError for any
+  other value (the reference ignores it there).  ``elastic_obstacles``: only
+  False on either backend.
+* ``fused_block``, ``fused_sublanes``: TPU tile settings of the reference's
+  Pallas kernel.  Nothing on the card reads them; they never changed a
+  result in the reference either.  ``fused_affine_tracks`` is read by the
+  fused kernel: tracks travel as (start, per-step delta) pairs, with a
+  per-scenario certificate that they are affine.
 """
 
 from __future__ import annotations
@@ -77,14 +84,15 @@ class SolverConfig:
     slack_floor: float = 1e-12
     # Exact curvature of the obstacle distance constraint in the Hessian.
     obstacle_curvature: bool = True
-    # Elastic obstacle constraints (not ported yet).
+    # Elastic obstacle constraints (not ported yet on either backend).
     elastic_obstacles: bool = False
     elastic_penalty: float = 1e4
     # KKT tolerance used only to report convergence.
     kkt_tol: float = 1e-6
     # Newton-KKT engine selection; the port accepts "auto" only.
     lqr_backend: str = "auto"
-    # Batched-solve strategy: "fused" (the reference's default) or "split".
+    # Batched-solve strategy: "fused" (one CUDA kernel per solve stage) or
+    # "split" (torch IPM loop around the Riccati kernel).
     solve_backend: str = "fused"
     fused_block: int = 0
     fused_affine_tracks: bool = False

@@ -8,79 +8,38 @@ launches the kernel or raises, and counts each launch in
 ``solve_lqr_cuda.launches``.
 
 The kernel is built from the package's own source with ``nvcc`` at first
-use, into ``build/kissmpc_tpu_torch/`` at the repository root (git-ignored),
-as a shared library with a plain C interface loaded through ctypes.
+use (`ops/_build.py`), as a shared library with a plain C interface loaded
+through ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from . import _build
 from .lqr import LQRData, LQRSolution, solve_lqr
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "riccati.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kissmpc_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA Riccati kernel cannot be built")
+SOURCE = _build.CSRC / "riccati.cu"
 
 
 def build() -> Path:
-    """Compile `csrc/riccati.cu` (once per source content); return the .so.
-
-    The library name carries a hash of the source, so an edited kernel is
-    rebuilt and a stale one is never loaded.  The compiler's register and
-    spill report (``-Xptxas -v``) is kept beside it as ``.log``.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libkissmpc_riccati-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True,
-        text=True,
-    )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
-    lib.with_suffix(".log").write_text(log)
-    os.replace(tmp, lib)
-    return lib
+    """Compile `csrc/riccati.cu` (once per source content); return the .so."""
+    return _build.build(SOURCE, "kissmpc_riccati")
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _build.load(SOURCE, "kissmpc_riccati")
     args = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_double, ctypes.c_void_p]
     for name in ("kissmpc_riccati_f32", "kissmpc_riccati_f64"):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.kissmpc_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.kissmpc_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -131,9 +90,7 @@ def solve_lqr_cuda(data: LQRData, reg: float = 0.0) -> LQRSolution:
             dx.data_ptr(), du.data_ptr(), gains.data_ptr(),
             Bsz, N, float(reg), stream,
         )
-    if err != 0:
-        msg = lib.kissmpc_cuda_error_string(err).decode()
-        raise RuntimeError(f"Riccati kernel launch failed: {msg} ({err})")
+    _build.check_launch(lib, err, "Riccati kernel")
     solve_lqr_cuda.launches += 1
     return LQRSolution(
         dx=dx, du=du, K=gains[..., :6].unflatten(-1, (2, 3)), k=gains[..., 6:]

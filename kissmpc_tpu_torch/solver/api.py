@@ -14,6 +14,7 @@ import torch
 
 from .._device import resolve_device
 from ..config import MPCConfig
+from ..ops.ipm_fused import solve_batch_fused
 from . import ipm
 from .problem import Diagnostics, Problem, Solution, gather, to_device
 
@@ -24,9 +25,12 @@ def _dispatch(cfg: MPCConfig, problems: Problem, *,
     """Backend dispatch for one batched solve (no refinement).
 
     ``iterations`` / ``mu_sigma`` are per-call schedule overrides (refine
-    stages), folded into the config as on the reference's jnp path.  Only
-    the "split" backend is ported: the torch IPM loop around the Riccati
-    kernel.  "fused" raises rather than running split in its place.
+    stages).  "fused" with float32 problems goes to the fused IPM kernel
+    (`ops/ipm_fused.solve_batch_fused`, which runs its plain version for
+    CPU tensors), taking both as runtime inputs; ``mu_sigma`` may be a
+    per-scenario [B] tensor there.  float64 problems take the split path, as
+    the reference sends f64 to its jnp path.  "split" is the torch IPM loop
+    around the Riccati kernel, with the overrides folded into the config.
     """
     sc = cfg.solver
     if sc.elastic_obstacles and sc.mehrotra != "off":
@@ -35,12 +39,14 @@ def _dispatch(cfg: MPCConfig, problems: Problem, *,
             "elastic_obstacles (the elastic condensation has no affine/"
             "corrector split); disable one of the two flags"
         )
-    if sc.solve_backend == "fused":
-        raise NotImplementedError(
-            "solve_backend='fused' (the fused IPM kernel) is ported in a "
-            "later slice; use solve_backend='split'"
+    if sc.solve_backend == "fused" and sc.mehrotra != "off":
+        raise ValueError(
+            "the fused backend has no predictor-corrector; use mehrotra='off' "
+            "(the reference ignores the flag there)"
         )
-    if sc.solve_backend != "split":
+    if sc.solve_backend == "fused" and problems.initial_state.dtype == torch.float32:
+        return solve_batch_fused(cfg, problems, iterations=iterations, mu_sigma=mu_sigma)
+    if sc.solve_backend not in ("fused", "split"):
         raise ValueError(f"unknown solve_backend {sc.solve_backend!r}")
     if sc.lqr_backend != "auto":
         raise ValueError(

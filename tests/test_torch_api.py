@@ -72,13 +72,14 @@ def test_solve_batch_with_refinement_matches_jax(batch):
 @pytest.mark.parametrize(
     "solver,err",
     [
-        (dict(solve_backend="fused"), NotImplementedError),
+        (dict(solve_backend="fused", elastic_obstacles=True), NotImplementedError),
         (dict(solve_backend="Split"), ValueError),
         (dict(lqr_backend="xla"), ValueError),
         (dict(mehrotra="pc"), NotImplementedError),
         (dict(mehrotra="sco"), ValueError),
         (dict(elastic_obstacles=True), NotImplementedError),
         (dict(elastic_obstacles=True, mehrotra="pc"), ValueError),
+        (dict(solve_backend="fused", mehrotra="pc"), ValueError),
     ],
 )
 def test_solve_batch_refusals(batch, solver, err):
@@ -113,6 +114,7 @@ def test_default_device_needs_cuda(batch):
 def test_import_leaves_jax_out():
     code = (
         "import sys, kissmpc_tpu_torch, kissmpc_tpu_torch.ops.riccati\n"
+        "import kissmpc_tpu_torch.ops.ipm_fused, kissmpc_tpu_torch.ops.probe\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kissmpc_tpu' or m.startswith('kissmpc_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
