@@ -5,18 +5,23 @@ against), for an NVIDIA H100.  Plain tensor code is PyTorch; the TPU's
 Pallas kernels become hand-written CUDA kernels under `csrc/`.  It imports
 neither `jax` nor `kissmpc_tpu`.
 
-Ported so far: config, models, obstacles, problem builders, the plain and
-CUDA Riccati solves, the batched IPM, the fused IPM kernel, the trip-count
-probe, `solve_batch` with both backends ("fused", the default, and
-"split"), the benchmark scenario pools, and the numpy bridge.  Every public
-entry point takes ``device=None``, which means ``"cuda"``; pass
-``device="cpu"`` to run on the CPU.
+Ported so far: config, models, obstacles (with `advance`), problem
+builders, the plain and CUDA Riccati solves, the batched IPM (Mehrotra
+"pc"/"soc" and elastic obstacles included), the fused IPM kernel (with its
+elastic branch), the trip-count probe, `solve_batch` with both backends
+("fused", the default, and "split"), `make_solver`, the receding-horizon
+agent and the episode loop (`environment.step`, `fleet_step`,
+`run_episode`), the benchmark scenario pools and episode worlds, and the
+numpy bridge.  Every public entry point takes ``device=None``, which means
+``"cuda"``; pass ``device="cpu"`` to run on the CPU.
 """
 
-from . import bridge, scenarios
+from . import agent, bridge, environment, scenarios
+from .agent import AgentParams, AgentState
 from .config import CostConfig, MPCConfig, SolverConfig
+from .environment import EnvState, StepInfo
 from .obstacles import ObstacleSet, dynamic_set, static_set
-from .solver.api import make_batch_solver, solve_batch
+from .solver.api import make_batch_solver, make_solver, solve_batch
 from .solver.problem import (
     Diagnostics,
     Problem,
@@ -44,7 +49,14 @@ __all__ = [
     "repair_warm_start",
     "complete_warm_start",
     "make_batch_solver",
+    "make_solver",
     "solve_batch",
+    "AgentParams",
+    "AgentState",
+    "EnvState",
+    "StepInfo",
+    "agent",
+    "environment",
     "bridge",
     "scenarios",
 ]

@@ -22,9 +22,9 @@ Fields the port reads differently from the JAX package:
 * ``lqr_backend``: the port picks the Riccati engine from the tensors'
   device (CUDA kernel on the card, plain torch on the CPU) and accepts only
   ``"auto"``.
-* ``mehrotra``: only ``"off"``; the fused backend raises ValueError for any
-  other value (the reference ignores it there).  ``elastic_obstacles``: only
-  False on either backend.
+* ``mehrotra``: ``"pc"`` and ``"soc"`` run on the split path; the fused
+  backend raises ValueError for them (the reference ignores the flag
+  there), and any other string raises ValueError.
 * ``fused_block``, ``fused_sublanes``: TPU tile settings of the reference's
   Pallas kernel.  Nothing on the card reads them; they never changed a
   result in the reference either.  ``fused_affine_tracks`` is read by the
@@ -65,7 +65,7 @@ class SolverConfig:
     mu_init: float = 1.0
     mu_sigma: float = 0.2
     mu_min: float = 1e-9
-    # Predictor-corrector mode: "off", "pc" or "soc" ("off" only, here).
+    # Predictor-corrector mode: "off", "pc" or "soc" (split backend only).
     mehrotra: str = "off"
     # Per-scenario adaptive centering cap (0 disables): sigma grows 1.5x
     # toward max(mu_sigma_max, mu_sigma) on throttled steps outside the
@@ -84,7 +84,8 @@ class SolverConfig:
     slack_floor: float = 1e-12
     # Exact curvature of the obstacle distance constraint in the Hessian.
     obstacle_curvature: bool = True
-    # Elastic obstacle constraints (not ported yet on either backend).
+    # Elastic obstacle constraints c + e - s = 0, e >= 0, with the penalty
+    # elastic_penalty * e (both backends).
     elastic_obstacles: bool = False
     elastic_penalty: float = 1e4
     # KKT tolerance used only to report convergence.

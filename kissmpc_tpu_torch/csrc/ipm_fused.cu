@@ -11,8 +11,18 @@
 // with fraction to the boundary, the l1 penalty rho, the merit line search
 // with the finite-merit fallback, the updates with the dual clamp, and the
 // reg and adaptive-sigma schedules; last, the exact KKT diagnostics through
-// an adjoint sweep.  The elastic obstacle branch of the TPU kernel is not
-// ported: the wrapper refuses elastic_obstacles.
+// an adjoint sweep.
+//
+// Elastic obstacles (template switch ELASTIC, instantiated twice and picked
+// by the launcher, so the hard path is compiled without the branch): each
+// obstacle constraint is c + e - s = 0, e >= 0, with the penalty rho_e * e.
+// e lives in its own K*N scratch rows, starts at max(s - c, mu / rho_e),
+// and the condensation takes the eliminated stiffness
+// sig_eff = (1/sig_s + 1/sig_e)^-1 with sig_e = mu / e^2.  The eliminated
+// step (ds, de, dnu) is recomputed from the iterate wherever it is needed
+// (fraction to the boundary, each line-search candidate, the update) rather
+// than stored; e joins the fraction to the boundary, and the merit gains
+// log e, rho_e * e and |c + e - s|.
 //
 // What bounds it: operations.  Its device-memory input and output is about
 // 2 KB per scenario (27 problem rows, the warm start, the tracks, the
@@ -64,9 +74,10 @@
 struct FusedParams {
   int B, N, K, ls_iters;
   int exclude_terminal, reverse_squared, curvature, affine, adaptive_sigma;
+  int elastic;
   float dt, tau, reg, mu_init, mu_floor, mu_sigma_max, ls_backtrack;
   float alpha_min_factor, merit_penalty, kkt_tol, comp_tol;
-  float w0, w1, w2, w_neg, w_pos, w_ang;
+  float w0, w1, w2, w_neg, w_pos, w_ang, rho_e;
 };
 
 namespace {
@@ -79,9 +90,10 @@ constexpr float kEps = 1.1920929e-07f;
 
 // Scratch rows per scenario: slacks and duals of the control families
 // (4N each), of the state families (6(N+1) each), of the obstacles (KN
-// each), the gains (8N), dx (3(N+1)) and du (2N).
-__host__ __device__ inline int scratch_rows(int N, int K) {
-  return 18 * N + 15 * (N + 1) + 2 * K * N;
+// each), the gains (8N), dx (3(N+1)) and du (2N); with elastic obstacles,
+// their e (KN) last.
+__host__ __device__ inline int scratch_rows(int N, int K, bool elastic) {
+  return 18 * N + 15 * (N + 1) + (elastic ? 3 : 2) * K * N;
 }
 
 __device__ __forceinline__ float maxp(float a, float b) {
@@ -113,6 +125,15 @@ struct Merit {  // merit components at a trial point
   float obj, eq, log, cons;
 };
 
+struct ElCoef {  // condensed quantities of an elastic constraint c + e - s = 0
+  float T, r_e, r_c, sig_s, sig_e, sig_eff;
+};
+
+struct ElStep {  // its eliminated Newton step
+  float ds, de, dnu;
+};
+
+template <bool ELASTIC>
 __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     const int* __restrict__ iters_in, const float* __restrict__ scal_in,
     const float* __restrict__ warm_in, const float* __restrict__ tx_in,
@@ -144,6 +165,7 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
   const Rows Sob = take(K * N), NUob = take(K * N);       // k-major
   const Rows KK = take(8 * N);                            // K00..K12, k0, k1
   const Rows DX = take(3 * T1), DU = take(2 * N);         // Newton direction
+  const Rows Eob = take(ELASTIC ? K * N : 0);             // elastic e, k-major
 
   // --- problem rows ----------------------------------------------------
   const float x0 = scal[0], y0 = scal[1], th0 = scal[2];
@@ -188,23 +210,24 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
   };
   // Visits every inequality element at the current iterate, in the order
   // controls (vl, vu, wl, wu), states (xl_i, xu_i), obstacles:
-  // fn(c, s, nu, mask, J dz, is_box) with s and nu writable.
+  // fn(c, s, nu, mask, J dz, row) with s and nu writable; row is the
+  // obstacle element's scratch row, -1 for a box element.
   auto visit = [&](auto&& fn) {
     for (int t = 0; t < N; ++t) {
       const float v = V[t], w = W[t], dv = DU[t], dw = DU[N + t];
-      fn(v - v_lb, Sc[t], NUc[t], m_vl, dv, true);
-      fn(v_ub - v, Sc[N + t], NUc[N + t], m_vu, -dv, true);
-      fn(w - w_lb, Sc[2 * N + t], NUc[2 * N + t], m_wl, dw, true);
-      fn(w_ub - w, Sc[3 * N + t], NUc[3 * N + t], m_wu, -dw, true);
+      fn(v - v_lb, Sc[t], NUc[t], m_vl, dv, -1);
+      fn(v_ub - v, Sc[N + t], NUc[N + t], m_vu, -dv, -1);
+      fn(w - w_lb, Sc[2 * N + t], NUc[2 * N + t], m_wl, dw, -1);
+      fn(w_ub - w, Sc[3 * N + t], NUc[3 * N + t], m_wu, -dw, -1);
     }
     for (int t = 0; t <= N; ++t) {
       const float comp[3] = {X[t], Y[t], TH[t]};
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const float d = DX[i * T1 + t];
-        fn(comp[i] - xlb[i], Sx[i * T1 + t], NUx[i * T1 + t], m_xl[i], d, true);
+        fn(comp[i] - xlb[i], Sx[i * T1 + t], NUx[i * T1 + t], m_xl[i], d, -1);
         fn(xub[i] - comp[i], Sx[(3 + i) * T1 + t], NUx[(3 + i) * T1 + t],
-           m_xu[i], -d, true);
+           m_xu[i], -d, -1);
       }
     }
     for (int k = 0; k < K; ++k) {
@@ -212,7 +235,7 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
       for (int tt = 0; tt < N; ++tt) {
         const Geo g = geo(k, tt, X[tt + 1], Y[tt + 1]);
         fn(g.c, Sob[k * N + tt], NUob[k * N + tt], om,
-           g.nx * DX[tt + 1] + g.ny * DX[T1 + tt + 1], false);
+           g.nx * DX[tt + 1] + g.ny * DX[T1 + tt + 1], k * N + tt);
       }
     }
   };
@@ -222,14 +245,27 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
   auto ftb = [&](float v, float dv) {
     return dv < 0.f ? -p.tau * v / minp(dv, -1e-30f) : 1.f;
   };
+  // Elastic condensation of c + e - s = 0 at barrier mu (f32 floors).
+  auto el_coef = [&](float c, float s, float nu, float e, float m, float mu) {
+    const float s_safe = maxp(s, kFloor), e_safe = maxp(e, kFloor);
+    const float sig_s = sigma(nu, s, m);
+    const float sig_e = clipp(mu / (e_safe * e_safe), 0.f, kSigmaMax);
+    return ElCoef{mu / s_safe - nu, p.rho_e - mu / e_safe - nu, c + e - s, sig_s, sig_e,
+                  m * sig_s * sig_e / maxp(sig_s + sig_e, kFloor)};
+  };
+  auto el_step = [&](const ElCoef& q, float m, float jdz) {
+    const float beta = q.sig_e / maxp(q.sig_s + q.sig_e, kFloor);
+    const float ds = m * beta * (jdz + q.r_c + (q.T - q.r_e) / q.sig_e);
+    return ElStep{ds, m * (q.T - q.r_e - q.sig_s * ds) / q.sig_e, m * (q.T - q.sig_s * ds)};
+  };
 
   // Merit components at z + a dz, with the slack steps of the current
   // iterate: objective, equality residuals (defects and initial-state pin),
   // the log barrier of every family and the obstacle consistency.  The box
   // families' consistency is affine along the step, (1 - a) * consist0,
-  // and is added by the caller.
-  auto merit_pass = [&](float a) {
-    float s_goal = 0.f, s_neg = 0.f, s_pos = 0.f, s_ang = 0.f;
+  // and is added by the caller.  ``mu`` enters only the elastic step.
+  auto merit_pass = [&](float a, float mu) {
+    float s_goal = 0.f, s_neg = 0.f, s_pos = 0.f, s_ang = 0.f, s_el = 0.f;
     float e0 = 0.f, e1 = 0.f, e2 = 0.f, lg = 0.f, cons = 0.f;
     float pin0 = 0.f, pin1 = 0.f, pin2 = 0.f;
     float xp = 0.f, yp = 0.f, thp = 0.f, vp = 0.f, wp = 0.f;  // trial step t-1
@@ -252,11 +288,21 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
         for (int k = 0; k < K; ++k) {
           const float om = OBI[K + k];
           const Geo g = geo(k, t - 1, comp[0], comp[1]);
-          const float s = Sob[k * N + t - 1];
-          const float ds = om * (g.nx * dz[0] + g.ny * dz[1] + g.c - s);
-          const float ts = s + a * ds;
-          lg += om * logf(maxp(ts, 1e-30f));
-          cons += om * fabsf(geo(k, t - 1, xs, ys).c - ts);
+          const int r = k * N + t - 1;
+          const float s = Sob[r], jdz = g.nx * dz[0] + g.ny * dz[1];
+          if (ELASTIC) {
+            const float e = Eob[r];
+            const ElStep st = el_step(el_coef(g.c, s, NUob[r], e, om, mu), om, jdz);
+            const float ts = s + a * st.ds, te = e + a * st.de;
+            lg += om * logf(maxp(ts, 1e-30f));
+            lg += om * logf(maxp(te, 1e-30f));
+            s_el += om * te;
+            cons += om * fabsf(geo(k, t - 1, xs, ys).c + te - ts);
+          } else {
+            const float ts = s + a * (om * (jdz + g.c - s));
+            lg += om * logf(maxp(ts, 1e-30f));
+            cons += om * fabsf(geo(k, t - 1, xs, ys).c - ts);
+          }
         }
       }
 #pragma unroll
@@ -295,6 +341,7 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     obj = obj + p.w_neg * s_neg;
     obj = obj + p.w_pos * s_pos;
     obj = obj + p.w_ang * s_ang;
+    if (ELASTIC) obj = obj + p.rho_e * s_el;
     return Merit{obj, e0 + e1 + e2 + pin0 + pin1 + pin2, lg, cons};
   };
 
@@ -305,11 +352,11 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
   };
   auto reduce = [&]() {
     Red r{0.f, 0.f, 0.f, 0.f};
-    visit([&](float c, float& s, float& nu, float m, float, bool box) {
+    visit([&](float c, float& s, float& nu, float m, float, int row) {
       r.tot += m * s * nu;
       r.cnt += m;
       r.nu_max = maxp(r.nu_max, m * nu);
-      if (box) r.cons_box += m * fabsf(c - s);
+      if (row < 0) r.cons_box += m * fabsf(c - s);
     });
     return r;
   };
@@ -326,7 +373,7 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     W[t] = warm[3 * T1 + N + t];
     DU[t] = DU[N + t] = 0.f;
   }
-  visit([&](float c, float& s, float& nu, float m, float, bool) {
+  visit([&](float c, float& s, float& nu, float m, float, int row) {
     if (m > 0.f) {
       s = maxp(c, 1e-2f);
       nu = p.mu_init / s;
@@ -334,13 +381,16 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
       s = 1.f;
       nu = 0.f;
     }
+    // Central-ish elastic init: e solves c + e = s where violated, else
+    // sits at mu / rho_e.
+    if (ELASTIC && row >= 0) Eob[row] = m > 0.f ? maxp(s - c, p.mu_init / p.rho_e) : 1.f;
   });
   // Merit components of the current iterate, carried across iterations
   // (the accepted candidate's become the next iteration's).
   float m_obj, m_log, m_eqc;
   {
     const Red r0 = reduce();
-    const Merit m0 = merit_pass(0.f);  // the direction is zero here
+    const Merit m0 = merit_pass(0.f, p.mu_init);  // the direction is zero here
     m_obj = m0.obj;
     m_log = m0.log;
     m_eqc = m0.eq + (r0.cons_box + m0.cons);
@@ -376,8 +426,15 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
         const float om = OBI[K + k];
         const Geo G = geo(k, t - 1, comp[0], comp[1]);
         const float s = Sob[k * N + t - 1], nu = NUob[k * N + t - 1];
-        const float sg = sigma(nu, s, om);
-        const float gc = om * (mu / maxp(s, kFloor) - sg * (G.c - s));
+        float sg, gc;
+        if (ELASTIC) {
+          const ElCoef q = el_coef(G.c, s, nu, Eob[k * N + t - 1], om, mu);
+          sg = q.sig_eff;
+          gc = om * (nu - sg * q.r_c + sg * (q.T / maxp(q.sig_s, kFloor) + q.r_e / q.sig_e));
+        } else {
+          sg = sigma(nu, s, om);
+          gc = om * (mu / maxp(s, kFloor) - sg * (G.c - s));
+        }
         float h00 = sg * G.nx * G.nx, h01 = sg * G.nx * G.ny, h11 = sg * G.ny * G.ny;
         if (p.curvature) {
           const float dsafe = maxp(G.c + (OBI[k] + infl), 1e-2f);
@@ -525,7 +582,15 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
 
     // --- slack / dual steps: fraction to the boundary ----------------------
     float alpha_s = 1.f, alpha_nu = 1.f;
-    visit([&](float c, float& s, float& nu, float m, float jdz, bool) {
+    visit([&](float c, float& s, float& nu, float m, float jdz, int row) {
+      if (ELASTIC && row >= 0) {
+        const float e = Eob[row];
+        const ElStep st = el_step(el_coef(c, s, nu, e, m, mu), m, jdz);
+        alpha_s = minp(alpha_s, ftb(s, st.ds));
+        alpha_s = minp(alpha_s, ftb(e, st.de));
+        alpha_nu = minp(alpha_nu, ftb(nu, st.dnu));
+        return;
+      }
       const float ds = m * (jdz + c - s);
       const float dnu = m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds);
       alpha_s = minp(alpha_s, ftb(s, ds));
@@ -544,7 +609,7 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     bool found = false, fin_last = false;
     int n_rej = 0;
     for (int j = 0; j < p.ls_iters; ++j) {
-      const Merit M = merit_pass(aj);
+      const Merit M = merit_pass(aj, mu);
       const float eqc = M.eq + ((1.f - aj) * r.cons_box + M.cons);
       const float m = M.obj - mu * M.log + rho * eqc;
       const bool fin = isfinite(m);
@@ -576,9 +641,17 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     alpha_nu = minp(alpha_nu, alpha);
 
     // --- updates with the dual clamp -----------------------------------------
-    visit([&](float c, float& s, float& nu, float m, float jdz, bool) {
-      const float ds = m * (jdz + c - s);
-      const float dnu = m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds);
+    visit([&](float c, float& s, float& nu, float m, float jdz, int row) {
+      float ds, dnu;
+      if (ELASTIC && row >= 0) {
+        const ElStep st = el_step(el_coef(c, s, nu, Eob[row], m, mu), m, jdz);
+        ds = st.ds;
+        dnu = st.dnu;
+        Eob[row] = Eob[row] + alpha * st.de;
+      } else {
+        ds = m * (jdz + c - s);
+        dnu = m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds);
+      }
       const float s_new = s + alpha * ds;
       const float center = mu / maxp(s_new, kFloor);
       nu = m * clipp(nu + alpha_nu * dnu, center / kKappa, center * kKappa);
@@ -606,7 +679,7 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
 
   // --- exact KKT diagnostics at the final iterate ---------------------------
   float nu_sum = 0.f, nu_cnt = 0.f, viol = 0.f, comp = 0.f, tot = 0.f;
-  visit([&](float c, float& s, float& nu, float m, float, bool) {
+  visit([&](float c, float& s, float& nu, float m, float, int) {
     nu_sum += m * fabsf(nu);
     nu_cnt += m;
     viol = maxp(viol, m * maxp(-c, 0.f));
@@ -692,8 +765,8 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
 
 }  // namespace
 
-extern "C" int kissmpc_ipm_fused_scratch_rows(int N, int K) {
-  return scratch_rows(N, K);
+extern "C" int kissmpc_ipm_fused_scratch_rows(int N, int K, int elastic) {
+  return scratch_rows(N, K, elastic != 0);
 }
 
 extern "C" int kissmpc_ipm_fused_f32(
@@ -704,7 +777,8 @@ extern "C" int kissmpc_ipm_fused_f32(
   const FusedParams p = *params;
   if (p.B > 0) {
     const int blocks = (p.B + kThreads - 1) / kThreads;
-    ipm_fused_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto* kernel = p.elastic && p.K > 0 ? ipm_fused_kernel<true> : ipm_fused_kernel<false>;
+    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(iters), static_cast<const float*>(scal),
         static_cast<const float*>(warm), static_cast<const float*>(tx),
         static_cast<const float*>(ty), static_cast<const float*>(obinfo),

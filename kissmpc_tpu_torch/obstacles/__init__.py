@@ -2,6 +2,7 @@ from .obstacles import (
     HUMAN_RADIUS,
     PREDICTION_DT,
     ObstacleSet,
+    advance,
     clearance_to_point,
     distance_to_point,
     dynamic_set,
@@ -9,12 +10,14 @@ from .obstacles import (
     predict_tracks,
     select_nearest,
     static_set,
+    to_device,
 )
 
 __all__ = [
     "HUMAN_RADIUS",
     "PREDICTION_DT",
     "ObstacleSet",
+    "advance",
     "clearance_to_point",
     "distance_to_point",
     "dynamic_set",
@@ -22,4 +25,5 @@ __all__ = [
     "predict_tracks",
     "select_nearest",
     "static_set",
+    "to_device",
 ]

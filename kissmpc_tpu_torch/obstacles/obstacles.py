@@ -33,6 +33,11 @@ class ObstacleSet(NamedTuple):
         return self.position.shape[-2]
 
 
+def to_device(obs: ObstacleSet | None, device) -> ObstacleSet | None:
+    """Every field moved to ``device``; None stays None."""
+    return None if obs is None else ObstacleSet(*(x.to(device) for x in obs))
+
+
 def empty(max_obstacles: int, dtype=torch.float32, device=None) -> ObstacleSet:
     dev = resolve_device(device)
     z = torch.zeros((max_obstacles,), dtype=dtype, device=dev)
@@ -128,6 +133,23 @@ def predict_tracks(obs: ObstacleSet, horizon: int, dt: float = PREDICTION_DT):
     cs = torch.cumsum(step[..., :-1, :], dim=-2)
     return obs.position[..., None, :] + torch.cat(
         [torch.zeros_like(step[..., :1, :]), cs], dim=-2
+    )
+
+
+def advance(obs: ObstacleSet, dt: float) -> ObstacleSet:
+    """One world-clock step of the constant-velocity unicycle obstacle model
+    (the closed-loop counterpart of `predict_tracks`): move by v*dt along
+    the heading, then turn by w*dt.  Inactive slots don't move."""
+    act = obs.active > 0.5
+    move = torch.stack(
+        [obs.linear_velocity * torch.cos(obs.orientation) * dt,
+         obs.linear_velocity * torch.sin(obs.orientation) * dt],
+        dim=-1,
+    )
+    zero = torch.zeros((), dtype=obs.position.dtype, device=obs.position.device)
+    return obs._replace(
+        position=obs.position + torch.where(act[..., None], move, zero),
+        orientation=obs.orientation + torch.where(act, obs.angular_velocity * dt, zero),
     )
 
 

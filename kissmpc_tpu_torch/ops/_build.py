@@ -35,8 +35,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def build(source: Path, name: str) -> Path:
-    """Compile ``source`` (once per source content) to ``lib<name>-<hash>.so``.
+def build(source: Path, name: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``source`` (once per source content) to
+    ``build_dir/lib<name>-<hash>.so``.
 
     The library name carries a hash of the source, so an edited kernel is
     rebuilt and a stale one is never loaded.  The compiler's register and
@@ -45,10 +46,10 @@ def build(source: Path, name: str) -> Path:
     file.
     """
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    lib = build_dir / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
@@ -63,10 +64,10 @@ def build(source: Path, name: str) -> Path:
     return lib
 
 
-def load(source: Path, name: str) -> ctypes.CDLL:
+def load(source: Path, name: str, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
     """Build ``source`` if needed and load it; binds the shared error-string
     function every library exports."""
-    lib = ctypes.CDLL(str(build(source, name)))
+    lib = ctypes.CDLL(str(build(source, name, build_dir)))
     lib.kissmpc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.kissmpc_cuda_error_string.restype = ctypes.c_char_p
     return lib

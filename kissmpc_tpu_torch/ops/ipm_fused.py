@@ -29,11 +29,18 @@ where the fused algorithm does:
   plain version also runs in float64 as a measure of the f32 system's
   conditioning.
 
+With ``elastic_obstacles`` (and K > 0) each obstacle constraint becomes
+c + e - s = 0, e >= 0, penalised by ``elastic_penalty * e``: e starts
+central-ish, the condensation takes the eliminated stiffness of
+`solver/ipm.py::elastic_coef`, the step eliminates (ds, de, dnu), e joins
+the fraction to the boundary and the merit (log e, rho_e * e, |c + e - s|),
+and e is carried with the iterate.  The kernel takes the branch as a
+compile-time switch, so the hard path is built without it.
+
 ``iterations`` and ``mu_sigma`` are runtime inputs: the trip count reaches
 the kernel as a one-element int32 tensor on the card that the kernel reads,
 so one build serves every refine stage.  ``mu_sigma`` may be a scalar or a
-per-scenario [B] tensor.  ``elastic_obstacles`` is not ported on this
-backend and raises NotImplementedError.
+per-scenario [B] tensor.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import torch
 
 from . import _build
 from ..config import MPCConfig
-from ..solver.ipm import _amax, _sum
+from ..solver.ipm import _amax, _sum, elastic_coef, elastic_step
 from ..solver.problem import Diagnostics, Problem, Solution
 
 SOURCE = _build.CSRC / "ipm_fused.cu"
@@ -80,16 +87,17 @@ class FusedInputs(NamedTuple):
     affine_dev: torch.Tensor | None
 
 
+def _elastic(cfg: MPCConfig) -> bool:
+    """Whether the elastic obstacle branch runs (it needs obstacles)."""
+    return cfg.max_obstacles > 0 and cfg.solver.elastic_obstacles
+
+
 def _check_supported(cfg: MPCConfig) -> None:
     sc = cfg.solver
     if sc.mehrotra != "off":
         raise ValueError(
             f"the fused backend has no predictor-corrector; mehrotra must be "
             f"'off', got {sc.mehrotra!r}"
-        )
-    if sc.elastic_obstacles:
-        raise NotImplementedError(
-            "elastic_obstacles is not ported on the fused backend yet"
         )
 
 
@@ -210,6 +218,8 @@ def _plain(cfg: MPCConfig, inp: FusedInputs, iterations: int):
     gm = gm.to(scal.dtype)[None, :]  # [1, T1]
     mu_floor = max(sc.mu_min, 50.0 * EPS32)
     zeros = torch.zeros(B, dtype=scal.dtype, device=scal.device)
+    elastic = _elastic(cfg)
+    rho_e = sc.elastic_penalty
 
     if K > 0:
         ob = inp.obinfo
@@ -273,6 +283,11 @@ def _plain(cfg: MPCConfig, inp: FusedInputs, iterations: int):
     if K > 0:
         c_ob, _, _ = obstacle(x, y)
         s_ob, nu_ob = init_pair(c_ob, obm)
+        if elastic:
+            # Central-ish elastic init: e solves c + e = s where violated,
+            # else sits at mu / rho_e.
+            e_ob = torch.where(obm > 0, torch.clamp(s_ob - c_ob, min=mu0 / rho_e),
+                               torch.ones_like(s_ob))
 
     m_obj, m_eq, _ = merit_terms(x, y, th, v, w)
     m_log, m_cons = zeros, zeros
@@ -281,7 +296,12 @@ def _plain(cfg: MPCConfig, inp: FusedInputs, iterations: int):
         m_cons = m_cons + _sum(m * torch.abs(c - s))
     if K > 0:
         m_log = m_log + _sum(obm * torch.log(torch.clamp(s_ob, min=1e-30)))
-        m_cons = m_cons + _sum(obm * torch.abs(c_ob - s_ob))
+        if elastic:
+            m_log = m_log + _sum(obm * torch.log(torch.clamp(e_ob, min=1e-30)))
+            m_obj = m_obj + rho_e * _sum(obm * e_ob)
+            m_cons = m_cons + _sum(obm * torch.abs(c_ob + e_ob - s_ob))
+        else:
+            m_cons = m_cons + _sum(obm * torch.abs(c_ob - s_ob))
     m_eqc = m_eq + m_cons
 
     reg = torch.full_like(zeros, sc.reg)
@@ -337,7 +357,12 @@ def _plain(cfg: MPCConfig, inp: FusedInputs, iterations: int):
             Qd[i] = Qd[i] + s_l + s_u
         Qxy = torch.zeros_like(x)  # state-indexed, zero at state 0
         if K > 0:
-            g_o, sig_o = grad_coef(c_ob, s_ob, nu_ob, obm)
+            if elastic:
+                el = elastic_coef(c_ob, s_ob, nu_ob, e_ob, obm, mu3, rho_e,
+                                  F32_FLOOR, SIGMA_MAX)
+                g_o, sig_o = el.g, el.sig_eff
+            else:
+                g_o, sig_o = grad_coef(c_ob, s_ob, nu_ob, obm)
             h00 = sig_o * nx * nx
             h01 = sig_o * nx * ny
             h11 = sig_o * ny * ny
@@ -456,22 +481,33 @@ def _plain(cfg: MPCConfig, inp: FusedInputs, iterations: int):
         # --- slack / dual steps, fraction to the boundary ------------------
         jdz = [ddv, -ddv, ddw, -ddw, ddx, ddy, ddth, -ddx, -ddy, -ddth]
         ds_box = [m * (j + c - s) for m, j, c, s in zip(masks, jdz, boxc, s_box)]
-        fam_ds = ds_box[:]
-        if K > 0:
-            jdz_ob = nx * ddx[:, None, 1:] + ny * ddy[:, None, 1:]
-            ds_ob = obm * (jdz_ob + c_ob - s_ob)
-            fam_ds.append(ds_ob)
 
         def dnu_of(s, nu, m, ds):
             mu_b = mu3 if s.dim() == 3 else mu1
             return m * (mu_b / torch.clamp(s, min=F32_FLOOR) - nu - _sigma(nu, s, m) * ds)
 
+        dnu_box = [dnu_of(s, nu, m, ds) for s, nu, m, ds in zip(s_box, nu_box, masks, ds_box)]
+        fam_ds, fam_dnu = ds_box[:], dnu_box[:]
+        if K > 0:
+            jdz_ob = nx * ddx[:, None, 1:] + ny * ddy[:, None, 1:]
+            if elastic:
+                # The eliminated (ds, de, dnu) of c + e - s = 0, from the
+                # condensation's coefficients (same iterate, same mu).
+                ds_ob, de_ob, dnu_ob = elastic_step(el, obm, jdz_ob, F32_FLOOR)
+            else:
+                ds_ob = obm * (jdz_ob + c_ob - s_ob)
+                dnu_ob = dnu_of(s_ob, nu_ob, obm, ds_ob)
+            fam_ds.append(ds_ob)
+            fam_dnu.append(dnu_ob)
+
         tau = sc.tau
         alpha_s = torch.ones_like(zeros)
         alpha_nu = torch.ones_like(zeros)
-        for s, nu, m, ds in zip(fam_s, fam_nu, fam_m, fam_ds):
+        for s, nu, ds, dnu in zip(fam_s, fam_nu, fam_ds, fam_dnu):
             alpha_s = torch.minimum(alpha_s, _ftb(s, ds, tau))
-            alpha_nu = torch.minimum(alpha_nu, _ftb(nu, dnu_of(s, nu, m, ds), tau))
+            alpha_nu = torch.minimum(alpha_nu, _ftb(nu, dnu, tau))
+        if elastic:
+            alpha_s = torch.minimum(alpha_s, _ftb(e_ob, de_ob, tau))
 
         nu_max = zeros
         for nu, m in zip(fam_nu, fam_m):
@@ -495,7 +531,13 @@ def _plain(cfg: MPCConfig, inp: FusedInputs, iterations: int):
                 ts = s_ob + a[..., None] * ds_ob
                 log_term = log_term + _sum(obm * torch.log(torch.clamp(ts, min=1e-30)))
                 c_trial, _, _ = obstacle(txv, tyv)
-                consist = consist + _sum(obm * torch.abs(c_trial - ts))
+                if elastic:
+                    te = e_ob + a[..., None] * de_ob
+                    log_term = log_term + _sum(obm * torch.log(torch.clamp(te, min=1e-30)))
+                    obj = obj + rho_e * _sum(obm * te)
+                    consist = consist + _sum(obm * torch.abs(c_trial + te - ts))
+                else:
+                    consist = consist + _sum(obm * torch.abs(c_trial - ts))
             eqc = eq + consist
             return obj - mu * log_term + rho * eqc, obj, log_term, eqc
 
@@ -540,19 +582,21 @@ def _plain(cfg: MPCConfig, inp: FusedInputs, iterations: int):
         # --- updates with the dual clamp -----------------------------------
         a1, an1 = alpha[:, None], alpha_nu[:, None]
 
-        def update(s, nu, m, ds, a, an, mu_b):
-            dnu = dnu_of(s, nu, m, ds)
+        def update(s, nu, m, ds, dnu, a, an, mu_b):
             s_new = s + a * ds
             center = mu_b / torch.clamp(s_new, min=F32_FLOOR)
             nu_new = m * torch.minimum(torch.maximum(nu + an * dnu, center / KAPPA),
                                        center * KAPPA)
             return s_new, nu_new
 
-        new = [update(s, nu, m, ds, a1, an1, mu1)
-               for s, nu, m, ds in zip(s_box, nu_box, masks, ds_box)]
+        new = [update(s, nu, m, ds, dnu, a1, an1, mu1)
+               for s, nu, m, ds, dnu in zip(s_box, nu_box, masks, ds_box, dnu_box)]
         s_box, nu_box = [s for s, _ in new], [nu for _, nu in new]
         if K > 0:
-            s_ob, nu_ob = update(s_ob, nu_ob, obm, ds_ob, a1[..., None], an1[..., None], mu3)
+            s_ob, nu_ob = update(s_ob, nu_ob, obm, ds_ob, dnu_ob, a1[..., None],
+                                 an1[..., None], mu3)
+            if elastic:
+                e_ob = e_ob + a1[..., None] * de_ob
         x, y, th = x + a1 * ddx, y + a1 * ddy, th + a1 * ddth
         v, w = v + a1 * ddv, w + a1 * ddw
 
@@ -650,11 +694,11 @@ class _Params(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "B", "N", "K", "ls_iters", "exclude_terminal", "reverse_squared",
-        "curvature", "affine", "adaptive_sigma",
+        "curvature", "affine", "adaptive_sigma", "elastic",
     )] + [(name, ctypes.c_float) for name in (
         "dt", "tau", "reg", "mu_init", "mu_floor", "mu_sigma_max",
         "ls_backtrack", "alpha_min_factor", "merit_penalty", "kkt_tol",
-        "comp_tol", "w0", "w1", "w2", "w_neg", "w_pos", "w_ang",
+        "comp_tol", "w0", "w1", "w2", "w_neg", "w_pos", "w_ang", "rho_e",
     )]
 
 
@@ -669,6 +713,7 @@ def _params(cfg: MPCConfig, B: int) -> _Params:
         curvature=int(sc.obstacle_curvature),
         affine=int(cfg.max_obstacles > 0 and sc.fused_affine_tracks),
         adaptive_sigma=int(sc.mu_sigma_max > 0.0),
+        elastic=int(_elastic(cfg)),
         dt=cfg.time_step, tau=sc.tau, reg=sc.reg, mu_init=sc.mu_init,
         mu_floor=max(sc.mu_min, 50.0 * EPS32), mu_sigma_max=sc.mu_sigma_max,
         ls_backtrack=sc.ls_backtrack,
@@ -677,18 +722,23 @@ def _params(cfg: MPCConfig, B: int) -> _Params:
         comp_tol=max(10.0 * sc.mu_min, kkt_tol),
         w0=w0, w1=w1, w2=w2, w_neg=cc.negative_velocity_weight,
         w_pos=cc.positive_velocity_weight, w_ang=cc.angular_velocity_weight,
+        rho_e=sc.elastic_penalty,
     )
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launcher's signature on a loaded build of ``SOURCE``."""
+    fn = lib.kissmpc_ipm_fused_f32
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.kissmpc_ipm_fused_scratch_rows.argtypes = [ctypes.c_int] * 3
+    lib.kissmpc_ipm_fused_scratch_rows.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE, "kissmpc_ipm_fused")
-    fn = lib.kissmpc_ipm_fused_f32
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.POINTER(_Params), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.kissmpc_ipm_fused_scratch_rows.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.kissmpc_ipm_fused_scratch_rows.restype = ctypes.c_int
-    return lib
+    return bind(_build.load(SOURCE, "kissmpc_ipm_fused"))
 
 
 def _check_problems(cfg: MPCConfig, problems: Problem) -> None:
@@ -743,7 +793,9 @@ def solve_batch_fused(cfg: MPCConfig, problems: Problem, *,
         trips = torch.tensor([iters], dtype=torch.int32, device=device)
         f32 = dict(dtype=torch.float32, device=device)
         outs = [torch.empty((rows, B), **f32) for rows in (T1, T1, T1, N, N, 6)]
-        scratch = torch.empty(lib.kissmpc_ipm_fused_scratch_rows(N, K) * B, **f32)
+        # The elastic e rows are allocated only when the branch is on.
+        rows = lib.kissmpc_ipm_fused_scratch_rows(N, K, int(_elastic(cfg)))
+        scratch = torch.empty(rows * B, **f32)
         params = _params(cfg, B)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.kissmpc_ipm_fused_f32(

@@ -1,10 +1,11 @@
-"""Benchmark scenario pools (torch builders over the reference's sampling).
+"""Benchmark scenario pools and episode worlds (torch builders over the
+reference's sampling).
 
-`sample_endpoints` and `sample_obstacle_field` are copies of the numpy
-sampling in `kissmpc_tpu/scenarios.py` (the port imports nothing of the JAX
-package), so one seed gives bit-identical geometry in both packages.
-`free_problems` and `obstacle_problems` build the batches with the port's
-own problem builders.
+`sample_endpoints`, `sample_obstacle_field` and `route_waypoints` are copies
+of the numpy code in `kissmpc_tpu/scenarios.py` (the port imports nothing of
+the JAX package), so one seed gives bit-identical geometry in both packages.
+`free_problems`, `obstacle_problems` and `episode_worlds` build the batches
+with the port's own builders.
 """
 
 from __future__ import annotations
@@ -150,3 +151,141 @@ def obstacle_problems(
         dtype=dtype,
         device=dev,
     )
+
+
+def route_waypoints(
+    starts: np.ndarray,  # [B, 3]
+    waypoints: np.ndarray,  # [B, W, 3]
+    centers: np.ndarray,  # [B, K, 2]
+    radii: np.ndarray,  # [B, K]
+    static_mask: np.ndarray,  # [B, K] bool: only static circles are routed
+    inflation: float,
+    margin: float = 0.25,
+):
+    """Insert one detour point per leg around the worst blocking static
+    circle (a coarse stand-in for the reference's global plan): the foot of
+    the perpendicular pushed out to radius + inflation + margin, or the leg's
+    midpoint where nothing blocks, giving [B, 2W, 3]; then every routed
+    point is projected out of every static disk."""
+    B, W, _ = waypoints.shape
+    out = np.zeros((B, 2 * W, 3), waypoints.dtype)
+    prev = starts[:, :2]
+    need = radii + inflation  # [B, K]
+    for w in range(W):
+        q = waypoints[:, w, :2]
+        d = q - prev  # [B, 2]
+        L2 = np.maximum(np.sum(d * d, axis=1, keepdims=True), 1e-9)
+        t = np.clip(
+            np.einsum("bkd,bd->bk", centers - prev[:, None, :], d) / L2,
+            0.0, 1.0,
+        )  # [B, K]
+        foot = prev[:, None, :] + t[..., None] * d[:, None, :]  # [B, K, 2]
+        away = foot - centers  # [B, K, 2]
+        dist = np.linalg.norm(away, axis=-1)  # [B, K]
+        depth = np.where(static_mask, need - dist, -np.inf)
+        k = np.argmax(depth, axis=1)  # worst blocker per episode
+        bi = np.arange(B)
+        blocked = depth[bi, k] > 0.0
+        a = away[bi, k]
+        an = np.linalg.norm(a, axis=1, keepdims=True)
+        # Dead-center fallback: go perpendicular-left of the leg.
+        left = np.stack([-d[:, 1], d[:, 0]], axis=1) / np.sqrt(L2)
+        a_hat = np.where(an > 1e-6, a / np.maximum(an, 1e-9), left)
+        detour = centers[bi, k] + a_hat * (
+            (need[bi, k] + margin)[:, None]
+        )
+        mid = 0.5 * (prev + q)
+        pt = np.where(blocked[:, None], detour, mid)
+        heading = np.arctan2(q[:, 1] - pt[:, 1], q[:, 0] - pt[:, 0])
+        out[:, 2 * w, :2] = pt
+        out[:, 2 * w, 2] = heading
+        out[:, 2 * w + 1] = waypoints[:, w]
+        prev = q
+    # Inserted points can land inside other circles: push every routed
+    # point out of every static disk, summed over all the disks it violates
+    # (worst-only pushes cycle inside overlapping disks).
+    for _ in range(6):
+        for w in range(2 * W):
+            p = out[:, w, :2]
+            d = p[:, None, :] - centers  # [B, K, 2]
+            dist = np.maximum(np.linalg.norm(d, axis=-1), 1e-6)
+            depth = np.where(
+                static_mask, need + margin * 0.5 - dist, -np.inf
+            )
+            push = np.maximum(depth, 0.0)  # [B, K]
+            out[:, w, :2] = p + np.sum(
+                d / dist[..., None] * push[..., None], axis=1
+            )
+    return out
+
+
+def episode_worlds(
+    cfg,
+    batch: int,
+    *,
+    n_waypoints: int = 3,
+    seed: int = 0,
+    n_dynamic: int = 2,
+    inflation: float = DEFAULT_INFLATION,
+    route_around_obstacles: bool = False,
+    router: str = "detour",
+    dtype=torch.float32,
+    device=None,
+):
+    """Batched receding-horizon episode worlds (the fleet-episode bench's):
+    per episode a start pose, a chain of ``n_waypoints`` reachable hops and
+    an obstacle field seeded along the first leg and cleared off every hop.
+
+    Returns ``(env: EnvState[B], obstacles: ObstacleSet[B, K])`` for
+    `environment.fleet_step`.  ``route_around_obstacles`` inserts a detour
+    point per leg (`route_waypoints`); ``router="grid"``, the reference's
+    batched grid planner (`kissmpc_tpu/planner.py`), is not ported yet.
+    """
+    from .environment import init_env
+    from .obstacles.obstacles import ObstacleSet, empty
+
+    dev = resolve_device(device)
+    K = cfg.max_obstacles
+    rng = np.random.default_rng(seed)
+    starts, first_goal = sample_endpoints(cfg, batch, rng)
+    # Waypoint chain: first hop = sampled goal, further hops random steps of
+    # comparable length (a decimated global plan).
+    hop_len = cfg.horizon * cfg.time_step * 0.5
+    hops = [first_goal]
+    for _ in range(n_waypoints - 1):
+        r = rng.uniform(0.3 * hop_len, 1.0 * hop_len, (batch, 1))
+        ang = rng.uniform(-np.pi, np.pi, (batch, 1))
+        prev = hops[-1]
+        hops.append(
+            np.concatenate(
+                [prev[:, 0:1] + r * np.cos(ang), prev[:, 1:2] + r * np.sin(ang),
+                 rng.uniform(-3.1, 3.1, (batch, 1))],
+                axis=1,
+            ).astype(np.float32)
+        )
+    waypoints = np.stack(hops, axis=1)  # [B, W, 3]
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    if K > 0:
+        centers, radii, orientation, v = sample_obstacle_field(
+            starts, first_goal, K, rng, n_dynamic=n_dynamic,
+            inflation=inflation, clear_points=hops[1:],
+        )
+        obstacles = ObstacleSet(
+            position=t(centers),
+            radius=t(radii),
+            orientation=t(orientation),
+            linear_velocity=t(v),
+            angular_velocity=torch.zeros((batch, K), dtype=dtype, device=dev),
+            active=torch.ones((batch, K), dtype=dtype, device=dev),
+        )
+        if route_around_obstacles:
+            if router == "grid":
+                raise NotImplementedError(
+                    'router="grid" needs the batched grid planner '
+                    "(kissmpc_tpu/planner.py), which a later slice ports; "
+                    'use router="detour"'
+                )
+            waypoints = route_waypoints(starts, waypoints, centers, radii, v == 0.0, inflation)
+    else:
+        obstacles = ObstacleSet(*(x.expand((batch,) + x.shape) for x in empty(0, dtype, dev)))
+    return init_env(cfg, t(starts), t(waypoints), dtype=dtype, device=dev), obstacles

@@ -1,8 +1,9 @@
 """Public solve API: batched solve with staged tail refinement (torch).
 
 Port of `kissmpc_tpu/solver/api.py`.  PyTorch runs eagerly, so
-`make_batch_solver` returns a plain closure over the config; `solve_batch`
-runs the batched IPM (`ipm.solve`) and then each refinement stage.
+`make_solver` and `make_batch_solver` return plain closures over the config;
+`solve_batch` runs the configured backend and then each refinement stage,
+`make_solver` the split IPM (`ipm.solve`) alone.
 """
 
 from __future__ import annotations
@@ -17,6 +18,29 @@ from ..config import MPCConfig
 from ..ops.ipm_fused import solve_batch_fused
 from . import ipm
 from .problem import Diagnostics, Problem, Solution, gather, to_device
+
+
+def _check_lqr_backend(cfg: MPCConfig) -> None:
+    if cfg.solver.lqr_backend != "auto":
+        raise ValueError(
+            "the port picks the Riccati engine from the tensors' device; "
+            f"lqr_backend must be 'auto', got {cfg.solver.lqr_backend!r}"
+        )
+
+
+def make_solver(cfg: MPCConfig, *, device=None):
+    """Solver closed over the config: Problem -> Solution by the split IPM,
+    with no refinement, as the reference's single-scenario `make_solver`
+    runs `ipm.solve`.  The port's builders make a single scenario as a batch
+    of one, and any batch works.  ``device=None`` runs on the card; the
+    problems are moved there."""
+    _check_lqr_backend(cfg)
+    dev = resolve_device(device)
+
+    def solve(problem: Problem) -> Solution:
+        return ipm.solve(cfg, to_device(problem, dev))
+
+    return solve
 
 
 def _dispatch(cfg: MPCConfig, problems: Problem, *,
@@ -48,11 +72,7 @@ def _dispatch(cfg: MPCConfig, problems: Problem, *,
         return solve_batch_fused(cfg, problems, iterations=iterations, mu_sigma=mu_sigma)
     if sc.solve_backend not in ("fused", "split"):
         raise ValueError(f"unknown solve_backend {sc.solve_backend!r}")
-    if sc.lqr_backend != "auto":
-        raise ValueError(
-            "the port picks the Riccati engine from the tensors' device; "
-            f"lqr_backend must be 'auto', got {sc.lqr_backend!r}"
-        )
+    _check_lqr_backend(cfg)
     if iterations is not None or mu_sigma is not None:
         if mu_sigma is not None and getattr(mu_sigma, "ndim", 0):
             raise ValueError(

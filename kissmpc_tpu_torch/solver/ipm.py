@@ -10,9 +10,13 @@ with the finite-merit fallback, dual clamp, adaptive reg and centering.
 
 The Newton-KKT solve goes to the CUDA Riccati kernel for CUDA tensors and to
 the plain `ops/lqr.py` for CPU tensors (`ops/riccati.solve_lqr_cuda`
-decides by device).  This slice ports ``mehrotra="off"`` with hard obstacle
-constraints; ``"pc"``/``"soc"`` and ``elastic_obstacles`` raise
-NotImplementedError, any other ``mehrotra`` string ValueError.
+decides by device).  ``mehrotra`` "pc" (affine probe, then the corrected
+solve at sigma = (mu_aff / mu)^3) and "soc" (the centred solve, then one
+corrected re-solve at the same mu) make two Riccati solves per iteration.
+``elastic_obstacles`` softens each obstacle constraint to c + e - s = 0,
+e >= 0, with the linear penalty ``elastic_penalty * e``; (ds, de, dnu) are
+eliminated, so the Riccati system keeps its shape.  Mehrotra with elastic,
+and any other ``mehrotra`` string, raise ValueError.
 
 Solver lessons kept from the reference (do not regress): rho dominates all
 multipliers including the dynamics adjoints; sigma = nu/s is never clipped
@@ -77,6 +81,9 @@ class IPMState(NamedTuple):
     nu_xl: torch.Tensor
     nu_xu: torch.Tensor
     nu_ob: torch.Tensor
+    # Elastic variables of the obstacle constraints (c + e - s = 0, e >= 0);
+    # ones and unused unless elastic_obstacles is set.
+    e_ob: torch.Tensor  # [B, N, K]
     reg: torch.Tensor  # [B] adaptive Levenberg regularization
     sigma: torch.Tensor  # [B] adaptive centering parameter
 
@@ -99,12 +106,6 @@ def _check_supported(cfg: MPCConfig) -> None:
         raise ValueError(
             "mehrotra predictor-corrector does not support elastic_obstacles"
         )
-    if sc.mehrotra != "off":
-        raise NotImplementedError(
-            f"mehrotra={sc.mehrotra!r} is not ported yet (only 'off')"
-        )
-    if sc.elastic_obstacles:
-        raise NotImplementedError("elastic_obstacles is not ported yet")
 
 
 def _constraint_masks(cfg: MPCConfig, problem: Problem, dtype) -> _Masks:
@@ -167,11 +168,23 @@ def _init_state(cfg: MPCConfig, problem: Problem) -> IPMState:
         return s, nu
 
     pairs = [init_pair(c, mask) for c, mask in zip(vals, m)]
+    s_ob = pairs[4][0]
+    if cfg.solver.elastic_obstacles:
+        # Central-ish elastic init: e solves c + e = s where violated, else
+        # sits at its barrier-central value mu / rho_e.
+        e_ob = torch.where(
+            m.ob > 0,
+            torch.clamp(s_ob - vals[4], min=mu0 / cfg.solver.elastic_penalty),
+            torch.ones_like(s_ob),
+        )
+    else:
+        e_ob = torch.ones_like(s_ob)
     full = lambda v: torch.full((B,), v, dtype=states.dtype, device=states.device)
     return IPMState(
         states, controls,
         *(s for s, _ in pairs),
         *(nu for _, nu in pairs),
+        e_ob,
         reg=full(cfg.solver.reg),
         sigma=full(cfg.solver.mu_sigma),
     )
@@ -191,31 +204,105 @@ def _sigma(nu, s, mask):
     )
 
 
-def _grad_coef(c, s, nu, mask, mu):
-    """Condensed gradient coefficient g_i = mu/s - sigma*(c - s); ``mu`` is
-    [B] shaped to broadcast."""
+def _grad_coef(c, s, nu, mask, mu, corr=None):
+    """Condensed gradient coefficient g_i = (mu - corr_i)/s - sigma*(c - s);
+    ``mu`` is [B] shaped to broadcast, ``corr`` the Mehrotra correction
+    ds_aff * dnu_aff of the family (None for the plain system)."""
     sig = _sigma(nu, s, mask)
-    return mask * (mu / torch.clamp(s, min=_floor(s.dtype)) - sig * (c - s)), sig
+    num = mu - corr if corr is not None else mu
+    return mask * (num / torch.clamp(s, min=_floor(s.dtype)) - sig * (c - s)), sig
+
+
+class Elastic(NamedTuple):
+    """Condensed quantities of an elastic inequality c + e - s = 0."""
+
+    g: torch.Tensor  # gradient coefficient of the z rows
+    T: torch.Tensor  # mu/s - nu
+    r_e: torch.Tensor  # rho_e - mu/e - nu
+    r_c: torch.Tensor  # c + e - s
+    sig_s: torch.Tensor  # nu/s
+    sig_e: torch.Tensor  # mu/e^2
+    sig_eff: torch.Tensor  # (1/sig_s + 1/sig_e)^-1, the condensed stiffness
+
+
+def elastic_coef(c, s, nu, e, mask, mu, rho_e, floor, sigma_max) -> Elastic:
+    """Eliminating (ds, de, dnu) from the primal-dual Newton system of
+    c + e - s = 0 leaves the stiffness sig_eff = (1/sig_s + 1/sig_e)^-1
+    and the gradient coefficient
+
+        g = nu - sig_eff*r_c + sig_eff*(T/sig_s + r_e/sig_e);
+
+    as sig_e -> inf (e pinned at 0) this is the hard coefficient
+    mu/s - sig_s*(c - s).  ``floor`` and ``sigma_max`` are the caller's."""
+    s_safe = torch.clamp(s, min=floor)
+    e_safe = torch.clamp(e, min=floor)
+    sig_s = torch.clamp(mask * nu / s_safe, 0.0, sigma_max)
+    sig_e = torch.clamp(mu / (e_safe * e_safe), 0.0, sigma_max)
+    sig_eff = mask * sig_s * sig_e / torch.clamp(sig_s + sig_e, min=floor)
+    T = mu / s_safe - nu
+    r_e = rho_e - mu / e_safe - nu
+    r_c = c + e - s
+    g = mask * (nu - sig_eff * r_c
+                + sig_eff * (T / torch.clamp(sig_s, min=floor) + r_e / sig_e))
+    return Elastic(g, T, r_e, r_c, sig_s, sig_e, sig_eff)
+
+
+def elastic_step(el: Elastic, mask, jdz, floor):
+    """The eliminated (ds, de, dnu) for the constraint step ``jdz`` = J dz."""
+    beta = el.sig_e / torch.clamp(el.sig_s + el.sig_e, min=floor)
+    ds = mask * beta * (jdz + el.r_c + (el.T - el.r_e) / el.sig_e)
+    de = mask * (el.T - el.r_e - el.sig_s * ds) / el.sig_e
+    return ds, de, mask * (el.T - el.sig_s * ds)
+
+
+def _elastic(cfg: MPCConfig, it: IPMState, c_ob, mask, mu) -> Elastic:
+    dtype = it.states.dtype
+    return elastic_coef(c_ob, it.s_ob, it.nu_ob, it.e_ob, mask, mu,
+                        cfg.solver.elastic_penalty, _floor(dtype), _sigma_max(dtype))
 
 
 def _merit(cfg: MPCConfig, problem: Problem, states, controls, slacks, mu, rho):
-    """l1 merit per scenario: barrier objective + rho * equality residuals."""
+    """l1 merit per scenario: barrier objective + rho * equality residuals.
+    ``slacks`` = (s_cl, s_cu, s_xl, s_xu, s_ob), with e_ob appended in
+    elastic mode, where the obstacle consistency is |c + e - s| and the
+    objective gains rho_e*e - mu*ln(e)."""
     vals, _, _, m = _constraint_values(cfg, problem, states, controls)
     obj = costs.total_cost(cfg.cost, states, controls, problem.goal_state)
     log_term = 0.0
     consist = 0.0
-    for c, s, mask in zip(vals, slacks, m):
-        if s.numel():
-            log_term = log_term + _sum(mask * torch.log(torch.clamp(s, min=1e-30)))
-            consist = consist + _sum(mask * torch.abs(c - s))
+    for c, s, mask in zip(vals[:4], slacks[:4], m[:4]):
+        log_term = log_term + _sum(mask * torch.log(torch.clamp(s, min=1e-30)))
+        consist = consist + _sum(mask * torch.abs(c - s))
+    c_ob, s_ob = vals[4], slacks[4]
+    if s_ob.numel():
+        log_term = log_term + _sum(m.ob * torch.log(torch.clamp(s_ob, min=1e-30)))
+        if cfg.solver.elastic_obstacles:
+            e_ob = slacks[5]
+            log_term = log_term + _sum(m.ob * torch.log(torch.clamp(e_ob, min=1e-30)))
+            obj = obj + cfg.solver.elastic_penalty * _sum(m.ob * e_ob)
+            consist = consist + _sum(m.ob * torch.abs(c_ob + e_ob - s_ob))
+        else:
+            consist = consist + _sum(m.ob * torch.abs(c_ob - s_ob))
     d = unicycle.defects(states, controls, cfg.time_step)
     pin = problem.initial_state - states[:, 0]
     eq = _sum(torch.abs(d)) + _sum(torch.abs(pin))
     return obj - mu * log_term + rho * (eq + consist)
 
 
-def _build_lqr(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> LQRData:
-    """Assemble the condensed stage-wise quadratic model ([B] ``mu``)."""
+class _Corr(NamedTuple):
+    """Mehrotra second-order corrections ds_aff * dnu_aff per family."""
+
+    cl: torch.Tensor
+    cu: torch.Tensor
+    xl: torch.Tensor
+    xu: torch.Tensor
+    ob: torch.Tensor
+
+
+def _build_lqr(cfg: MPCConfig, problem: Problem, it: IPMState, mu,
+               corr: _Corr | None = None) -> LQRData:
+    """Assemble the condensed stage-wise quadratic model ([B] ``mu``).
+    ``corr`` (Mehrotra) changes only the gradient coefficients."""
     sc = cfg.solver
     dtype = it.states.dtype
     (c_cl, c_cu, c_xl, c_xu, c_ob), normals, dist, m = _constraint_values(
@@ -224,20 +311,25 @@ def _build_lqr(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> LQRData:
     gx, gu = costs.stage_gradients(cfg.cost, it.states, it.controls, problem.goal_state)
     Hx, Hu = costs.stage_hessians(cfg.cost, it.states, it.controls)
     mu3 = mu[:, None, None]
+    cr = lambda f: getattr(corr, f) if corr is not None else None
 
-    g_cl, sig_cl = _grad_coef(c_cl, it.s_cl, it.nu_cl, m.cl, mu3)
-    g_cu, sig_cu = _grad_coef(c_cu, it.s_cu, it.nu_cu, m.cu, mu3)
+    g_cl, sig_cl = _grad_coef(c_cl, it.s_cl, it.nu_cl, m.cl, mu3, cr("cl"))
+    g_cu, sig_cu = _grad_coef(c_cu, it.s_cu, it.nu_cu, m.cu, mu3, cr("cu"))
     qu = gu - g_cl + g_cu
     Hu_diag = Hu + sig_cl + sig_cu
 
-    g_xl, sig_xl = _grad_coef(c_xl, it.s_xl, it.nu_xl, m.xl, mu3)
-    g_xu, sig_xu = _grad_coef(c_xu, it.s_xu, it.nu_xu, m.xu, mu3)
+    g_xl, sig_xl = _grad_coef(c_xl, it.s_xl, it.nu_xl, m.xl, mu3, cr("xl"))
+    g_xu, sig_xu = _grad_coef(c_xu, it.s_xu, it.nu_xu, m.xu, mu3, cr("xu"))
     qx = gx - g_xl + g_xu
     Qxx = torch.diag_embed(Hx + sig_xl + sig_xu)  # [B, N+1, 3, 3]
     Quu = torch.diag_embed(Hu_diag)  # [B, N, 2, 2]
 
     if cfg.max_obstacles > 0:
-        g_ob, sig_ob = _grad_coef(c_ob, it.s_ob, it.nu_ob, m.ob, mu3)
+        if sc.elastic_obstacles:
+            el = _elastic(cfg, it, c_ob, m.ob, mu3)
+            g_ob, sig_ob = el.g, el.sig_eff
+        else:
+            g_ob, sig_ob = _grad_coef(c_ob, it.s_ob, it.nu_ob, m.ob, mu3, cr("ob"))
         n = normals  # [B, N, K, 2]
         qx[:, 1:, :2] -= torch.einsum("btkd,btk->btd", n, g_ob)
         # Gauss-Newton term sum_k sigma_k n n'.
@@ -277,33 +369,81 @@ def _ftb(v, dv, tau):
 
 
 def _iteration(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> IPMState:
+    """One Newton step with line search.  ``mu`` is the barrier parameter,
+    or for mehrotra="pc" the raw mean complementarity that the affine probe
+    rescales."""
     sc = cfg.solver
     dtype = it.states.dtype
     floor = _floor(dtype)
     vals, normals, _, m = _constraint_values(cfg, problem, it.states, it.controls)
+    elastic = sc.elastic_obstacles and it.s_ob.numel() > 0
+
+    def all_steps(dx, du, mu_b, corr: _Corr | None = None):
+        """Slack and dual steps ds = J dz + (c - s),
+        dnu = (mu - corr)/s - nu - sigma ds, per family."""
+        jdz = (du, -du, dx, -dx, torch.einsum("btkd,btd->btk", normals, dx[:, 1:, :2]))
+        out = []
+        for i, (c, s, nu, mask, j) in enumerate(zip(vals, _slacks(it), _duals(it), m, jdz)):
+            ds = mask * (j + c - s)
+            num = mu_b - corr[i] if corr is not None else mu_b
+            dnu = mask * (num / torch.clamp(s, min=floor) - nu - _sigma(nu, s, mask) * ds)
+            out.append((ds, dnu))
+        return out, jdz[4]
+
+    def ftb_all(pairs):
+        alpha = torch.ones_like(mu)
+        for v, dv in pairs:
+            if v.numel():
+                alpha = torch.minimum(alpha, _ftb(v, dv, sc.tau))
+        return alpha
+
+    if sc.mehrotra == "pc":
+        # Affine-scaling predictor (mu = 0): how far pure Newton pushes the
+        # complementarity.  It shares the Hessian with the corrector; only
+        # the right-hand side differs.
+        zero = torch.zeros_like(mu)
+        sol_aff = solve_lqr_cuda(_build_lqr(cfg, problem, it, zero), sc.reg)
+        aff, _ = all_steps(sol_aff.dx, sol_aff.du, zero[:, None, None])
+        a_aff = torch.minimum(
+            ftb_all([(s, d[0]) for s, d in zip(_slacks(it), aff)]),
+            ftb_all([(nu, d[1]) for nu, d in zip(_duals(it), aff)]),
+        )
+        a3 = a_aff[:, None, None]
+        tot = torch.zeros_like(mu)
+        cnt = torch.zeros_like(mu)
+        for s, nu, mask, (ds, dnu) in zip(_slacks(it), _duals(it), m, aff):
+            if s.numel():
+                tot = tot + _sum(mask * (s + a3 * ds) * (nu + a3 * dnu))
+                cnt = cnt + _sum(mask)
+        mu_aff = tot / torch.clamp(cnt, min=1.0)
+        # Mehrotra's centring sigma = (mu_aff / mu)^3: near 0 when the
+        # affine step is unblocked, near 1 when blocked.
+        sigma_m = torch.clamp((mu_aff / torch.clamp(mu, min=floor)) ** 3, 0.0, 1.0)
+        mu_floor = max(sc.mu_min, 50.0 * torch.finfo(dtype).eps)
+        mu = torch.clamp(sigma_m * mu, mu_floor, sc.mu_init)
+        corr = _Corr(*(ds * dnu for ds, dnu in aff))
+    elif sc.mehrotra == "soc":
+        # The centred solve plays predictor; its ds * dnu products feed one
+        # corrected re-solve at the same mu.
+        sol_c = solve_lqr_cuda(_build_lqr(cfg, problem, it, mu), sc.reg)
+        pre, _ = all_steps(sol_c.dx, sol_c.du, mu[:, None, None])
+        corr = _Corr(*(ds * dnu for ds, dnu in pre))
+    else:
+        corr = None
     mu3 = mu[:, None, None]
 
-    data = _build_lqr(cfg, problem, it, mu)
+    data = _build_lqr(cfg, problem, it, mu, corr)
     sol = solve_lqr_cuda(data, sc.reg)
     dx, du = sol.dx, sol.du
+    steps, jdz_ob = all_steps(dx, du, mu3, corr)
+    ds_all = [ds for ds, _ in steps]
+    dnu_all = [dnu for _, dnu in steps]
+    if elastic:
+        el = _elastic(cfg, it, vals[4], m.ob, mu3)
+        ds_all[4], de_ob, dnu_all[4] = elastic_step(el, m.ob, jdz_ob, floor)
 
-    # Slack and dual steps: ds = J dz + (c - s); dnu = mu/s - nu - sigma ds.
-    jdz = (du, -du, dx, -dx, torch.einsum("btkd,btd->btk", normals, dx[:, 1:, :2]))
-    ds_all, dnu_all = [], []
-    for c, s, nu, mask, j in zip(vals, _slacks(it), _duals(it), m, jdz):
-        ds = mask * (j + c - s)
-        sig = _sigma(nu, s, mask)
-        ds_all.append(ds)
-        dnu_all.append(mask * (mu3 / torch.clamp(s, min=floor) - nu - sig * ds))
-
-    ones = torch.ones_like(mu)
-    alpha_s, alpha_nu = ones, ones
-    for v, dv in zip(_slacks(it), ds_all):
-        if v.numel():
-            alpha_s = torch.minimum(alpha_s, _ftb(v, dv, sc.tau))
-    for v, dv in zip(_duals(it), dnu_all):
-        if v.numel():
-            alpha_nu = torch.minimum(alpha_nu, _ftb(v, dv, sc.tau))
+    alpha_s = ftb_all(list(zip(_slacks(it), ds_all)) + ([(it.e_ob, de_ob)] if elastic else []))
+    alpha_nu = ftb_all(list(zip(_duals(it), dnu_all)))
 
     # Parallel backtracking candidates [B, ls].
     ladder = sc.ls_backtrack ** torch.arange(sc.ls_iters, dtype=dtype, device=mu.device)
@@ -328,7 +468,8 @@ def _iteration(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> IPMState:
             cfg, problem,
             it.states + _col(alpha, dx) * dx,
             it.controls + _col(alpha, du) * du,
-            tuple(s + _col(alpha, ds) * ds for s, ds in zip(_slacks(it), ds_all)),
+            tuple(s + _col(alpha, ds) * ds for s, ds in zip(_slacks(it), ds_all))
+            + ((it.e_ob + _col(alpha, de_ob) * de_ob,) if elastic else ()),
             mu, rho,
         )
 
@@ -376,6 +517,7 @@ def _iteration(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> IPMState:
         torch.clamp(torch.clamp(it.reg, min=sc.reg) * 8.0, max=1e8),
         torch.clamp(it.reg / 3.0, min=sc.reg),
     )
+    e_new = it.e_ob + a3 * de_ob if elastic else it.e_ob
     sigma = it.sigma
     if sc.mu_sigma_max > 0.0:
         # Adaptive centering: throttled steps outside the Newton regime slow
@@ -391,6 +533,7 @@ def _iteration(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> IPMState:
         it.controls + a3 * du,
         *s_new,
         *nu_new,
+        e_new,
         reg=reg,
         sigma=sigma,
     )
@@ -484,6 +627,12 @@ def solve(cfg: MPCConfig, problem: Problem) -> Solution:
         it = _init_state(cfg, problem)
         masks = _constraint_masks(cfg, problem, it.states.dtype)
         for _ in range(cfg.solver.iterations):
-            it = _iteration(cfg, problem, it, _adaptive_mu(cfg, it, masks))
+            if cfg.solver.mehrotra == "pc":
+                # Predictor-corrector centres itself from the raw mean
+                # complementarity (sigma_m = (mu_aff / comp)^3).
+                mu = _mean_complementarity(it, masks)
+            else:
+                mu = _adaptive_mu(cfg, it, masks)
+            it = _iteration(cfg, problem, it, mu)
         diag = _diagnostics(cfg, problem, it, _adaptive_mu(cfg, it, masks))
     return Solution(states=it.states, controls=it.controls, diagnostics=diag)

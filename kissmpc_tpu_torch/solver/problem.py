@@ -243,7 +243,8 @@ def default_problem(
     """
     dev = resolve_device(device)
     N, K = cfg.horizon, cfg.max_obstacles
-    initial_state = torch.as_tensor(initial_state, dtype=dtype, device=dev).reshape(-1, 3)
+    initial_state = torch.as_tensor(initial_state, dtype=dtype, device=dev)
+    initial_state = initial_state.reshape(-1, 3).contiguous()
     B = initial_state.shape[0]
     goal_state = _batch_of(goal_state, (B, 3), dtype, dev)
     (v_lb, v_ub), (w_lb, w_ub) = control_bounds

@@ -1,5 +1,6 @@
 """Port parity and contract: `solve_batch` with staged refinement, the
-refusals, the device convention and the import boundary."""
+refusals (only the ValueErrors remain: elastic obstacles and Mehrotra
+"pc"/"soc" run now), the device convention and the import boundary."""
 
 import dataclasses
 import re
@@ -72,14 +73,12 @@ def test_solve_batch_with_refinement_matches_jax(batch):
 @pytest.mark.parametrize(
     "solver,err",
     [
-        (dict(solve_backend="fused", elastic_obstacles=True), NotImplementedError),
         (dict(solve_backend="Split"), ValueError),
         (dict(lqr_backend="xla"), ValueError),
-        (dict(mehrotra="pc"), NotImplementedError),
         (dict(mehrotra="sco"), ValueError),
-        (dict(elastic_obstacles=True), NotImplementedError),
         (dict(elastic_obstacles=True, mehrotra="pc"), ValueError),
         (dict(solve_backend="fused", mehrotra="pc"), ValueError),
+        (dict(solve_backend="fused", mehrotra="soc"), ValueError),
     ],
 )
 def test_solve_batch_refusals(batch, solver, err):
@@ -111,10 +110,38 @@ def test_default_device_needs_cuda(batch):
         kissmpc_tpu_torch.scenarios.free_problems(tcfg, 2)
 
 
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    """solve_batch, make_solver, fleet_step and episode_worlds run on the
+    card by default and raise without CUDA; device="cpu" runs them here."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal is for machines without CUDA")
+    from kissmpc_tpu_torch import environment, make_solver
+    from kissmpc_tpu_torch.agent import AgentParams
+    from kissmpc_tpu_torch.scenarios import episode_worlds, free_problems
+
+    cfg = TConfig(horizon=6, time_step=0.1, max_obstacles=2)
+    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, iterations=3))
+    problems = free_problems(cfg, 2, device="cpu")
+    env, obstacles = episode_worlds(cfg, 2, device="cpu")
+    calls = {
+        "solve_batch": lambda **d: solve_batch(cfg, problems, **d),
+        "make_solver": lambda **d: make_solver(cfg, **d)(problems),
+        "fleet_step": lambda **d: environment.fleet_step(cfg, AgentParams(), env, obstacles, **d),
+        "episode_worlds": lambda **d: episode_worlds(cfg, 2, **d),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        out = call(device="cpu")
+        assert out is not None, name
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, kissmpc_tpu_torch, kissmpc_tpu_torch.ops.riccati\n"
         "import kissmpc_tpu_torch.ops.ipm_fused, kissmpc_tpu_torch.ops.probe\n"
+        "import kissmpc_tpu_torch.agent, kissmpc_tpu_torch.environment\n"
+        "import kissmpc_tpu_torch.scenarios, kissmpc_tpu_torch.bridge\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kissmpc_tpu' or m.startswith('kissmpc_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -106,6 +106,10 @@ def test_ipm_matches_jax(K, dynamic, mu_sigma_max, dtype, tol):
 
 
 def test_ipm_refuses_unported_modes():
+    """Every mode of the reference is ported now (Mehrotra "pc"/"soc" and
+    elastic obstacles: tests/test_torch_mehrotra.py, test_torch_elastic.py);
+    what remains refused is what the reference refuses or never defined:
+    an unknown mode string, and Mehrotra combined with elastic."""
     _, tcfg = _configs(0, 0.0)
     tp = problem_from_numpy(
         {k: np.asarray(v) for k, v in
@@ -113,11 +117,9 @@ def test_ipm_refuses_unported_modes():
         device="cpu",
     )
     for kw, err in (
-        (dict(mehrotra="pc"), NotImplementedError),
-        (dict(mehrotra="soc"), NotImplementedError),
-        (dict(elastic_obstacles=True), NotImplementedError),
         (dict(mehrotra="Off"), ValueError),
         (dict(mehrotra="pc", elastic_obstacles=True), ValueError),
+        (dict(mehrotra="soc", elastic_obstacles=True), ValueError),
     ):
         cfg = tcfg.replace(solver=dataclasses.replace(tcfg.solver, **kw))
         with pytest.raises(err):

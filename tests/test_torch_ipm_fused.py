@@ -312,10 +312,9 @@ def test_wrapper_refusals():
                                             .contiguous().transpose(0, 1)))
     with pytest.raises(ValueError):
         solve_batch_fused(tcfg, tp._replace(obstacle_radii=tp.obstacle_radii[:, :1]))
-    for kw, err in ((dict(elastic_obstacles=True), NotImplementedError),
-                    (dict(mehrotra="pc"), ValueError)):
-        cfg = tcfg.replace(solver=dataclasses.replace(tcfg.solver, **kw))
-        with pytest.raises(err):
+    for mode in ("pc", "soc"):
+        cfg = tcfg.replace(solver=dataclasses.replace(tcfg.solver, mehrotra=mode))
+        with pytest.raises(ValueError):
             solve_batch_fused(cfg, tp)
 
 

@@ -1,5 +1,5 @@
-"""The fused IPM kernel and the trip-count probe against their plain
-PyTorch versions, on the card.
+"""The fused IPM kernel (hard and elastic obstacles) and the trip-count
+probe against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip without an NVIDIA GPU (the kernels have no CPU
 mode).  They import neither JAX nor the JAX package, so on a machine with a
@@ -35,11 +35,11 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
 
 
-def _case(K):
+def _case(K, elastic=False):
     cfg = MPCConfig(horizon=N, time_step=0.1, max_obstacles=K)
     cfg = cfg.replace(solver=dataclasses.replace(
         cfg.solver, iterations=32, mu_sigma_max=0.7 if K else 0.0,
-        fused_affine_tracks=K > 0))
+        fused_affine_tracks=K > 0, elastic_obstacles=elastic))
     if K:
         return cfg, obstacle_problems(cfg, B, seed=5, n_dynamic=1, device="cuda")
     return cfg, free_problems(cfg, B, seed=5, device="cuda")
@@ -78,6 +78,37 @@ def test_fused_kernel_matches_plain_full_solve(cuda, K, tol):
     assert int(both.sum()) >= B // 2
     diff = (got.controls - ref.controls).abs().flatten(1).amax(dim=1)
     assert float((diff[both] <= tol).float().mean()) >= 0.95
+
+
+@pytest.mark.cuda
+def test_fused_elastic_kernel_matches_plain_one_iteration(cuda):
+    """The elastic branch (K=2 with elastic_obstacles), as above."""
+    cfg, pr = _case(2, elastic=True)
+    got = solve_batch_fused(cfg, pr, iterations=1)
+    ref = solve_batch_fused_plain(cfg, pr, iterations=1)
+    ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)), iterations=1)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.states.abs().max()), float(ref.controls.abs().max()))
+    assert _gap(got, ref) <= 1e-4 * scale + 2.0 * _gap(ref, ref64)
+
+
+@pytest.mark.cuda
+def test_fused_elastic_kernel_matches_plain_full_solve(cuda):
+    cfg, pr = _case(2, elastic=True)
+    got = solve_batch_fused(cfg, pr)
+    ref = solve_batch_fused_plain(cfg, pr)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.states).all())
+    c_k, c_p = got.diagnostics.converged, ref.diagnostics.converged
+    assert int((c_k != c_p).sum()) <= max(1, B // 100)
+    both = c_k & c_p
+    assert int(both.sum()) >= B // 2
+    diff = (got.controls - ref.controls).abs().flatten(1).amax(dim=1)
+    assert float((diff[both] <= 2e-3).float().mean()) >= 0.95
+    # The elastic branch changes the solve: it is not the hard kernel.
+    hard_cfg, _ = _case(2)
+    hard = solve_batch_fused(hard_cfg, pr)
+    assert not torch.equal(hard.controls, got.controls)
 
 
 @pytest.mark.cuda
