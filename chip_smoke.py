@@ -7,7 +7,9 @@ Phases, each a hard failure with a non-zero exit:
 
 1. build the three CUDA libraries from `kissmpc_tpu_torch/csrc/` (one nvcc
    per source, all started together) and print each ptxas register/spill
-   line;
+   line; for the fused kernel's instance of each configuration, its
+   registers, local bytes, dynamic shared memory per block and the
+   scenarios resident per SM (`ops/ipm_fused.py::occupancy`);
 2. hold the Riccati kernel against its plain PyTorch version (`ops/lqr.py`)
    on the card: B=8192, N=50, float32 on LQR data from a real IPM iterate of
    the K=8 benchmark batch, and float64 at B=64; time both with CUDA events;
@@ -24,7 +26,11 @@ Phases, each a hard failure with a non-zero exit:
    noise floor, which planted faults of the elastic branch exceed; at 32
    iterations 17% of elastic scenarios are still unconverged, many at the
    threshold), and 95% of the scenarios converged on both agree within
-   1e-3 (free) / 2e-3 (K=8, both branches); time each at 32 iterations;
+   1e-3 (free) / 2e-3 (K=8, both branches); the same gates at B=164, the
+   last refine stage's batch, for the K=8 cells; time each at 32
+   iterations, and the kernel alone at every solve stage's (B, iterations)
+   of the three cells and of the fleet loop, beside the recorded time of
+   the earlier one-thread-per-scenario kernel there;
 5. drive the main path, `solve_batch` with the default ("fused") backend, at
    the benchmark's configurations (`bench.py`): N=50, B=8192, float32,
    32 IPM iterations plus staged refinement, obstacle-free and K=8 circles
@@ -87,14 +93,30 @@ FLEET_BATCH = 4096
 FLEET_TICKS = 50
 FLEET_STAGES = ((0.125, 64, 0.2), (0.02, 96, 0.7))
 FLEET_CHECK = (64, 5)  # episodes x ticks held against the CPU port
+# Phase 4 also holds the kernel to its plain version at the last refine
+# stage's batch of the K=8 cells.
+REFINE_CHECK_BATCH = 164
+# The earlier fused kernel (one thread per scenario, iterate in global
+# scratch) at each solve stage, (B, iterations): ms, CUDA events around the
+# wrapper's call, NVIDIA H100 80GB HBM3 at 700 W (recorded in PERF.md).
+THREAD_KERNEL_STAGE_MS = {
+    "free": {(8192, 32): 40.59, (410, 64): 55.30},
+    "k8_dyn2": {(8192, 32): 105.01, (1024, 64): 112.63, (328, 96): 198.48, (164, 128): 255.72},
+    "k8_dyn2_elastic": {(8192, 32): 120.90, (1024, 64): 151.41, (328, 96): 240.09,
+                        (164, 128): 311.81},
+    "fleet_b4096": {(4096, 32): 64.42, (512, 64): 112.13, (82, 96): 190.44},
+}
 
 
 def fused_ops_per_iteration(n, k, ls_iters, elastic=False):
-    """Operations of one IPM iteration per scenario, counted from
-    csrc/ipm_fused.cu.  Each add, multiply, compare-and-select, min, max,
-    abs, division, sqrt, sin, cos and log counts as one operation and an
-    FMA as two, so the bound is optimistic: the card spends several
-    instructions on each division and transcendental.  Per pass:
+    """Operations of one IPM iteration per scenario, counted from the
+    function, as both implementations (the TPU kernel and
+    csrc/ipm_fused.cu) compute it: what one of them recomputes, or spends
+    on moving data between lanes, is its own cost.  Each add, multiply,
+    compare-and-select, min, max, abs, division, sqrt, sin, cos and log
+    counts as one operation and an FMA as two, so the bound is optimistic:
+    the card spends several instructions on each division and
+    transcendental.  Per pass:
 
     reduce     11 per box element, 22 per obstacle element (its geometry,
                16, included);
@@ -108,11 +130,9 @@ def fused_ops_per_iteration(n, k, ls_iters, elastic=False):
     update     26 per box element, 45 per obstacle element, 10 per stage.
 
     The elastic branch adds, per obstacle element, with its step counted
-    once per iteration as the function needs it (the TPU kernel computes
-    it once and reuses it; csrc/ipm_fused.cu recomputes it in each merit
-    candidate and in the update, which is the kernel's own cost and not
-    counted): +21 in the condensation (the elastic gradient in place of
-    the hard one); its coefficients (el_coef, 23) and eliminated step
+    once per iteration as the function needs it (both kernels compute it
+    once and reuse it): +21 in the condensation (the elastic gradient in
+    place of the hard one); its coefficients (el_coef, 23) and eliminated step
     (el_step, 17) once; +6 for the third fraction to the boundary (on e);
     +9 per merit candidate (trial e, its log, rho_e * e, the
     consistency's e); +2 in the update (the e step); less the hard slack
@@ -213,7 +233,18 @@ def phase_build():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"[1] built {', '.join(lib.name for lib in libs.values())} in {build_s:.3f} s")
-    return build_s
+    occupancy = {}
+    for name, cfg in configs("fused").items():
+        occupancy[name] = occ = ipm_fused.occupancy(cfg)
+        branch = "elastic" if cfg.solver.elastic_obstacles else "hard"
+        log(f"[1] fused kernel, {name} ({branch} instance): {occ['registers']} registers, "
+            f"{occ['local_bytes']} bytes of local memory per thread (stack frame and spills, "
+            f"as the ptxas lines above split them), {occ['smem_bytes_per_block']} "
+            f"bytes of dynamic shared memory per block of {occ['warps_per_block']} warps, "
+            f"{occ['blocks_per_sm']} blocks = {occ['scenarios_per_sm']} scenarios resident per SM")
+        if occ["blocks_per_sm"] < 1:
+            fail(f"the fused kernel cannot be resident for {name}")
+    return build_s, occupancy
 
 
 def lqr_from_iterate(cfg, problems, iterations=8):
@@ -393,9 +424,53 @@ def fused_gates(ref, got1, got, tol):
     }
 
 
+def fused_bound(cfg, batch, iterations):
+    """The fused kernel's least time on the card for ``batch`` scenarios
+    and ``iterations``: (bound ms, "bytes" or "operations", bytes,
+    operations).  Bytes: its inputs read once and its outputs written once
+    (the iterate never leaves the chip)."""
+    K = cfg.max_obstacles
+    elastic = cfg.solver.elastic_obstacles
+    in_rows = 27 + 3 * (N + 1) + 2 * N + (4 * K + 2 * K + 1 if K else 0)
+    out_rows = 3 * (N + 1) + 2 * N + 6
+    n_bytes = 4 * (in_rows + out_rows) * batch + 4
+    ops = batch * (iterations * fused_ops_per_iteration(N, K, cfg.solver.ls_iters, elastic)
+                   + fused_ops_once(N, K, elastic))
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, ops
+
+
+def check_fused(name, cfg, batch, tol):
+    """Phase 4's gates on one batch; returns their readings."""
+    import torch
+
+    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
+
+    B = batch.initial_state.shape[0]
+    ref = plain_reference(cfg, batch)
+    g = fused_gates(ref, solve_batch_fused(cfg, batch, iterations=1),
+                    solve_batch_fused(cfg, batch, iterations=FUSED_ITERATIONS), tol)
+    torch.cuda.synchronize()
+    log(f"[4] fused {name} B={B} iterations=1: max|kernel-plain| {g['err1']:.3e} "
+        f"(tol {g['tol1']:.3e}, scale {g['scale']:.3e}, plain f32-f64 {ref['plain64']:.3e})")
+    if not g["ok_one"]:
+        fail(f"fused kernel disagrees with its plain version at one iteration ({name}, B={B})")
+    log(f"[4] fused {name} B={B} iterations={FUSED_ITERATIONS}: converged kernel "
+        f"{g['converged']:.5f}, plain {g['plain_converged']:.5f}; flags differ on "
+        f"{g['flips']} (limit {g['flip_limit']:g}; the plain version's flags change on "
+        f"{ref['noises']} under a one-ulp nudge of x0 up, down); {g['within']:.5f} of "
+        f"{g['both']} converged on both within {tol} (max {g['worst']:.3e}); max over all "
+        f"{g['max_all']:.3e}")
+    if not g["ok_full"]:
+        fail(f"fused kernel disagrees with its plain version at {FUSED_ITERATIONS} "
+             f"iterations ({name}, B={B})")
+    return g
+
+
 def phase_fused_kernel(cfgs, pools):
-    """The fused kernel against its plain version on the card, B=8192:
-    {configuration: its kernels-line entry}."""
+    """The fused kernel against its plain version on the card, B=8192, and
+    at the last refine stage's batch of the K=8 cells: {configuration: its
+    kernels-line entry}."""
     import torch
 
     from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused, solve_batch_fused_plain
@@ -405,43 +480,19 @@ def phase_fused_kernel(cfgs, pools):
     for name, tol in (("free", 1e-3), ("k8_dyn2", 2e-3), ("k8_dyn2_elastic", 2e-3)):
         cfg = cfgs[name]
         batch = gather(pools[name], torch.arange(BATCH, device="cuda"))
-        ref = plain_reference(cfg, batch)
-        g = fused_gates(ref, solve_batch_fused(cfg, batch, iterations=1),
-                        solve_batch_fused(cfg, batch, iterations=FUSED_ITERATIONS), tol)
-        torch.cuda.synchronize()
-        log(f"[4] fused {name} iterations=1: max|kernel-plain| {g['err1']:.3e} "
-            f"(tol {g['tol1']:.3e}, scale {g['scale']:.3e}, plain f32-f64 {ref['plain64']:.3e})")
-        if not g["ok_one"]:
-            fail(f"fused kernel disagrees with its plain version at one iteration ({name})")
-        log(f"[4] fused {name} iterations={FUSED_ITERATIONS}: converged kernel "
-            f"{g['converged']:.5f}, plain {g['plain_converged']:.5f}; flags differ on "
-            f"{g['flips']} (limit {g['flip_limit']:g}; the plain version's flags change on "
-            f"{ref['noises']} under a one-ulp nudge of x0 up, down); {g['within']:.5f} of "
-            f"{g['both']} converged on both within {tol} (max {g['worst']:.3e}); max over all "
-            f"{g['max_all']:.3e}")
-        if not g["ok_full"]:
-            fail(f"fused kernel disagrees with its plain version at {FUSED_ITERATIONS} "
-                 f"iterations ({name})")
-
+        g = check_fused(name, cfg, batch, tol)
+        if cfg.max_obstacles:
+            check_fused(name, cfg, gather(pools[name], torch.arange(
+                REFINE_CHECK_BATCH, device="cuda")), tol)
         ms = cuda_ms(lambda: solve_batch_fused(cfg, batch, iterations=FUSED_ITERATIONS),
                      reps=5, warmup=1)
         plain_ms = cuda_ms(
             lambda: solve_batch_fused_plain(cfg, batch, iterations=FUSED_ITERATIONS),
             reps=1, warmup=0)
-        K = cfg.max_obstacles
-        elastic = cfg.solver.elastic_obstacles
-        # Bytes the function must move: its inputs read once, its outputs
-        # written once; the iterate scratch (~10 KB per scenario) is left out.
-        in_rows = 27 + 3 * (N + 1) + 2 * N + (4 * K + 2 * K + 1 if K else 0)
-        out_rows = 3 * (N + 1) + 2 * N + 6
-        n_bytes = 4 * (in_rows + out_rows) * BATCH + 4
-        ops = BATCH * (
-            FUSED_ITERATIONS * fused_ops_per_iteration(N, K, cfg.solver.ls_iters, elastic)
-            + fused_ops_once(N, K, elastic))
-        bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+        bound_ms, bound_by, n_bytes, ops = fused_bound(cfg, BATCH, FUSED_ITERATIONS)
         log(f"[4] fused {name} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at B={BATCH}, "
-            f"{FUSED_ITERATIONS} iterations; bound {max(bytes_ms, ops_ms):.4f} ms "
-            f"({n_bytes} bytes -> {bytes_ms:.4f} ms; {ops} operations -> {ops_ms:.4f} ms)")
+            f"{FUSED_ITERATIONS} iterations; bound {bound_ms:.4f} ms ({n_bytes} bytes, "
+            f"{ops} operations: {bound_by}); {ms / bound_ms:.2f}x the bound")
         entries[name] = {
             "name": "ipm_fused",
             "route": "cuda",
@@ -451,17 +502,55 @@ def phase_fused_kernel(cfgs, pools):
             "max_abs_err": g["err1"],
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": None,
         }
     return entries
 
 
+def stage_shapes(cfg, batch):
+    """(B, iterations, mu_sigma) of every solve stage of `solve_batch`."""
+    shapes = [(batch, cfg.solver.iterations, None)]
+    for frac, iters, mu_sigma in cfg.solver.refine_stages:
+        shapes.append((min(batch, max(1, int(round(batch * frac)))), iters, mu_sigma))
+    return shapes
+
+
+def phase_fused_stages(cfgs, pools):
+    """The kernel alone at every solve stage's (B, iterations) of the three
+    cells and of the fleet loop, CUDA events around the wrapper's call (the
+    earlier kernel's recorded time beside it in the log line only):
+    [{cell, B, iterations, ms, ms_per_iteration, bound_ms}], all of this run."""
+    import torch
+
+    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
+    from kissmpc_tpu_torch.solver.problem import gather
+
+    cells = dict(cfgs, fleet_b4096=fleet_config()[0])
+    rows = []
+    for cell, cfg in cells.items():
+        pool = pools["k8_dyn2" if cell == "fleet_b4096" else cell]
+        size = FLEET_BATCH if cell == "fleet_b4096" else BATCH
+        for B, iters, mu_sigma in stage_shapes(cfg, size):
+            sub = gather(pool, torch.arange(B, device="cuda"))
+            ms = cuda_ms(lambda: solve_batch_fused(cfg, sub, iterations=iters,
+                                                   mu_sigma=mu_sigma), reps=5, warmup=1)
+            bound_ms = fused_bound(cfg, B, iters)[0]
+            old = THREAD_KERNEL_STAGE_MS[cell][(B, iters)]
+            rows.append({"cell": cell, "B": B, "iterations": iters, "ms": ms,
+                         "ms_per_iteration": ms / iters, "bound_ms": bound_ms})
+            log(f"[4] fused {cell} stage B={B} x {iters} it.: {ms:.4f} ms "
+                f"({ms / iters:.5f} ms per iteration, {ms / bound_ms:.2f}x its bound "
+                f"{bound_ms:.4f} ms); one-thread-per-scenario kernel {old} ms "
+                f"({old / iters:.4f} per iteration): {old / ms:.2f}x faster")
+    return rows
+
+
 @contextlib.contextmanager
 def stage_events():
     """Time every fused launch that `solve_batch` makes inside the block with
-    CUDA events (the wrapper's packing and transposes included); yields the
+    CUDA events (the wrapper's packing included); yields the
     list of (B, start, end) it appends to."""
     import torch
 
@@ -829,7 +918,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
-    build_s = phase_build()
+    build_s, occupancy = phase_build()
     fused_cfgs, split_cfgs = configs("fused"), configs("split")
     t0 = time.perf_counter()
     pools = {
@@ -843,6 +932,7 @@ def main():
     riccati = phase_kernel(split_cfgs["k8_dyn2"], pools["k8_dyn2"])
     probe = phase_probe()
     fused = phase_fused_kernel(fused_cfgs, pools)
+    fused_stages = phase_fused_stages(fused_cfgs, pools)
     fused_results, fused_launches = phase_main_path("fused", fused_cfgs, pools, CALLS)
     hard = ("free", "k8_dyn2")
     split_results, riccati_launches = phase_main_path(
@@ -864,8 +954,9 @@ def main():
         entry["launches"] = fused_launches
     fused_k8.update(elastic_ms=elastic["ms"], elastic_plain_ms=elastic["plain_ms"],
                     elastic_bound_ms=elastic["bound_ms"],
-                    elastic_max_abs_err=elastic["max_abs_err"])
-    log(json.dumps({"build_s": build_s, "fused_free_kernel": fused["free"],
+                    elastic_max_abs_err=elastic["max_abs_err"], stage_ms=fused_stages)
+    log(json.dumps({"build_s": build_s, "fused_occupancy": occupancy,
+                    "fused_free_kernel": fused["free"],
                     "main_path": {"fused": fused_results, "split": split_results,
                                   "split_mehrotra": mehrotra},
                     "fleet": fleet, "total_s": time.perf_counter() - t_start}))

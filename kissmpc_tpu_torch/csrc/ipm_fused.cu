@@ -3,7 +3,7 @@
 //
 // Replaces: kissmpc_tpu/ops/pallas/ipm_fused.py::ipm_fused_kernel, the TPU
 // kernel behind the "fused" solve backend.  Contract: ops/ipm_fused.py's
-// plain version (`_plain`), which follows this kernel line by line.  Per
+// plain version (`_plain`), which this kernel follows step by step.  Per
 // scenario: slack/dual init from the warm start; per iteration the adaptive
 // mu, cost derivatives and condensation of every inequality family, the
 // unicycle linearisation, the specialised Riccati sweep (diag + one (x, y)
@@ -16,54 +16,58 @@
 // Elastic obstacles (template switch ELASTIC, instantiated twice and picked
 // by the launcher, so the hard path is compiled without the branch): each
 // obstacle constraint is c + e - s = 0, e >= 0, with the penalty rho_e * e.
-// e lives in its own K*N scratch rows, starts at max(s - c, mu / rho_e),
-// and the condensation takes the eliminated stiffness
-// sig_eff = (1/sig_s + 1/sig_e)^-1 with sig_e = mu / e^2.  The eliminated
-// step (ds, de, dnu) is recomputed from the iterate wherever it is needed
-// (fraction to the boundary, each line-search candidate, the update) rather
-// than stored; e joins the fraction to the boundary, and the merit gains
-// log e, rho_e * e and |c + e - s|.
+// e starts at max(s - c, mu / rho_e), the condensation takes the eliminated
+// stiffness sig_eff = (1/sig_s + 1/sig_e)^-1 with sig_e = mu / e^2, the
+// eliminated step (ds, de, dnu) is computed once per iteration, e joins the
+// fraction to the boundary, and the merit gains log e, rho_e * e and
+// |c + e - s|.
 //
 // What bounds it: operations.  Its device-memory input and output is about
 // 2 KB per scenario (27 problem rows, the warm start, the tracks, the
 // solution and 6 diagnostics), while each iteration does tens of thousands
-// of flops per scenario: the condensation, two sweeps, and one merit pass
-// per line-search candidate, each with its sin, cos, sqrt and log.
+// of operations per scenario: the condensation, two sweeps, and one merit
+// pass per line-search candidate, each with its sin, cos, sqrt and log.
 //
-// Design.  One thread per scenario, the time loops inside the thread.
-// Every [T, BT] whole-plane op of the TPU kernel is a loop over t; the
-// families, gradient coefficients and condensation are computed inside the
-// backward sweep, stage by stage, so no stage rows are staged; each
-// line-search candidate is one pass over t that accumulates objective,
-// equality residuals, log barrier and obstacle consistency with no trial
-// planes stored; the update and the dual clamp are one pass over the
-// families.  The sweeps keep P, p and the adjoint in registers.  The
-// iterate state that does not fit there (slacks and duals of every family,
-// gains, the Newton direction; ~2,500 floats per scenario at N = 50, K = 8)
-// lives in a global scratch that the wrapper allocates, with the solution
-// outputs doubling as the trajectory iterate.  Every plane is laid out
-// scenario-minor, element (row r, scenario b) at r * B + b, so the 32
-// threads of a warp read one 128-byte line on each access.  The ragged
-// edge is masked by b < B; nothing is padded.
+// Design.  One warp per scenario, kWarps warps per block.  The scenario's
+// whole iterate lives in dynamic shared memory for the whole solve (the
+// TPU kernel kept it in VMEM): problem rows and tracks (non-affine tracks
+// too), the trajectory, slacks and duals of every family, elastic e, the
+// Newton direction, and one region that holds the per-time stage rows and
+// the gains during the sweeps (the TPU kernel's stage_ref), the obstacle
+// step from the fraction to the boundary to the update, and the Lagrangian
+// gradient rows of the diagnostics.  Device memory is read once, at the
+// start, and written once, at the end; the layout is sized at run time from
+// (N, K, elastic, affine tracks), ~11 KB per scenario free, ~15 KB with
+// K = 8 at N = 50.  Inputs and outputs are scenario-major ([B, rows]): a
+// warp reads and writes its scenario's contiguous rows.  The stage rows and
+// the stored step each beat their alternative on the card (condensing inside
+// the sweep on lane 0; recomputing the step where it is read): see
+// scripts/fused_design_sweep.py and its readings in PERF.md.
 //
-// This first version is latency-bound: ~62 one-thread scenarios per SM at
-// B = 8192, and the refine stages run their 64-128 iterations one after
-// another on small sub-batches.  Making it fast is later work.
+// Within an iteration the lanes share the work: the reductions run
+// lane-strided over the elements, then warp shuffles; the condensation
+// computes every time step's stage rows in parallel (lane t, its sum over
+// the obstacles in order k); the backward Riccati sweep and the forward
+// rollout run on lane 0 from those rows while the others wait at
+// __syncwarp(); the fraction to the boundary, each line-search candidate,
+// the updates and the diagnostics run lane-strided, then shuffles; the
+// diagnostics' adjoint sweep runs on lane 0.  Every scalar that steers
+// control flow (mu, rho, alpha, found, keep, reg, sigma) is computed on all
+// lanes from butterfly results, so the warp never diverges around a
+// shuffle.  A warp past the batch leaves at once; nothing syncs the block.
 //
 // The iteration count is read from device memory (`iters`), and the
 // per-scenario centering sigma is an input row, so one build serves every
 // refine stage.  Compiled without fast math: the safety logic needs IEEE
 // sqrtf, logf, sinf, cosf and division (the non-finite merit guard, the
-// freeze of a lane whose deepest trial was non-finite, sqrt(d^2 + 1e-16),
-// log(max(s, 1e-30)), the fraction-to-boundary denominator
-// min(dv, -1e-30)).  Max, min and clip propagate NaN, as jnp's and
-// torch's do.
+// freeze of a scenario whose deepest trial was non-finite,
+// sqrt(d^2 + 1e-16), log(max(s, 1e-30)), the fraction-to-boundary
+// denominator min(dv, -1e-30)).  Max, min and clip propagate NaN, as jnp's
+// and torch's do, in the shuffle trees too.
 //
 // TPU artefacts left behind: sublane packing and its tiling copies, the
-// tree reductions (a plain sequential sum in the thread), the Mosaic
-// scatter-add workaround, the staging of per-time rows that Mosaic needed
-// for dynamic indexing, the VMEM placement shim, the 128-lane tile and the
-// batch padding.
+// Mosaic scatter-add workaround, the VMEM placement shim, the 128-lane tile
+// and the batch padding.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,20 +84,73 @@ struct FusedParams {
   float w0, w1, w2, w_neg, w_pos, w_ang, rho_e;
 };
 
+// ptxas: 128 registers for both instances, a 32-48 byte stack frame
+// (sincosf's argument reduction for huge angles) and, in the elastic
+// instance, 16 bytes of spill stores.
+
 namespace {
 
-constexpr int kThreads = 32;
+// Scenarios (warps) per block, chosen against 1, 2 and 8 by
+// scripts/fused_design_sweep.py: WARPS_READING
+constexpr int kWarps = 4;
+constexpr int kLanes = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kScalRows = 27;
 constexpr float kFloor = 1e-10f;     // slack floor in sigma = nu / s
 constexpr float kSigmaMax = 1e12f;   // sigma safeguard
 constexpr float kKappa = 1e10f;      // dual clamp around mu / s
 constexpr float kEps = 1.1920929e-07f;
 
-// Scratch rows per scenario: slacks and duals of the control families
-// (4N each), of the state families (6(N+1) each), of the obstacles (KN
-// each), the gains (8N), dx (3(N+1)) and du (2N); with elastic obstacles,
-// their e (KN) last.
-__host__ __device__ inline int scratch_rows(int N, int K, bool elastic) {
-  return 18 * N + 15 * (N + 1) + (elastic ? 3 : 2) * K * N;
+// Float offsets of one scenario's shared-memory rows.
+struct Layout {
+  int scal, obi, tx, ty;          // problem rows, obstacle info, tracks
+  int x, y, th, v, w;             // trajectory (the warm start's order)
+  int sc, nuc, sx, nux;           // box slacks / duals: vl, vu, wl, wu; xl0..2, xu0..2
+  int sob, nuob, eob;             // obstacle slacks, duals, elastic e (k-major)
+  int dx, du;                     // Newton direction
+  int kk, st;                     // shared region: gains (8N), then stage rows
+  int total;
+};
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline Layout layout(int N, int K, bool elastic, bool affine) {
+  const int T1 = N + 1, KN = K * N;
+  const int track = K == 0 ? 0 : (affine ? 2 * K : KN);
+  Layout L;
+  L.scal = 0;
+  L.obi = L.scal + kScalRows;
+  L.tx = L.obi + (K > 0 ? 2 * K + 1 : 0);
+  L.ty = L.tx + track;
+  L.x = L.ty + track;
+  L.y = L.x + T1;
+  L.th = L.y + T1;
+  L.v = L.th + T1;
+  L.w = L.v + N;
+  L.sc = L.w + N;
+  L.nuc = L.sc + 4 * N;
+  L.sx = L.nuc + 4 * N;
+  L.nux = L.sx + 6 * T1;
+  L.sob = L.nux + 6 * T1;
+  L.nuob = L.sob + KN;
+  L.eob = L.nuob + KN;
+  L.dx = L.eob + (elastic ? KN : 0);
+  L.du = L.dx + 3 * T1;
+  L.kk = L.du + 2 * N;
+  L.st = L.kk + 8 * N;
+  // The shared region holds, in turn: gains and stage rows (dyn 7N, ctrl
+  // 4N, state 7(N+1)) from the condensation to the rollout; the obstacle
+  // step (ds, and de, dnu when elastic) from the fraction to the boundary
+  // to the update; the diagnostics' gradient and linearisation rows.
+  const int sweep = 8 * N + 11 * N + 7 * T1;
+  const int step = (elastic ? 3 : 1) * KN;
+  const int diag = 3 * T1 + 6 * N;
+  L.total = L.kk + imax(sweep, imax(step, diag));
+  return L;
+}
+
+__host__ __device__ inline size_t smem_bytes(int N, int K, bool elastic, bool affine) {
+  return static_cast<size_t>(layout(N, K, elastic, affine).total) * sizeof(float) * kWarps;
 }
 
 __device__ __forceinline__ float maxp(float a, float b) {
@@ -106,12 +163,24 @@ __device__ __forceinline__ float clipp(float x, float lo, float hi) {
   return minp(maxp(x, lo), hi);
 }
 
-// One scenario's view of a scenario-minor [rows, B] plane.
-struct Rows {
-  float* p;
-  size_t B;
-  __device__ float& operator[](int r) const { return p[static_cast<size_t>(r) * B]; }
-};
+// Butterfly sum: every lane ends with the same bits (each step adds the
+// same two operands, and addition commutes).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+// NaN-propagating max and min over the warp, lane 0's result to every lane.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) v = maxp(v, __shfl_xor_sync(kFull, v, o));
+  return __shfl_sync(kFull, v, 0);
+}
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) v = minp(v, __shfl_xor_sync(kFull, v, o));
+  return __shfl_sync(kFull, v, 0);
+}
 
 struct Geo {  // obstacle constraint value and unit normal at a point
   float c, nx, ny;
@@ -129,60 +198,99 @@ struct ElCoef {  // condensed quantities of an elastic constraint c + e - s = 0
   float T, r_e, r_c, sig_s, sig_e, sig_eff;
 };
 
-struct ElStep {  // its eliminated Newton step
+struct ObStep {  // an obstacle element's Newton step (de: elastic only)
   float ds, de, dnu;
 };
 
+struct StateQ {  // condensed stage of state t: Hessian diag, (x, y), gradient
+  float Q[3], Qxy, q[3];
+};
+
+struct CtrlQ {  // condensed stage of control t
+  float Qv, Qw, qv, qw;
+};
+
+struct Red {  // complementarity sum, mask count, largest dual, box consistency
+  float tot, cnt, nu_max, cons_box;
+};
+
 template <bool ELASTIC>
-__global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
+__global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
     const int* __restrict__ iters_in, const float* __restrict__ scal_in,
     const float* __restrict__ warm_in, const float* __restrict__ tx_in,
     const float* __restrict__ ty_in, const float* __restrict__ obinfo_in,
     float* __restrict__ x_out, float* __restrict__ y_out,
     float* __restrict__ th_out, float* __restrict__ v_out,
-    float* __restrict__ w_out, float* __restrict__ diag_out,
-    float* __restrict__ scratch, const FusedParams p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;
-  const int N = p.N, K = p.K, T1 = N + 1;
-  const size_t B = static_cast<size_t>(p.B);
+    float* __restrict__ w_out, float* __restrict__ diag_out, const FusedParams p) {
+  extern __shared__ float smem[];
+  const int lane = static_cast<int>(threadIdx.x) % kLanes;
+  const int warp = static_cast<int>(threadIdx.x) / kLanes;
+  const int b = static_cast<int>(blockIdx.x) * kWarps + warp;
+  if (b >= p.B) return;  // the whole warp leaves; nothing below syncs the block
+  const int N = p.N, K = p.K, T1 = N + 1, KN = K * N;
+  const bool affine = p.affine != 0;
   const float dt = p.dt;
-  auto plane = [&](const float* base, size_t row0) {
-    return Rows{const_cast<float*>(base) + row0 * B + b, B};
-  };
-  const Rows scal = plane(scal_in, 0), warm = plane(warm_in, 0);
-  const Rows TXI = plane(tx_in, 0), TYI = plane(ty_in, 0), OBI = plane(obinfo_in, 0);
-  const Rows X = plane(x_out, 0), Y = plane(y_out, 0), TH = plane(th_out, 0);
-  const Rows V = plane(v_out, 0), W = plane(w_out, 0), DG = plane(diag_out, 0);
-  size_t off = 0;
-  auto take = [&](int rows) {
-    const Rows r = plane(scratch, off);
-    off += static_cast<size_t>(rows);
-    return r;
-  };
-  const Rows Sc = take(4 * N), NUc = take(4 * N);         // vl, vu, wl, wu
-  const Rows Sx = take(6 * T1), NUx = take(6 * T1);       // xl0..2, xu0..2
-  const Rows Sob = take(K * N), NUob = take(K * N);       // k-major
-  const Rows KK = take(8 * N);                            // K00..K12, k0, k1
-  const Rows DX = take(3 * T1), DU = take(2 * N);         // Newton direction
-  const Rows Eob = take(ELASTIC ? K * N : 0);             // elastic e, k-major
+  const Layout L = layout(N, K, ELASTIC, affine);
+  float* const sm = smem + static_cast<size_t>(warp) * L.total;
+  float* const SCAL = sm + L.scal;
+  float* const OBI = sm + L.obi;
+  float* const TX = sm + L.tx;
+  float* const TY = sm + L.ty;
+  float* const X = sm + L.x;
+  float* const Y = sm + L.y;
+  float* const TH = sm + L.th;
+  float* const V = sm + L.v;
+  float* const W = sm + L.w;
+  float* const SC = sm + L.sc;
+  float* const NUC = sm + L.nuc;
+  float* const SX = sm + L.sx;
+  float* const NUX = sm + L.nux;
+  float* const SOB = sm + L.sob;
+  float* const NUOB = sm + L.nuob;
+  float* const EOB = sm + L.eob;
+  float* const DX = sm + L.dx;
+  float* const DU = sm + L.du;
+  float* const KK = sm + L.kk;   // gains K00..K12, k0, k1 (8 rows of N)
+  float* const ST = sm + L.st;   // stage rows
+  float* const STEP = sm + L.kk; // obstacle step rows ds, de, dnu (K N each)
+  float* const GR = sm + L.kk;   // diagnostics rows
+
+  // --- inputs: each read once --------------------------------------------
+  {
+    const int n_track = K == 0 ? 0 : (affine ? 2 * K : KN);
+    const int n_obi = K > 0 ? 2 * K + 1 : 0;
+    const int n_warm = 3 * T1 + 2 * N;
+    const size_t bb = static_cast<size_t>(b);
+    for (int i = lane; i < kScalRows; i += kLanes) SCAL[i] = scal_in[bb * kScalRows + i];
+    for (int i = lane; i < n_obi; i += kLanes) OBI[i] = obinfo_in[bb * n_obi + i];
+    for (int i = lane; i < n_track; i += kLanes) {
+      TX[i] = tx_in[bb * n_track + i];
+      TY[i] = ty_in[bb * n_track + i];
+    }
+    // x, y, th, v, w lie in the warm start's order.
+    for (int i = lane; i < n_warm; i += kLanes) X[i] = warm_in[bb * n_warm + i];
+    for (int i = lane; i < 3 * T1 + 2 * N; i += kLanes) DX[i] = 0.f;  // DX, DU
+    for (int i = lane; i < (ELASTIC ? 3 : 1) * KN; i += kLanes) STEP[i] = 0.f;
+  }
+  __syncwarp();
 
   // --- problem rows ----------------------------------------------------
-  const float x0 = scal[0], y0 = scal[1], th0 = scal[2];
-  const float gx = scal[3], gy = scal[4], gth = scal[5];
-  const float v_lb = scal[6], v_ub = scal[7], w_lb = scal[8], w_ub = scal[9];
-  const float m_vl = scal[10], m_vu = scal[11], m_wl = scal[12], m_wu = scal[13];
+  const float x0 = SCAL[0], y0 = SCAL[1], th0 = SCAL[2];
+  const float gx = SCAL[3], gy = SCAL[4], gth = SCAL[5];
+  const float v_lb = SCAL[6], v_ub = SCAL[7], w_lb = SCAL[8], w_ub = SCAL[9];
+  const float m_vl = SCAL[10], m_vu = SCAL[11], m_wl = SCAL[12], m_wu = SCAL[13];
   float xlb[3], xub[3], m_xl[3], m_xu[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    xlb[i] = scal[14 + i];
-    xub[i] = scal[17 + i];
-    m_xl[i] = scal[20 + i];
-    m_xu[i] = scal[23 + i];
+    xlb[i] = SCAL[14 + i];
+    xub[i] = SCAL[17 + i];
+    m_xl[i] = SCAL[20 + i];
+    m_xu[i] = SCAL[23 + i];
   }
-  const float sig_row = scal[26];
+  const float sig_row = SCAL[26];
   const float infl = K > 0 ? OBI[2 * K] : 0.f;
   const float w0 = p.w0, w1 = p.w1, w2 = p.w2;
+  const float goal[3] = {gx, gy, gth}, wgoal[3] = {w0, w1, w2};
 
   auto gm = [&](int t) {  // goal-cost weight of state t
     return (t >= 1 && (!p.exclude_terminal || t <= N - 1)) ? 1.f : 0.f;
@@ -190,12 +298,12 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
   // Obstacle k at column tt (state tt + 1), seen from the point (px, py).
   auto geo = [&](int k, int tt, float px, float py) {
     float cx, cy;
-    if (p.affine) {
-      cx = TXI[k] + static_cast<float>(tt) * TXI[K + k];
-      cy = TYI[k] + static_cast<float>(tt) * TYI[K + k];
+    if (affine) {
+      cx = TX[k] + static_cast<float>(tt) * TX[K + k];
+      cy = TY[k] + static_cast<float>(tt) * TY[K + k];
     } else {
-      cx = TXI[k * N + tt];
-      cy = TYI[k * N + tt];
+      cx = TX[k * N + tt];
+      cy = TY[k * N + tt];
     }
     const float dxk = px - cx, dyk = py - cy;
     const float dist = sqrtf(dxk * dxk + dyk * dyk + 1e-16f);
@@ -203,39 +311,31 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     return Geo{dist - (OBI[k] + infl), dxk / ds_safe, dyk / ds_safe};
   };
   auto dyn = [&](int t) {
-    const float ct = cosf(TH[t]), st = sinf(TH[t]), v = V[t];
+    float st, ct;
+    sincosf(TH[t], &st, &ct);
+    const float v = V[t];
     return Dyn{-v * st * dt, v * ct * dt, ct * dt, st * dt,
                X[t] + v * ct * dt - X[t + 1], Y[t] + v * st * dt - Y[t + 1],
                TH[t] + W[t] * dt - TH[t + 1]};
   };
-  // Visits every inequality element at the current iterate, in the order
-  // controls (vl, vu, wl, wu), states (xl_i, xu_i), obstacles:
-  // fn(c, s, nu, mask, J dz, row) with s and nu writable; row is the
-  // obstacle element's scratch row, -1 for a box element.
-  auto visit = [&](auto&& fn) {
-    for (int t = 0; t < N; ++t) {
-      const float v = V[t], w = W[t], dv = DU[t], dw = DU[N + t];
-      fn(v - v_lb, Sc[t], NUc[t], m_vl, dv, -1);
-      fn(v_ub - v, Sc[N + t], NUc[N + t], m_vu, -dv, -1);
-      fn(w - w_lb, Sc[2 * N + t], NUc[2 * N + t], m_wl, dw, -1);
-      fn(w_ub - w, Sc[3 * N + t], NUc[3 * N + t], m_wu, -dw, -1);
-    }
-    for (int t = 0; t <= N; ++t) {
-      const float comp[3] = {X[t], Y[t], TH[t]};
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float d = DX[i * T1 + t];
-        fn(comp[i] - xlb[i], Sx[i * T1 + t], NUx[i * T1 + t], m_xl[i], d, -1);
-        fn(xub[i] - comp[i], Sx[(3 + i) * T1 + t], NUx[(3 + i) * T1 + t],
-           m_xu[i], -d, -1);
-      }
-    }
-    for (int k = 0; k < K; ++k) {
-      const float om = OBI[K + k];
-      for (int tt = 0; tt < N; ++tt) {
-        const Geo g = geo(k, tt, X[tt + 1], Y[tt + 1]);
-        fn(g.c, Sob[k * N + tt], NUob[k * N + tt], om,
-           g.nx * DX[tt + 1] + g.ny * DX[T1 + tt + 1], k * N + tt);
+  // Every box element at the current iterate, lane-strided over t:
+  // fn(c, s, nu, mask, J dz) with s and nu writable.  Family f = 0..3 is
+  // vl, vu, wl, wu of control t; f = 4..9 is xl0..2, xu0..2 of state t.
+  // One call site, so the kernel carries one copy of fn per visit.
+  auto visit_box = [&](auto&& fn) {
+    for (int t = lane; t < T1; t += kLanes) {
+#pragma unroll 1
+      for (int f = t < N ? 0 : 4; f < 10; ++f) {
+        const bool ctrl = f < 4;
+        const int i = ctrl ? f >> 1 : (f - 4) % 3;       // component
+        const bool upper = ctrl ? (f & 1) != 0 : f >= 7;
+        const float z = ctrl ? V[i * N + t] : X[i * T1 + t];
+        const float dz = ctrl ? DU[i * N + t] : DX[i * T1 + t];
+        const float bound = ctrl ? SCAL[6 + f] : SCAL[(upper ? 17 : 14) + i];
+        const float m = ctrl ? SCAL[10 + f] : SCAL[(upper ? 23 : 20) + i];
+        float* const sp = ctrl ? SC + f * N + t : SX + (f - 4) * T1 + t;
+        float* const np = ctrl ? NUC + f * N + t : NUX + (f - 4) * T1 + t;
+        fn(upper ? bound - z : z - bound, *sp, *np, m, upper ? -dz : dz);
       }
     }
   };
@@ -253,127 +353,109 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     return ElCoef{mu / s_safe - nu, p.rho_e - mu / e_safe - nu, c + e - s, sig_s, sig_e,
                   m * sig_s * sig_e / maxp(sig_s + sig_e, kFloor)};
   };
-  auto el_step = [&](const ElCoef& q, float m, float jdz) {
-    const float beta = q.sig_e / maxp(q.sig_s + q.sig_e, kFloor);
-    const float ds = m * beta * (jdz + q.r_c + (q.T - q.r_e) / q.sig_e);
-    return ElStep{ds, m * (q.T - q.r_e - q.sig_s * ds) / q.sig_e, m * (q.T - q.sig_s * ds)};
+  // Obstacle element r = k N + tt (state tt + 1): its Newton step at the
+  // current iterate, from its geometry and J dz.
+  auto ob_step = [&](int r, float mu) {
+    const int k = r / N, tt = r - k * N;
+    const float m = OBI[K + k], s = SOB[r], nu = NUOB[r];
+    const Geo g = geo(k, tt, X[tt + 1], Y[tt + 1]);
+    const float jdz = g.nx * DX[tt + 1] + g.ny * DX[T1 + tt + 1];
+    if constexpr (ELASTIC) {
+      const ElCoef q = el_coef(g.c, s, nu, EOB[r], m, mu);
+      const float beta = q.sig_e / maxp(q.sig_s + q.sig_e, kFloor);
+      const float ds = m * beta * (jdz + q.r_c + (q.T - q.r_e) / q.sig_e);
+      return ObStep{ds, m * (q.T - q.r_e - q.sig_s * ds) / q.sig_e, m * (q.T - q.sig_s * ds)};
+    } else {
+      const float ds = m * (jdz + g.c - s);
+      return ObStep{ds, 0.f, m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds)};
+    }
+  };
+  // The step as the line search and the update read it, stored by the
+  // fraction to the boundary (the hard branch keeps only ds: its dnu is
+  // cheap).  The same bits as ob_step.
+  auto ob_step_now = [&](int r, float mu) {
+    if constexpr (ELASTIC) return ObStep{STEP[r], STEP[KN + r], STEP[2 * KN + r]};
+    const float m = OBI[K + r / N], s = SOB[r], nu = NUOB[r], ds = STEP[r];
+    return ObStep{ds, 0.f, m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds)};
   };
 
   // Merit components at z + a dz, with the slack steps of the current
   // iterate: objective, equality residuals (defects and initial-state pin),
   // the log barrier of every family and the obstacle consistency.  The box
   // families' consistency is affine along the step, (1 - a) * consist0,
-  // and is added by the caller.  ``mu`` enters only the elastic step.
+  // and is added by the caller.  ``mu`` enters only the hard step's dnu,
+  // which the merit does not read.
   auto merit_pass = [&](float a, float mu) {
-    float s_goal = 0.f, s_neg = 0.f, s_pos = 0.f, s_ang = 0.f, s_el = 0.f;
-    float e0 = 0.f, e1 = 0.f, e2 = 0.f, lg = 0.f, cons = 0.f;
-    float pin0 = 0.f, pin1 = 0.f, pin2 = 0.f;
-    float xp = 0.f, yp = 0.f, thp = 0.f, vp = 0.f, wp = 0.f;  // trial step t-1
-    for (int t = 0; t <= N; ++t) {
+    float obj = 0.f, eq = 0.f, lg = 0.f, cons = 0.f;
+    for (int t = lane; t < T1; t += kLanes) {
       const float comp[3] = {X[t], Y[t], TH[t]};
       const float dz[3] = {DX[t], DX[T1 + t], DX[2 * T1 + t]};
       const float xs = comp[0] + a * dz[0], ys = comp[1] + a * dz[1];
       const float ths = comp[2] + a * dz[2];
       const float ex = xs - gx, ey = ys - gy, eth = ths - gth;
-      s_goal += gm(t) * (w0 * ex * ex + w1 * ey * ey + w2 * eth * eth);
+      obj += gm(t) * (w0 * ex * ex + w1 * ey * ey + w2 * eth * eth);
       if (t == 0) {
-        pin0 = fabsf(x0 - xs);
-        pin1 = fabsf(y0 - ys);
-        pin2 = fabsf(th0 - ths);
+        eq += fabsf(x0 - xs) + fabsf(y0 - ys) + fabsf(th0 - ths);
       } else {
-        const float ct = cosf(thp), st = sinf(thp);
-        e0 += fabsf(xp + vp * ct * dt - xs);
-        e1 += fabsf(yp + vp * st * dt - ys);
-        e2 += fabsf(thp + wp * dt - ths);
-        for (int k = 0; k < K; ++k) {
-          const float om = OBI[K + k];
-          const Geo g = geo(k, t - 1, comp[0], comp[1]);
-          const int r = k * N + t - 1;
-          const float s = Sob[r], jdz = g.nx * dz[0] + g.ny * dz[1];
-          if (ELASTIC) {
-            const float e = Eob[r];
-            const ElStep st = el_step(el_coef(g.c, s, NUob[r], e, om, mu), om, jdz);
-            const float ts = s + a * st.ds, te = e + a * st.de;
-            lg += om * logf(maxp(ts, 1e-30f));
-            lg += om * logf(maxp(te, 1e-30f));
-            s_el += om * te;
-            cons += om * fabsf(geo(k, t - 1, xs, ys).c + te - ts);
-          } else {
-            const float ts = s + a * (om * (jdz + g.c - s));
-            lg += om * logf(maxp(ts, 1e-30f));
-            cons += om * fabsf(geo(k, t - 1, xs, ys).c - ts);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float sl = Sx[i * T1 + t], su = Sx[(3 + i) * T1 + t];
-        const float cl = comp[i] - xlb[i], cu = xub[i] - comp[i];
-        const float dsl = m_xl[i] * (dz[i] + cl - sl);
-        const float dsu = m_xu[i] * (-dz[i] + cu - su);
-        lg += m_xl[i] * logf(maxp(sl + a * dsl, 1e-30f));
-        lg += m_xu[i] * logf(maxp(su + a * dsu, 1e-30f));
+        const float xp = X[t - 1] + a * DX[t - 1], yp = Y[t - 1] + a * DX[T1 + t - 1];
+        const float thp = TH[t - 1] + a * DX[2 * T1 + t - 1];
+        const float vp = V[t - 1] + a * DU[t - 1], wp = W[t - 1] + a * DU[N + t - 1];
+        float st, ct;
+        sincosf(thp, &st, &ct);
+        eq += fabsf(xp + vp * ct * dt - xs) + fabsf(yp + vp * st * dt - ys) +
+              fabsf(thp + wp * dt - ths);
       }
       if (t < N) {
-        const float vc = V[t], wc = W[t], dv = DU[t], dw = DU[N + t];
-        const float vs = vc + a * dv, ws = wc + a * dw;
+        const float vs = V[t] + a * DU[t], ws = W[t] + a * DU[N + t];
         const float neg = minp(vs, 0.f), pos = maxp(vs, 0.f);
-        s_neg += p.reverse_squared ? neg * neg : neg;
-        s_pos += pos * pos;
-        s_ang += ws * ws;
-        const float cc[4] = {vc - v_lb, v_ub - vc, wc - w_lb, w_ub - wc};
-        const float jd[4] = {dv, -dv, dw, -dw};
-        const float mm[4] = {m_vl, m_vu, m_wl, m_wu};
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          const float s = Sc[f * N + t];
-          const float ds = mm[f] * (jd[f] + cc[f] - s);
-          lg += mm[f] * logf(maxp(s + a * ds, 1e-30f));
-        }
-        xp = xs;
-        yp = ys;
-        thp = ths;
-        vp = vs;
-        wp = ws;
+        obj += p.w_neg * (p.reverse_squared ? neg * neg : neg);
+        obj += p.w_pos * (pos * pos);
+        obj += p.w_ang * (ws * ws);
       }
     }
-    float obj = s_goal;
-    obj = obj + p.w_neg * s_neg;
-    obj = obj + p.w_pos * s_pos;
-    obj = obj + p.w_ang * s_ang;
-    if (ELASTIC) obj = obj + p.rho_e * s_el;
-    return Merit{obj, e0 + e1 + e2 + pin0 + pin1 + pin2, lg, cons};
+    visit_box([&](float c, float& s, float&, float m, float jdz) {
+      lg += m * logf(maxp(s + a * (m * (jdz + c - s)), 1e-30f));
+    });
+    for (int r = lane; r < KN; r += kLanes) {
+      const int k = r / N, tt = r - k * N;
+      const float om = OBI[K + k];
+      const ObStep st = ob_step_now(r, mu);
+      const float xs = X[tt + 1] + a * DX[tt + 1], ys = Y[tt + 1] + a * DX[T1 + tt + 1];
+      const float ts = SOB[r] + a * st.ds;
+      lg += om * logf(maxp(ts, 1e-30f));
+      if constexpr (ELASTIC) {
+        const float te = EOB[r] + a * st.de;
+        lg += om * logf(maxp(te, 1e-30f));
+        obj += p.rho_e * (om * te);
+        cons += om * fabsf(geo(k, tt, xs, ys).c + te - ts);
+      } else {
+        cons += om * fabsf(geo(k, tt, xs, ys).c - ts);
+      }
+    }
+    return Merit{warp_sum(obj), warp_sum(eq), warp_sum(lg), warp_sum(cons)};
   };
 
   // Complementarity sum, mask count, largest dual and box consistency at
   // the current iterate.
-  struct Red {
-    float tot, cnt, nu_max, cons_box;
-  };
   auto reduce = [&]() {
-    Red r{0.f, 0.f, 0.f, 0.f};
-    visit([&](float c, float& s, float& nu, float m, float, int row) {
-      r.tot += m * s * nu;
-      r.cnt += m;
-      r.nu_max = maxp(r.nu_max, m * nu);
-      if (row < 0) r.cons_box += m * fabsf(c - s);
+    float tot = 0.f, cnt = 0.f, nu_max = 0.f, cons = 0.f;
+    visit_box([&](float c, float& s, float& nu, float m, float) {
+      tot += m * s * nu;
+      cnt += m;
+      nu_max = maxp(nu_max, m * nu);
+      cons += m * fabsf(c - s);
     });
-    return r;
+    for (int r = lane; r < KN; r += kLanes) {
+      const float m = OBI[K + r / N], s = SOB[r], nu = NUOB[r];
+      tot += m * s * nu;
+      cnt += m;
+      nu_max = maxp(nu_max, m * nu);
+    }
+    return Red{warp_sum(tot), warp_sum(cnt), warp_max(nu_max), warp_sum(cons)};
   };
 
   // --- init from the warm start ------------------------------------------
-  for (int t = 0; t < T1; ++t) {
-    X[t] = warm[t];
-    Y[t] = warm[T1 + t];
-    TH[t] = warm[2 * T1 + t];
-    DX[t] = DX[T1 + t] = DX[2 * T1 + t] = 0.f;
-  }
-  for (int t = 0; t < N; ++t) {
-    V[t] = warm[3 * T1 + t];
-    W[t] = warm[3 * T1 + N + t];
-    DU[t] = DU[N + t] = 0.f;
-  }
-  visit([&](float c, float& s, float& nu, float m, float, int row) {
+  visit_box([&](float c, float& s, float& nu, float m, float) {
     if (m > 0.f) {
       s = maxp(c, 1e-2f);
       nu = p.mu_init / s;
@@ -381,10 +463,19 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
       s = 1.f;
       nu = 0.f;
     }
+  });
+  for (int r = lane; r < KN; r += kLanes) {
+    const int k = r / N, tt = r - k * N;
+    const float m = OBI[K + k];
+    const float c = geo(k, tt, X[tt + 1], Y[tt + 1]).c;
+    const float s = m > 0.f ? maxp(c, 1e-2f) : 1.f;
+    SOB[r] = s;
+    NUOB[r] = m > 0.f ? p.mu_init / s : 0.f;
     // Central-ish elastic init: e solves c + e = s where violated, else
     // sits at mu / rho_e.
-    if (ELASTIC && row >= 0) Eob[row] = m > 0.f ? maxp(s - c, p.mu_init / p.rho_e) : 1.f;
-  });
+    if (ELASTIC) EOB[r] = m > 0.f ? maxp(s - c, p.mu_init / p.rho_e) : 1.f;
+  }
+  __syncwarp();
   // Merit components of the current iterate, carried across iterations
   // (the accepted candidate's become the next iteration's).
   float m_obj, m_log, m_eqc;
@@ -396,13 +487,6 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     m_eqc = m0.eq + (r0.cons_box + m0.cons);
   }
 
-  struct StateQ {  // condensed stage of state t: Hessian diag, (x, y), gradient
-    float Q[3], Qxy, q[3];
-  };
-  struct CtrlQ {  // condensed stage of control t
-    float Qv, Qw, qv, qw;
-  };
-  const float goal[3] = {gx, gy, gth}, wgoal[3] = {w0, w1, w2};
   auto state_stage = [&](int t, float mu, float reg) {
     const float comp[3] = {X[t], Y[t], TH[t]};
     const float g = gm(t);
@@ -412,7 +496,7 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
       S.q[i] = 2.f * g * wgoal[i] * (comp[i] - goal[i]);
       S.Q[i] = 2.f * g * wgoal[i];
       const int rl = i * T1 + t, ru = (3 + i) * T1 + t;
-      const float sl = Sx[rl], nul = NUx[rl], su = Sx[ru], nuu = NUx[ru];
+      const float sl = SX[rl], nul = NUX[rl], su = SX[ru], nuu = NUX[ru];
       const float sgl = sigma(nul, sl, m_xl[i]), sgu = sigma(nuu, su, m_xu[i]);
       const float gl = m_xl[i] * (mu / maxp(sl, kFloor) - sgl * ((comp[i] - xlb[i]) - sl));
       const float gu = m_xu[i] * (mu / maxp(su, kFloor) - sgu * ((xub[i] - comp[i]) - su));
@@ -425,10 +509,10 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
       for (int k = 0; k < K; ++k) {
         const float om = OBI[K + k];
         const Geo G = geo(k, t - 1, comp[0], comp[1]);
-        const float s = Sob[k * N + t - 1], nu = NUob[k * N + t - 1];
+        const float s = SOB[k * N + t - 1], nu = NUOB[k * N + t - 1];
         float sg, gc;
-        if (ELASTIC) {
-          const ElCoef q = el_coef(G.c, s, nu, Eob[k * N + t - 1], om, mu);
+        if constexpr (ELASTIC) {
+          const ElCoef q = el_coef(G.c, s, nu, EOB[k * N + t - 1], om, mu);
           sg = q.sig_eff;
           gc = om * (nu - sg * q.r_c + sg * (q.T / maxp(q.sig_s, kFloor) + q.r_e / q.sig_e));
         } else {
@@ -474,132 +558,194 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     float g[4], sg[4];
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
-      const float s = Sc[f * N + t], nu = NUc[f * N + t];
+      const float s = SC[f * N + t], nu = NUC[f * N + t];
       sg[f] = sigma(nu, s, mm[f]);
       g[f] = mm[f] * (mu / maxp(s, kFloor) - sg[f] * (cc[f] - s));
     }
     return CtrlQ{Hv + sg[0] + sg[1] + reg, 2.f * p.w_ang + sg[2] + sg[3] + reg,
                  grad_v(v) - g[0] + g[1], 2.f * p.w_ang * w - g[2] + g[3]};
   };
+  // Stage rows: dyn a02, a12, b00, b10, d0, d1, d2 (N each), ctrl Qv, Qw,
+  // qv, qw (N each), state Q0, Q1, Q2, Qxy, q0, q1, q2 (N + 1 each).
+  float* const SD = ST;
+  float* const SCQ = ST + 7 * N;
+  float* const SSQ = ST + 11 * N;
+  auto dyn_at = [&](int t) {
+    return Dyn{SD[t], SD[N + t], SD[2 * N + t], SD[3 * N + t], SD[4 * N + t],
+               SD[5 * N + t], SD[6 * N + t]};
+  };
+  auto ctrl_at = [&](int t) {
+    return CtrlQ{SCQ[t], SCQ[N + t], SCQ[2 * N + t], SCQ[3 * N + t]};
+  };
+  auto state_at = [&](int t) {
+    StateQ S;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      S.Q[i] = SSQ[i * T1 + t];
+      S.q[i] = SSQ[(4 + i) * T1 + t];
+    }
+    S.Qxy = SSQ[3 * T1 + t];
+    return S;
+  };
 
   float reg = p.reg, sig_c = sig_row;
   const int iters = *iters_in;
   for (int it = 0; it < iters; ++it) {
+    // --- (a) reduce: the adaptive barrier ---------------------------------
     const Red r = reduce();
     const float mu = clipp(sig_c * r.tot / maxp(r.cnt, 1.f), p.mu_floor, p.mu_init);
 
-    // --- backward Riccati sweep, condensing each stage on the way ---------
-    StateQ S = state_stage(N, mu, reg);
-    float P00 = S.Q[0], P01 = S.Qxy, P02 = 0.f, P11 = S.Q[1], P12 = 0.f, P22 = S.Q[2];
-    float p0 = S.q[0], p1 = S.q[1], p2 = S.q[2];
-    float l0 = p0, l1 = p1, l2 = p2;  // adjoint estimate of the dynamics duals
-    float lam_max = maxp(fabsf(p0), maxp(fabsf(p1), fabsf(p2)));
-    for (int t = N - 1; t >= 0; --t) {
-      const Dyn D = dyn(t);
-      const CtrlQ C = ctrl_stage(t, mu, reg);
-      S = state_stage(t, mu, reg);
-      const float Pa0 = P00 * D.a02 + P01 * D.a12 + P02;
-      const float Pa1 = P01 * D.a02 + P11 * D.a12 + P12;
-      const float Pa2 = P02 * D.a02 + P12 * D.a12 + P22;
-      const float Pd0 = P00 * D.d0 + P01 * D.d1 + P02 * D.d2 + p0;
-      const float Pd1 = P01 * D.d0 + P11 * D.d1 + P12 * D.d2 + p1;
-      const float Pd2 = P02 * D.d0 + P12 * D.d1 + P22 * D.d2 + p2;
-      const float PB00 = D.b00 * P00 + D.b10 * P01;
-      const float PB01 = D.b00 * P01 + D.b10 * P11;
-      const float PB02 = D.b00 * P02 + D.b10 * P12;
-      const float Quu00 = C.Qv + (D.b00 * PB00 + D.b10 * PB01);
-      const float Quu01 = dt * PB02;
-      const float Quu11 = C.Qw + dt * dt * P22;
-      const float Qux00 = PB00, Qux01 = PB01, Qux02 = D.b00 * Pa0 + D.b10 * Pa1;
-      const float Qux10 = dt * P02, Qux11 = dt * P12, Qux12 = dt * Pa2;
-      const float qu0 = C.qv + D.b00 * Pd0 + D.b10 * Pd1;
-      const float qu1 = C.qw + dt * Pd2;
-      const float inv = 1.f / (Quu00 * Quu11 - Quu01 * Quu01);
-      const float i00 = Quu11 * inv, i01 = -Quu01 * inv, i11 = Quu00 * inv;
-      const float K00 = -(i00 * Qux00 + i01 * Qux10);
-      const float K01 = -(i00 * Qux01 + i01 * Qux11);
-      const float K02 = -(i00 * Qux02 + i01 * Qux12);
-      const float K10 = -(i01 * Qux00 + i11 * Qux10);
-      const float K11 = -(i01 * Qux01 + i11 * Qux11);
-      const float K12 = -(i01 * Qux02 + i11 * Qux12);
-      const float k0 = -(i00 * qu0 + i01 * qu1);
-      const float k1 = -(i01 * qu0 + i11 * qu1);
-      KK[t] = K00;
-      KK[N + t] = K01;
-      KK[2 * N + t] = K02;
-      KK[3 * N + t] = K10;
-      KK[4 * N + t] = K11;
-      KK[5 * N + t] = K12;
-      KK[6 * N + t] = k0;
-      KK[7 * N + t] = k1;
-      const float aPa = D.a02 * Pa0 + D.a12 * Pa1 + Pa2;
-      const float S00 = Qux00 * K00 + Qux10 * K10, S01 = Qux00 * K01 + Qux10 * K11;
-      const float S02 = Qux00 * K02 + Qux10 * K12, S10 = Qux01 * K00 + Qux11 * K10;
-      const float S11 = Qux01 * K01 + Qux11 * K11, S12 = Qux01 * K02 + Qux11 * K12;
-      const float S20 = Qux02 * K00 + Qux12 * K10, S21 = Qux02 * K01 + Qux12 * K11;
-      const float S22 = Qux02 * K02 + Qux12 * K12;
-      P00 = S.Q[0] + P00 + S00;
-      P01 = S.Qxy + P01 + 0.5f * (S01 + S10);
-      P02 = Pa0 + 0.5f * (S02 + S20);
-      P11 = S.Q[1] + P11 + S11;
-      P12 = Pa1 + 0.5f * (S12 + S21);
-      P22 = S.Q[2] + aPa + S22;
-      p0 = S.q[0] + Pd0 + Qux00 * k0 + Qux10 * k1;
-      p1 = S.q[1] + Pd1 + Qux01 * k0 + Qux11 * k1;
-      p2 = S.q[2] + D.a02 * Pd0 + D.a12 * Pd1 + Pd2 + Qux02 * k0 + Qux12 * k1;
-      const float nl2 = S.q[2] + D.a02 * l0 + D.a12 * l1 + l2;
-      l0 = S.q[0] + l0;
-      l1 = S.q[1] + l1;
-      l2 = nl2;
-      lam_max = maxp(lam_max, maxp(fabsf(l0), maxp(fabsf(l1), fabsf(l2))));
-    }
-
-    // --- forward rollout ---------------------------------------------------
-    float dx0 = x0 - X[0], dx1 = y0 - Y[0], dx2 = th0 - TH[0];
-    DX[0] = dx0;
-    DX[T1] = dx1;
-    DX[2 * T1] = dx2;
-    float step_inf = maxp(0.f, maxp(fabsf(dx0), maxp(fabsf(dx1), fabsf(dx2))));
-    for (int t = 0; t < N; ++t) {
-      const float du0 = KK[t] * dx0 + KK[N + t] * dx1 + KK[2 * N + t] * dx2 + KK[6 * N + t];
-      const float du1 =
-          KK[3 * N + t] * dx0 + KK[4 * N + t] * dx1 + KK[5 * N + t] * dx2 + KK[7 * N + t];
-      DU[t] = du0;
-      DU[N + t] = du1;
-      const Dyn D = dyn(t);
-      const float n0 = dx0 + D.a02 * dx2 + D.b00 * du0 + D.d0;
-      const float n1 = dx1 + D.a12 * dx2 + D.b10 * du0 + D.d1;
-      const float n2 = dx2 + dt * du1 + D.d2;
-      dx0 = n0;
-      dx1 = n1;
-      dx2 = n2;
-      DX[t + 1] = dx0;
-      DX[T1 + t + 1] = dx1;
-      DX[2 * T1 + t + 1] = dx2;
-      step_inf = maxp(step_inf, maxp(maxp(fabsf(du0), fabsf(du1)),
-                                     maxp(fabsf(dx0), maxp(fabsf(dx1), fabsf(dx2)))));
-    }
-
-    // --- slack / dual steps: fraction to the boundary ----------------------
-    float alpha_s = 1.f, alpha_nu = 1.f;
-    visit([&](float c, float& s, float& nu, float m, float jdz, int row) {
-      if (ELASTIC && row >= 0) {
-        const float e = Eob[row];
-        const ElStep st = el_step(el_coef(c, s, nu, e, m, mu), m, jdz);
-        alpha_s = minp(alpha_s, ftb(s, st.ds));
-        alpha_s = minp(alpha_s, ftb(e, st.de));
-        alpha_nu = minp(alpha_nu, ftb(nu, st.dnu));
-        return;
+    // --- (b) condensation: every stage row in parallel ----------------------
+    for (int t = lane; t < T1; t += kLanes) {
+      if (t < N) {
+        const Dyn D = dyn(t);
+        SD[t] = D.a02;
+        SD[N + t] = D.a12;
+        SD[2 * N + t] = D.b00;
+        SD[3 * N + t] = D.b10;
+        SD[4 * N + t] = D.d0;
+        SD[5 * N + t] = D.d1;
+        SD[6 * N + t] = D.d2;
+        const CtrlQ C = ctrl_stage(t, mu, reg);
+        SCQ[t] = C.Qv;
+        SCQ[N + t] = C.Qw;
+        SCQ[2 * N + t] = C.qv;
+        SCQ[3 * N + t] = C.qw;
       }
+      const StateQ S = state_stage(t, mu, reg);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        SSQ[i * T1 + t] = S.Q[i];
+        SSQ[(4 + i) * T1 + t] = S.q[i];
+      }
+      SSQ[3 * T1 + t] = S.Qxy;
+    }
+    __syncwarp();
+
+    // --- (c) backward Riccati sweep on lane 0 -------------------------------
+    float lam_max = 0.f;
+    if (lane == 0) {
+      StateQ S = state_at(N);
+      float P00 = S.Q[0], P01 = S.Qxy, P02 = 0.f, P11 = S.Q[1], P12 = 0.f, P22 = S.Q[2];
+      float p0 = S.q[0], p1 = S.q[1], p2 = S.q[2];
+      float l0 = p0, l1 = p1, l2 = p2;  // adjoint estimate of the dynamics duals
+      lam_max = maxp(fabsf(p0), maxp(fabsf(p1), fabsf(p2)));
+      for (int t = N - 1; t >= 0; --t) {
+        const Dyn D = dyn_at(t);
+        const CtrlQ C = ctrl_at(t);
+        S = state_at(t);
+        const float Pa0 = P00 * D.a02 + P01 * D.a12 + P02;
+        const float Pa1 = P01 * D.a02 + P11 * D.a12 + P12;
+        const float Pa2 = P02 * D.a02 + P12 * D.a12 + P22;
+        const float Pd0 = P00 * D.d0 + P01 * D.d1 + P02 * D.d2 + p0;
+        const float Pd1 = P01 * D.d0 + P11 * D.d1 + P12 * D.d2 + p1;
+        const float Pd2 = P02 * D.d0 + P12 * D.d1 + P22 * D.d2 + p2;
+        const float PB00 = D.b00 * P00 + D.b10 * P01;
+        const float PB01 = D.b00 * P01 + D.b10 * P11;
+        const float PB02 = D.b00 * P02 + D.b10 * P12;
+        const float Quu00 = C.Qv + (D.b00 * PB00 + D.b10 * PB01);
+        const float Quu01 = dt * PB02;
+        const float Quu11 = C.Qw + dt * dt * P22;
+        const float Qux00 = PB00, Qux01 = PB01, Qux02 = D.b00 * Pa0 + D.b10 * Pa1;
+        const float Qux10 = dt * P02, Qux11 = dt * P12, Qux12 = dt * Pa2;
+        const float qu0 = C.qv + D.b00 * Pd0 + D.b10 * Pd1;
+        const float qu1 = C.qw + dt * Pd2;
+        const float inv = 1.f / (Quu00 * Quu11 - Quu01 * Quu01);
+        const float i00 = Quu11 * inv, i01 = -Quu01 * inv, i11 = Quu00 * inv;
+        const float K00 = -(i00 * Qux00 + i01 * Qux10);
+        const float K01 = -(i00 * Qux01 + i01 * Qux11);
+        const float K02 = -(i00 * Qux02 + i01 * Qux12);
+        const float K10 = -(i01 * Qux00 + i11 * Qux10);
+        const float K11 = -(i01 * Qux01 + i11 * Qux11);
+        const float K12 = -(i01 * Qux02 + i11 * Qux12);
+        const float k0 = -(i00 * qu0 + i01 * qu1);
+        const float k1 = -(i01 * qu0 + i11 * qu1);
+        KK[t] = K00;
+        KK[N + t] = K01;
+        KK[2 * N + t] = K02;
+        KK[3 * N + t] = K10;
+        KK[4 * N + t] = K11;
+        KK[5 * N + t] = K12;
+        KK[6 * N + t] = k0;
+        KK[7 * N + t] = k1;
+        const float aPa = D.a02 * Pa0 + D.a12 * Pa1 + Pa2;
+        const float S00 = Qux00 * K00 + Qux10 * K10, S01 = Qux00 * K01 + Qux10 * K11;
+        const float S02 = Qux00 * K02 + Qux10 * K12, S10 = Qux01 * K00 + Qux11 * K10;
+        const float S11 = Qux01 * K01 + Qux11 * K11, S12 = Qux01 * K02 + Qux11 * K12;
+        const float S20 = Qux02 * K00 + Qux12 * K10, S21 = Qux02 * K01 + Qux12 * K11;
+        const float S22 = Qux02 * K02 + Qux12 * K12;
+        P00 = S.Q[0] + P00 + S00;
+        P01 = S.Qxy + P01 + 0.5f * (S01 + S10);
+        P02 = Pa0 + 0.5f * (S02 + S20);
+        P11 = S.Q[1] + P11 + S11;
+        P12 = Pa1 + 0.5f * (S12 + S21);
+        P22 = S.Q[2] + aPa + S22;
+        p0 = S.q[0] + Pd0 + Qux00 * k0 + Qux10 * k1;
+        p1 = S.q[1] + Pd1 + Qux01 * k0 + Qux11 * k1;
+        p2 = S.q[2] + D.a02 * Pd0 + D.a12 * Pd1 + Pd2 + Qux02 * k0 + Qux12 * k1;
+        const float nl2 = S.q[2] + D.a02 * l0 + D.a12 * l1 + l2;
+        l0 = S.q[0] + l0;
+        l1 = S.q[1] + l1;
+        l2 = nl2;
+        lam_max = maxp(lam_max, maxp(fabsf(l0), maxp(fabsf(l1), fabsf(l2))));
+      }
+
+      // --- (d) forward rollout on lane 0 ------------------------------------
+      float dx0 = x0 - X[0], dx1 = y0 - Y[0], dx2 = th0 - TH[0];
+      DX[0] = dx0;
+      DX[T1] = dx1;
+      DX[2 * T1] = dx2;
+      for (int t = 0; t < N; ++t) {
+        const float du0 = KK[t] * dx0 + KK[N + t] * dx1 + KK[2 * N + t] * dx2 + KK[6 * N + t];
+        const float du1 =
+            KK[3 * N + t] * dx0 + KK[4 * N + t] * dx1 + KK[5 * N + t] * dx2 + KK[7 * N + t];
+        DU[t] = du0;
+        DU[N + t] = du1;
+        const Dyn D = dyn_at(t);
+        dx0 = dx0 + D.a02 * dx2 + D.b00 * du0 + D.d0;
+        dx1 = dx1 + D.a12 * dx2 + D.b10 * du0 + D.d1;
+        dx2 = dx2 + dt * du1 + D.d2;
+        DX[t + 1] = dx0;
+        DX[T1 + t + 1] = dx1;
+        DX[2 * T1 + t + 1] = dx2;
+      }
+    }
+    __syncwarp();
+    lam_max = __shfl_sync(kFull, lam_max, 0);
+
+    // --- (e) slack / dual steps: fraction to the boundary --------------------
+    float as = 1.f, an = 1.f, sinf_l = 0.f;
+    for (int t = lane; t < T1; t += kLanes) {
+      sinf_l = maxp(sinf_l, maxp(fabsf(DX[t]), maxp(fabsf(DX[T1 + t]), fabsf(DX[2 * T1 + t]))));
+      if (t < N) sinf_l = maxp(sinf_l, maxp(fabsf(DU[t]), fabsf(DU[N + t])));
+    }
+    visit_box([&](float c, float& s, float& nu, float m, float jdz) {
       const float ds = m * (jdz + c - s);
       const float dnu = m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds);
-      alpha_s = minp(alpha_s, ftb(s, ds));
-      alpha_nu = minp(alpha_nu, ftb(nu, dnu));
+      as = minp(as, ftb(s, ds));
+      an = minp(an, ftb(nu, dnu));
     });
+    for (int r = lane; r < KN; r += kLanes) {
+      const ObStep st = ob_step(r, mu);
+      as = minp(as, ftb(SOB[r], st.ds));
+      if constexpr (ELASTIC) {
+        as = minp(as, ftb(EOB[r], st.de));
+      }
+      an = minp(an, ftb(NUOB[r], st.dnu));
+      STEP[r] = st.ds;
+      if constexpr (ELASTIC) {
+        STEP[KN + r] = st.de;
+        STEP[2 * KN + r] = st.dnu;
+      }
+    }
+    const float alpha_s = warp_min(as);
+    float alpha_nu = warp_min(an);
+    const float step_inf = warp_max(sinf_l);
+    __syncwarp();
     // l1 penalty: dominate the inequality duals and the dynamics adjoints.
     const float rho = maxp(p.merit_penalty, 2.f * maxp(r.nu_max, lam_max));
 
-    // --- merit line search -------------------------------------------------
+    // --- (f) merit line search ----------------------------------------------
     const float merit0 = m_obj - mu * m_log + rho * m_eqc;
     const bool newton = step_inf < 1e-2f;
     const float tol = 16.f * kEps * (1.f + fabsf(merit0)) +
@@ -630,7 +776,7 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
       aj *= p.ls_backtrack;
     }
     // All rejected: execute the deepest candidate only if its merit was
-    // finite; a frozen lane keeps its merit components.
+    // finite; a frozen scenario keeps its merit components.
     const bool keep = found || fin_last;
     const float alpha = keep ? alpha_best : 0.f;
     if (keep) {
@@ -640,32 +786,35 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
     }
     alpha_nu = minp(alpha_nu, alpha);
 
-    // --- updates with the dual clamp -----------------------------------------
-    visit([&](float c, float& s, float& nu, float m, float jdz, int row) {
-      float ds, dnu;
-      if (ELASTIC && row >= 0) {
-        const ElStep st = el_step(el_coef(c, s, nu, Eob[row], m, mu), m, jdz);
-        ds = st.ds;
-        dnu = st.dnu;
-        Eob[row] = Eob[row] + alpha * st.de;
-      } else {
-        ds = m * (jdz + c - s);
-        dnu = m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds);
-      }
+    // --- (g) updates with the dual clamp --------------------------------------
+    auto update = [&](float& s, float& nu, float m, float ds, float dnu) {
       const float s_new = s + alpha * ds;
       const float center = mu / maxp(s_new, kFloor);
       nu = m * clipp(nu + alpha_nu * dnu, center / kKappa, center * kKappa);
       s = s_new;
+    };
+    visit_box([&](float c, float& s, float& nu, float m, float jdz) {
+      const float ds = m * (jdz + c - s);
+      update(s, nu, m, ds, m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds));
     });
-    for (int t = 0; t <= N; ++t) {
+    for (int r = lane; r < KN; r += kLanes) {
+      const ObStep st = ob_step_now(r, mu);
+      if constexpr (ELASTIC) {
+        EOB[r] = EOB[r] + alpha * st.de;
+      }
+      update(SOB[r], NUOB[r], OBI[K + r / N], st.ds, st.dnu);
+    }
+    __syncwarp();  // every family read the trajectory before it moves
+    for (int t = lane; t < T1; t += kLanes) {
       X[t] = X[t] + alpha * DX[t];
       Y[t] = Y[t] + alpha * DX[T1 + t];
       TH[t] = TH[t] + alpha * DX[2 * T1 + t];
+      if (t < N) {
+        V[t] = V[t] + alpha * DU[t];
+        W[t] = W[t] + alpha * DU[N + t];
+      }
     }
-    for (int t = 0; t < N; ++t) {
-      V[t] = V[t] + alpha * DU[t];
-      W[t] = W[t] + alpha * DU[N + t];
-    }
+    __syncwarp();
     // Grow reg on genuine large-step rejections, decay it otherwise; slow
     // the barrier schedule on throttled steps outside the Newton regime.
     const bool grow = !found || (n_rej >= 4 && !newton);
@@ -679,114 +828,177 @@ __global__ void __launch_bounds__(kThreads) ipm_fused_kernel(
 
   // --- exact KKT diagnostics at the final iterate ---------------------------
   float nu_sum = 0.f, nu_cnt = 0.f, viol = 0.f, comp = 0.f, tot = 0.f;
-  visit([&](float c, float& s, float& nu, float m, float, int) {
+  auto kkt_elem = [&](float c, float s, float nu, float m) {
     nu_sum += m * fabsf(nu);
     nu_cnt += m;
     viol = maxp(viol, m * maxp(-c, 0.f));
     comp = maxp(comp, m * fabsf(s * nu));
     tot += m * s * nu;
-  });
-  float s_goal = 0.f, s_neg = 0.f, s_pos = 0.f, s_ang = 0.f, feas = 0.f;
-  for (int t = 0; t <= N; ++t) {
-    const float ex = X[t] - gx, ey = Y[t] - gy, eth = TH[t] - gth;
-    s_goal += gm(t) * (w0 * ex * ex + w1 * ey * ey + w2 * eth * eth);
-  }
-  for (int t = 0; t < N; ++t) {
-    const float v = V[t], neg = minp(v, 0.f), pos = maxp(v, 0.f);
-    s_neg += p.reverse_squared ? neg * neg : neg;
-    s_pos += pos * pos;
-    s_ang += W[t] * W[t];
-    const Dyn D = dyn(t);
-    feas = maxp(feas, maxp(fabsf(D.d0), maxp(fabsf(D.d1), fabsf(D.d2))));
-  }
-  feas = maxp(feas, fabsf(x0 - X[0]));
-  feas = maxp(feas, fabsf(y0 - Y[0]));
-  feas = maxp(feas, fabsf(th0 - TH[0]));
-  feas = maxp(feas, viol);
-  float obj = s_goal;
-  obj = obj + p.w_neg * s_neg;
-  obj = obj + p.w_pos * s_pos;
-  obj = obj + p.w_ang * s_ang;
-
-  // Lagrangian gradient of state t with the final duals (stored masked).
-  struct Vec3 {
-    float v[3];
   };
-  auto grad_L = [&](int t) {
+  visit_box([&](float c, float& s, float& nu, float m, float) { kkt_elem(c, s, nu, m); });
+  for (int r = lane; r < KN; r += kLanes) {
+    const int k = r / N, tt = r - k * N;
+    kkt_elem(geo(k, tt, X[tt + 1], Y[tt + 1]).c, SOB[r], NUOB[r], OBI[K + k]);
+  }
+  // Objective, defects and pins; the Lagrangian gradient of every state
+  // with the final duals (stored masked), the control gradients and the
+  // linearisation, as rows for the adjoint sweep.
+  float* const G0 = GR;
+  float* const GU = GR + 3 * T1;
+  float* const LIN = GU + 2 * N;
+  float obj = 0.f, feas = 0.f;
+  for (int t = lane; t < T1; t += kLanes) {
     const float comp_t[3] = {X[t], Y[t], TH[t]};
+    const float ex = comp_t[0] - gx, ey = comp_t[1] - gy, eth = comp_t[2] - gth;
     const float g = gm(t);
-    Vec3 G;
+    obj += g * (w0 * ex * ex + w1 * ey * ey + w2 * eth * eth);
+    float G[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
-      G.v[i] = 2.f * g * wgoal[i] * (comp_t[i] - goal[i]) - NUx[i * T1 + t] +
-               NUx[(3 + i) * T1 + t];
+      G[i] = 2.f * g * wgoal[i] * (comp_t[i] - goal[i]) - NUX[i * T1 + t] +
+             NUX[(3 + i) * T1 + t];
     if (t >= 1 && K > 0) {
       float addx = 0.f, addy = 0.f;
       for (int k = 0; k < K; ++k) {
         const Geo Gk = geo(k, t - 1, comp_t[0], comp_t[1]);
-        const float nu = NUob[k * N + t - 1];
+        const float nu = NUOB[k * N + t - 1];
         addx += -Gk.nx * nu;
         addy += -Gk.ny * nu;
       }
-      G.v[0] = G.v[0] + addx;
-      G.v[1] = G.v[1] + addy;
+      G[0] = G[0] + addx;
+      G[1] = G[1] + addy;
     }
-    return G;
-  };
-  // Adjoint sweep for the control stationarity.
-  Vec3 G = grad_L(N);
-  float l0 = G.v[0], l1 = G.v[1], l2 = G.v[2], ru_max = 0.f;
-  for (int t = N - 1; t >= 0; --t) {
-    const Dyn D = dyn(t);
-    const float gu0 = grad_v(V[t]) - NUc[t] + NUc[N + t];
-    const float gu1 = 2.f * p.w_ang * W[t] - NUc[2 * N + t] + NUc[3 * N + t];
-    const float ru0 = gu0 + D.b00 * l0 + D.b10 * l1;
-    const float ru1 = gu1 + dt * l2;
-    ru_max = maxp(ru_max, maxp(fabsf(ru0), fabsf(ru1)));
-    G = grad_L(t);
-    const float nl2 = G.v[2] + D.a02 * l0 + D.a12 * l1 + l2;
-    l0 = G.v[0] + l0;
-    l1 = G.v[1] + l1;
-    l2 = nl2;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) G0[i * T1 + t] = G[i];
+    if (t == 0) {
+      feas = maxp(feas, fabsf(x0 - X[0]));
+      feas = maxp(feas, fabsf(y0 - Y[0]));
+      feas = maxp(feas, fabsf(th0 - TH[0]));
+    }
+    if (t < N) {
+      const float v = V[t], neg = minp(v, 0.f), pos = maxp(v, 0.f);
+      obj += p.w_neg * (p.reverse_squared ? neg * neg : neg);
+      obj += p.w_pos * (pos * pos);
+      obj += p.w_ang * (W[t] * W[t]);
+      const Dyn D = dyn(t);
+      feas = maxp(feas, maxp(fabsf(D.d0), maxp(fabsf(D.d1), fabsf(D.d2))));
+      GU[t] = grad_v(v) - NUC[t] + NUC[N + t];
+      GU[N + t] = 2.f * p.w_ang * W[t] - NUC[2 * N + t] + NUC[3 * N + t];
+      LIN[t] = D.a02;
+      LIN[N + t] = D.a12;
+      LIN[2 * N + t] = D.b00;
+      LIN[3 * N + t] = D.b10;
+    }
   }
-  // IPOPT's s_d scaling of the dual residual (s_max = 100).
-  const float s_d = maxp(100.f, nu_sum / maxp(nu_cnt, 1.f)) / 100.f;
-  const float stationarity = ru_max / s_d;
-  const float mu_fin = clipp(sig_c * tot / maxp(nu_cnt, 1.f), p.mu_floor, p.mu_init);
-  const bool converged =
-      stationarity < p.kkt_tol && feas < p.kkt_tol && comp / s_d < p.comp_tol;
-  DG[0] = converged ? 1.f : 0.f;
-  DG[1] = stationarity;
-  DG[2] = feas;
-  DG[3] = comp;
-  DG[4] = obj;
-  DG[5] = mu_fin;
+  nu_sum = warp_sum(nu_sum);
+  nu_cnt = warp_sum(nu_cnt);
+  tot = warp_sum(tot);
+  obj = warp_sum(obj);
+  viol = warp_max(viol);
+  comp = warp_max(comp);
+  feas = maxp(warp_max(feas), viol);
+  __syncwarp();
+
+  // Adjoint sweep for the control stationarity, on lane 0.
+  if (lane == 0) {
+    float l0 = G0[N], l1 = G0[T1 + N], l2 = G0[2 * T1 + N], ru_max = 0.f;
+    for (int t = N - 1; t >= 0; --t) {
+      const float ru0 = GU[t] + LIN[2 * N + t] * l0 + LIN[3 * N + t] * l1;
+      const float ru1 = GU[N + t] + dt * l2;
+      ru_max = maxp(ru_max, maxp(fabsf(ru0), fabsf(ru1)));
+      const float nl2 = G0[2 * T1 + t] + LIN[t] * l0 + LIN[N + t] * l1 + l2;
+      l0 = G0[t] + l0;
+      l1 = G0[T1 + t] + l1;
+      l2 = nl2;
+    }
+    // IPOPT's s_d scaling of the dual residual (s_max = 100).
+    const float s_d = maxp(100.f, nu_sum / maxp(nu_cnt, 1.f)) / 100.f;
+    const float stationarity = ru_max / s_d;
+    const float mu_fin = clipp(sig_c * tot / maxp(nu_cnt, 1.f), p.mu_floor, p.mu_init);
+    const bool converged =
+        stationarity < p.kkt_tol && feas < p.kkt_tol && comp / s_d < p.comp_tol;
+    float* const dg = diag_out + static_cast<size_t>(b) * 6;
+    dg[0] = converged ? 1.f : 0.f;
+    dg[1] = stationarity;
+    dg[2] = feas;
+    dg[3] = comp;
+    dg[4] = obj;
+    dg[5] = mu_fin;
+  }
+
+  // --- outputs: each written once --------------------------------------------
+  const size_t bs = static_cast<size_t>(b) * T1, bc = static_cast<size_t>(b) * N;
+  for (int t = lane; t < T1; t += kLanes) {
+    x_out[bs + t] = X[t];
+    y_out[bs + t] = Y[t];
+    th_out[bs + t] = TH[t];
+    if (t < N) {
+      v_out[bc + t] = V[t];
+      w_out[bc + t] = W[t];
+    }
+  }
+}
+
+using KernelFn = void (*)(const int*, const float*, const float*, const float*, const float*,
+                          const float*, float*, float*, float*, float*, float*, float*,
+                          const FusedParams);
+
+// The instantiation for the branch, with its dynamic shared memory allowed
+// up to ``bytes`` (needed above 48 KB, before its first launch).
+cudaError_t prepare(bool elastic, size_t bytes, KernelFn* kernel) {
+  *kernel = elastic ? ipm_fused_kernel<true> : ipm_fused_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();  // clear it; the caller reports it
+  return err;
 }
 
 }  // namespace
 
-extern "C" int kissmpc_ipm_fused_scratch_rows(int N, int K, int elastic) {
-  return scratch_rows(N, K, elastic != 0);
-}
-
 extern "C" int kissmpc_ipm_fused_f32(
     const void* iters, const void* scal, const void* warm, const void* tx,
     const void* ty, const void* obinfo, void* x, void* y, void* th, void* v,
-    void* w, void* diag, void* scratch, const FusedParams* params,
-    void* stream) {
+    void* w, void* diag, const FusedParams* params, void* stream) {
   const FusedParams p = *params;
   if (p.B > 0) {
-    const int blocks = (p.B + kThreads - 1) / kThreads;
-    auto* kernel = p.elastic && p.K > 0 ? ipm_fused_kernel<true> : ipm_fused_kernel<false>;
-    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const bool elastic = p.elastic && p.K > 0;
+    const size_t bytes = smem_bytes(p.N, p.K, elastic, p.affine != 0);
+    KernelFn kernel;
+    const cudaError_t err = prepare(elastic, bytes, &kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = (p.B + kWarps - 1) / kWarps;
+    kernel<<<blocks, kWarps * kLanes, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(iters), static_cast<const float*>(scal),
         static_cast<const float*>(warm), static_cast<const float*>(tx),
         static_cast<const float*>(ty), static_cast<const float*>(obinfo),
         static_cast<float*>(x), static_cast<float*>(y), static_cast<float*>(th),
-        static_cast<float*>(v), static_cast<float*>(w), static_cast<float*>(diag),
-        static_cast<float*>(scratch), p);
+        static_cast<float*>(v), static_cast<float*>(w), static_cast<float*>(diag), p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape of the instantiation that a (N, K, elastic, affine)
+// solve takes: out = {warps per block, dynamic shared bytes per block,
+// resident blocks per SM, registers per thread, local (spill) bytes per
+// thread}.  Returns a cudaError_t.
+extern "C" int kissmpc_ipm_fused_occupancy(int N, int K, int elastic, int affine, int* out) {
+  const bool el = elastic && K > 0;
+  const size_t bytes = smem_bytes(N, K, el, affine != 0);
+  KernelFn kernel;
+  cudaError_t err = prepare(el, bytes, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kWarps * kLanes, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = kWarps;
+  out[1] = static_cast<int>(bytes);
+  out[2] = blocks;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 extern "C" const char* kissmpc_cuda_error_string(int code) {

@@ -727,12 +727,13 @@ def _params(cfg: MPCConfig, B: int) -> _Params:
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the launcher's signature on a loaded build of ``SOURCE``."""
+    """Declare the launcher's signatures on a loaded build of ``SOURCE``."""
     fn = lib.kissmpc_ipm_fused_f32
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.kissmpc_ipm_fused_scratch_rows.argtypes = [ctypes.c_int] * 3
-    lib.kissmpc_ipm_fused_scratch_rows.restype = ctypes.c_int
+    occ = lib.kissmpc_ipm_fused_occupancy
+    occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
     return lib
 
 
@@ -780,33 +781,45 @@ def solve_batch_fused(cfg: MPCConfig, problems: Problem, *,
                                        mu_sigma=mu_sigma)
     if device.type != "cuda":
         raise ValueError(f"the fused kernel runs on CUDA or CPU tensors, got {device}")
-    N, K = cfg.horizon, cfg.max_obstacles
+    N = cfg.horizon
     T1 = N + 1
     B = problems.initial_state.shape[0]
     iters = cfg.solver.iterations if iterations is None else int(iterations)
     lib = _library()
     with torch.no_grad(), torch.cuda.device(device):
         inp = pack_inputs(cfg, problems, mu_sigma, torch.float32)
-        # Scenario-minor planes: row r of scenario b at r * B + b, so a
-        # warp's 32 threads read one 128-byte line per access.
-        planes = [t.t().contiguous() for t in (inp.scal, inp.warm, inp.tx, inp.ty, inp.obinfo)]
+        # Scenario-major [B, rows], as packed: a warp reads its scenario's
+        # contiguous rows.
+        rows = [t.contiguous() for t in (inp.scal, inp.warm, inp.tx, inp.ty, inp.obinfo)]
         trips = torch.tensor([iters], dtype=torch.int32, device=device)
         f32 = dict(dtype=torch.float32, device=device)
-        outs = [torch.empty((rows, B), **f32) for rows in (T1, T1, T1, N, N, 6)]
-        # The elastic e rows are allocated only when the branch is on.
-        rows = lib.kissmpc_ipm_fused_scratch_rows(N, K, int(_elastic(cfg)))
-        scratch = torch.empty(rows * B, **f32)
+        outs = [torch.empty((B, n), **f32) for n in (T1, T1, T1, N, N, 6)]
         params = _params(cfg, B)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.kissmpc_ipm_fused_f32(
-            trips.data_ptr(), *(t.data_ptr() for t in planes),
-            *(t.data_ptr() for t in outs), scratch.data_ptr(),
-            ctypes.byref(params), stream,
+            trips.data_ptr(), *(t.data_ptr() for t in rows),
+            *(t.data_ptr() for t in outs), ctypes.byref(params), stream,
         )
         _build.check_launch(lib, err, "fused IPM kernel")
         solve_batch_fused.launches += 1
-        x, y, th, v, w, diag = (t.t() for t in outs)
-        return _solution(inp, x, y, th, v, w, diag)
+        return _solution(inp, *outs)
 
 
 solve_batch_fused.launches = 0
+
+
+def occupancy(cfg: MPCConfig) -> dict:
+    """The launch shape of the kernel instantiation that ``cfg`` takes on
+    the current card: warps (scenarios) per block, dynamic shared memory
+    per block, resident blocks and scenarios per SM, registers and bytes
+    of local memory (stack frame and spills) per thread.  Builds the
+    kernel; needs CUDA."""
+    lib = _library()
+    out = (ctypes.c_int * 5)()
+    err = lib.kissmpc_ipm_fused_occupancy(
+        cfg.horizon, cfg.max_obstacles, int(_elastic(cfg)),
+        int(cfg.max_obstacles > 0 and cfg.solver.fused_affine_tracks), out)
+    _build.check_launch(lib, err, "fused IPM occupancy query")
+    warps, smem, blocks, regs, local = out
+    return {"warps_per_block": warps, "smem_bytes_per_block": smem, "blocks_per_sm": blocks,
+            "scenarios_per_sm": warps * blocks, "registers": regs, "local_bytes": local}

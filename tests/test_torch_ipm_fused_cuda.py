@@ -7,12 +7,17 @@ card and no JAX they run as
 
     python -m pytest --noconftest -m cuda tests/test_torch_ipm_fused_cuda.py
 
-Tolerances are those of `chip_smoke.py`: at one iteration the kernel and
-the plain version agree within 1e-4 of the solution's scale plus twice the
-plain version's own f32-vs-f64 gap; over a full solve their converged flags
-agree on all but 1% of the scenarios and 95% of the scenarios converged on
-both agree within the f32 budget of tests/test_ipm_fused.py (controls 1e-3
-without obstacles, 2e-3 with them).
+The one-iteration cases cover N = 12 and 50, K = 0, 2 and 8, affine and
+tabulated tracks, both branches, and batches that are ragged against the
+kernel's warps per block (37, 164): the kernel and the plain version agree
+within 1e-4 of the solution's scale plus twice the plain version's own
+f32-vs-f64 gap.  The full solves run at N = 12: their converged flags
+differ on at most 1% of the scenarios (at least one), and 95% of the
+scenarios converged on both agree within the f32 budget of
+tests/test_ipm_fused.py (controls 1e-3 without obstacles, 2e-3 with
+them).  Full solves at N = 50 are `chip_smoke.py` phase 4's, at B = 8192
+and at the refine stage's B = 164, with its flag noise floor: at a batch of
+a few hundred, round-off alone changes a few flags (PERF.md).
 """
 
 import dataclasses
@@ -28,6 +33,16 @@ from kissmpc_tpu_torch.solver.problem import Problem
 
 B, N = 64, 12
 
+# (N, K, affine tracks, batch) of the one-iteration cases, each run hard
+# and, with obstacles, elastic.
+ONE_ITERATION = [(n, 0, False, b) for n in (12, 50) for b in (37, 164)] + [
+    (n, k, affine, b) for n in (12, 50) for k in (2, 8) for affine in (True, False)
+    for b in (37, 164)
+]
+# (K, affine tracks, batch, elastic) of the full-solve cases, at N = 12.
+FULL_SOLVE = [(0, False, B, False), (2, True, B, False), (8, False, 37, False),
+              (2, True, B, True), (8, False, 37, True)]
+
 
 @pytest.fixture
 def cuda():
@@ -35,14 +50,14 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
 
 
-def _case(K, elastic=False):
-    cfg = MPCConfig(horizon=N, time_step=0.1, max_obstacles=K)
+def _case(K, elastic=False, n=N, batch=B, affine=None):
+    cfg = MPCConfig(horizon=n, time_step=0.1 if n < 20 else 0.041, max_obstacles=K)
     cfg = cfg.replace(solver=dataclasses.replace(
         cfg.solver, iterations=32, mu_sigma_max=0.7 if K else 0.0,
-        fused_affine_tracks=K > 0, elastic_obstacles=elastic))
+        fused_affine_tracks=K > 0 if affine is None else affine, elastic_obstacles=elastic))
     if K:
-        return cfg, obstacle_problems(cfg, B, seed=5, n_dynamic=1, device="cuda")
-    return cfg, free_problems(cfg, B, seed=5, device="cuda")
+        return cfg, obstacle_problems(cfg, batch, seed=5, n_dynamic=1, device="cuda")
+    return cfg, free_problems(cfg, batch, seed=5, device="cuda")
 
 
 def _gap(a, b):
@@ -50,10 +65,7 @@ def _gap(a, b):
                for x, y in ((a.states, b.states), (a.controls, b.controls)))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("K", [0, 2])
-def test_fused_kernel_matches_plain_one_iteration(cuda, K):
-    cfg, pr = _case(K)
+def _check_one_iteration(cfg, pr):
     before = solve_batch_fused.launches
     got = solve_batch_fused(cfg, pr, iterations=1)
     torch.cuda.synchronize()
@@ -61,54 +73,67 @@ def test_fused_kernel_matches_plain_one_iteration(cuda, K):
     ref = solve_batch_fused_plain(cfg, pr, iterations=1)
     ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)), iterations=1)
     scale = max(1.0, float(ref.states.abs().max()), float(ref.controls.abs().max()))
+    assert bool(torch.isfinite(got.states).all() and torch.isfinite(got.controls).all())
     assert _gap(got, ref) <= 1e-4 * scale + 2.0 * _gap(ref, ref64)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("K,tol", [(0, 1e-3), (2, 2e-3)])
-def test_fused_kernel_matches_plain_full_solve(cuda, K, tol):
-    cfg, pr = _case(K)
+def _check_full_solve(cfg, pr, tol):
     got = solve_batch_fused(cfg, pr)
     ref = solve_batch_fused_plain(cfg, pr)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got.states).all())
     c_k, c_p = got.diagnostics.converged, ref.diagnostics.converged
-    assert int((c_k != c_p).sum()) <= max(1, B // 100)
+    batch = c_p.shape[0]
+    assert int((c_k != c_p).sum()) <= max(1, batch // 100)
     both = c_k & c_p
-    assert int(both.sum()) >= B // 2
+    assert int(both.sum()) >= batch // 2
     diff = (got.controls - ref.controls).abs().flatten(1).amax(dim=1)
     assert float((diff[both] <= tol).float().mean()) >= 0.95
+    return got
 
 
 @pytest.mark.cuda
-def test_fused_elastic_kernel_matches_plain_one_iteration(cuda):
-    """The elastic branch (K=2 with elastic_obstacles), as above."""
-    cfg, pr = _case(2, elastic=True)
-    got = solve_batch_fused(cfg, pr, iterations=1)
-    ref = solve_batch_fused_plain(cfg, pr, iterations=1)
-    ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)), iterations=1)
-    torch.cuda.synchronize()
-    scale = max(1.0, float(ref.states.abs().max()), float(ref.controls.abs().max()))
-    assert _gap(got, ref) <= 1e-4 * scale + 2.0 * _gap(ref, ref64)
+@pytest.mark.parametrize("n,K,affine,batch", ONE_ITERATION)
+def test_fused_kernel_matches_plain_one_iteration(cuda, n, K, affine, batch):
+    _check_one_iteration(*_case(K, n=n, batch=batch, affine=affine))
 
 
 @pytest.mark.cuda
-def test_fused_elastic_kernel_matches_plain_full_solve(cuda):
-    cfg, pr = _case(2, elastic=True)
-    got = solve_batch_fused(cfg, pr)
-    ref = solve_batch_fused_plain(cfg, pr)
-    torch.cuda.synchronize()
-    assert bool(torch.isfinite(got.states).all())
-    c_k, c_p = got.diagnostics.converged, ref.diagnostics.converged
-    assert int((c_k != c_p).sum()) <= max(1, B // 100)
-    both = c_k & c_p
-    assert int(both.sum()) >= B // 2
-    diff = (got.controls - ref.controls).abs().flatten(1).amax(dim=1)
-    assert float((diff[both] <= 2e-3).float().mean()) >= 0.95
+@pytest.mark.parametrize("K,affine,batch,elastic", [c for c in FULL_SOLVE if not c[3]])
+def test_fused_kernel_matches_plain_full_solve(cuda, K, affine, batch, elastic):
+    cfg, pr = _case(K, batch=batch, affine=affine)
+    _check_full_solve(cfg, pr, 2e-3 if K else 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,affine,batch", [c for c in ONE_ITERATION if c[1]])
+def test_fused_elastic_kernel_matches_plain_one_iteration(cuda, n, K, affine, batch):
+    """The elastic branch (elastic_obstacles), as above."""
+    _check_one_iteration(*_case(K, elastic=True, n=n, batch=batch, affine=affine))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,affine,batch,elastic", [c for c in FULL_SOLVE if c[3]])
+def test_fused_elastic_kernel_matches_plain_full_solve(cuda, K, affine, batch, elastic):
+    cfg, pr = _case(K, elastic=True, batch=batch, affine=affine)
+    got = _check_full_solve(cfg, pr, 2e-3)
     # The elastic branch changes the solve: it is not the hard kernel.
-    hard_cfg, _ = _case(2)
+    hard_cfg, _ = _case(K, batch=batch, affine=affine)
     hard = solve_batch_fused(hard_cfg, pr)
     assert not torch.equal(hard.controls, got.controls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,elastic", [(0, False), (8, False), (8, True)])
+def test_fused_kernel_same_scenario_in_every_slot(cuda, K, elastic):
+    """One scenario in each of 300 slots (every lane, warp and block
+    position, a ragged last block): every output bitwise equal."""
+    cfg, pr = _case(K, elastic=elastic, n=50, batch=1)
+    many = Problem(*(x.expand(300, *x.shape[1:]).contiguous() for x in pr))
+    sol = solve_batch_fused(cfg, many)
+    torch.cuda.synchronize()
+    for x in (sol.states, sol.controls, *sol.diagnostics):
+        assert torch.equal(x, x[:1].expand_as(x)), "output depends on the slot"
 
 
 @pytest.mark.cuda
