@@ -9,12 +9,24 @@ Phases, each a hard failure with a non-zero exit:
    per source, all started together) and print each ptxas register/spill
    line; for the fused kernel's instance of each configuration, its
    registers, local bytes, dynamic shared memory per block and the
-   scenarios resident per SM (`ops/ipm_fused.py::occupancy`);
+   scenarios resident per SM (`ops/ipm_fused.py::occupancy`); the same for
+   the Riccati kernel in float32 and float64 at B=8192 and 164 (its two
+   chunk lengths), with its lanes and scenarios per block
+   (`ops/riccati.py::occupancy`);
 2. hold the Riccati kernel against its plain PyTorch version (`ops/lqr.py`)
-   on the card: B=8192, N=50, float32 on LQR data from a real IPM iterate of
-   the K=8 benchmark batch, and float64 at B=64; time both with CUDA events;
-3. the trip-count probe: counts 7 and then 31 read from device memory by
-   one loaded library; the results must be exactly 7.0 and 31.0;
+   on the card, dx, du and the gains K, k, on LQR data from a real IPM
+   iterate of the K=8 benchmark batch (N=50): float32 at B=8192 and at the
+   refine stages' batches 1024, 410, 328, 164, float64 at B=8192 and 164,
+   each output of each scenario within its own tolerance (`riccati_gate`:
+   f32 1e-4 of its scale plus four times the plain version's own
+   f32-vs-f64 gap there, f64 1e-9 of its scale;
+   `scripts/riccati_gate_faults.py` shows planted faults failing it); time
+   each by `kernel_ms` (20 launches captured in a CUDA graph between one
+   event pair) beside its bound, and once at B=8192 as before, one call
+   per event pair with the wrapper's host work inside;
+3. the trip-count probe: counts 0, 7 and then 31 read from device memory
+   by one loaded library; the results must be exactly those counts; timed
+   at 31 trips and at 0 (its launch floor) by `kernel_ms`;
 4. hold the fused IPM kernel against its plain version on the card at
    B=8192, N=50, float32, for both benchmark configurations and for
    k8_dyn2_elastic (k8_dyn2 with elastic obstacle constraints, the kernel's
@@ -28,7 +40,9 @@ Phases, each a hard failure with a non-zero exit:
    threshold), and 95% of the scenarios converged on both agree within
    1e-3 (free) / 2e-3 (K=8, both branches); the same gates at B=164, the
    last refine stage's batch, for the K=8 cells; time each at 32
-   iterations, and the kernel alone at every solve stage's (B, iterations)
+   iterations (`kernel_ms`, 5 calls per event pair), and, one call per
+   event pair as a solve stage makes it, the kernel alone at every solve
+   stage's (B, iterations)
    of the three cells and of the fleet loop, beside the recorded time of
    the earlier one-thread-per-scenario kernel there;
 5. drive the main path, `solve_batch` with the default ("fused") backend, at
@@ -79,14 +93,21 @@ CALLS = 5
 STAGES_FREE = ((0.05, 64, 0.2),)
 STAGES_OBST = ((0.125, 64, 0.2), (0.04, 96, 0.7), (0.02, 128, 0.5))
 # H100 SXM data-sheet peaks: HBM bytes/s,
-# float32 outside the tensor cores.
+# float32 and float64 outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 # Floating-point operations of one Riccati step per scenario, counted from
-# csrc/riccati.cu (an FMA is two): backward sweep 395, forward rollout 50.
+# the function as one thread computes it (an FMA is two): backward sweep
+# 395, forward rollout 50.  What csrc/riccati.cu computes twice across the
+# lanes of a scenario (B'PB and the inverse) is its own cost.
 RICCATI_FLOPS_PER_STEP = 445
+# Batches the split path hands the Riccati kernel: the base solve and the
+# refine stages of the free (410) and K=8 (1024, 328, 164) cells.
+RICCATI_BATCHES = (8192, 1024, 410, 328, 164)
+RICCATI_F64_BATCHES = (8192, 164)
 FUSED_ITERATIONS = 32
-PROBE_TRIPS = (7, 31)
+PROBE_TRIPS = (0, 7, 31)
 # Closed loop of scripts/bench_fleet_episodes.py:81-112, cut to 50 ticks and
 # the "detour" router (the grid planner is not ported yet).
 FLEET_BATCH = 4096
@@ -171,8 +192,47 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def kernel_ms(fn, reps, warmup=2, graph=False, windows=3):
+    """Device time of one call of ``fn`` with the host left out: ``reps``
+    calls enqueued back to back between one pair of CUDA events, over
+    ``reps``; the median of ``windows`` such pairs.  Without ``graph`` the
+    host's work in each call (a wrapper's checks, allocations and ctypes
+    call) overlaps the device's work on the calls before it, which holds for
+    calls of a millisecond or more.  With ``graph`` the ``reps`` calls are
+    captured once into a CUDA graph and the events bracket its replay, so a
+    kernel shorter than its wrapper's host work (tens of microseconds) is
+    timed alone too; ``fn`` must not synchronise.  Every call reads the same
+    inputs, so L2 keeps what fits in its 50 MB: the real case in the split
+    loop, where `_build_lqr` has just written the Riccati kernel's inputs;
+    at B=8192 those are 59 MB in f32 and do not fit."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    run = lambda: [fn() for _ in range(reps)]  # noqa: E731
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            run()
+        g.replay()
+        run = g.replay
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def cuda_ms(fn, reps, warmup=3):
-    """Median over ``reps`` launches of ``fn``, each timed by CUDA events."""
+    """Median over ``reps`` calls of ``fn``, each between its own pair of
+    CUDA events (the host's work inside the call included): for a caller's
+    own pattern of calls, such as one solve stage."""
     import torch
 
     for _ in range(warmup):
@@ -214,6 +274,8 @@ def configs(backend):
 
 
 def phase_build():
+    import torch
+
     from kissmpc_tpu_torch.ops import _build, ipm_fused, probe, riccati
 
     sources = {
@@ -244,6 +306,17 @@ def phase_build():
             f"{occ['blocks_per_sm']} blocks = {occ['scenarios_per_sm']} scenarios resident per SM")
         if occ["blocks_per_sm"] < 1:
             fail(f"the fused kernel cannot be resident for {name}")
+    for dtype in (torch.float32, torch.float64):
+        for B in (BATCH, RICCATI_BATCHES[-1]):
+            occupancy[f"riccati_{str(dtype)[6:]}_b{B}"] = occ = riccati.occupancy(B, N, dtype)
+            log(f"[1] Riccati kernel, {str(dtype)[6:]} B={B} N={N}: {occ['registers']} registers, "
+                f"{occ['local_bytes']} bytes of local memory per thread, "
+                f"{occ['lanes_per_scenario']} lanes per scenario, {occ['scenarios_per_block']} "
+                f"scenarios and {occ['smem_bytes_per_block']} bytes of dynamic shared memory per "
+                f"block, {occ['blocks_per_sm']} blocks = {occ['scenarios_per_sm']} scenarios "
+                f"resident per SM")
+            if occ["blocks_per_sm"] < 1:
+                fail(f"the Riccati kernel cannot be resident ({dtype}, B={B})")
     return build_s, occupancy
 
 
@@ -261,7 +334,115 @@ def lqr_from_iterate(cfg, problems, iterations=8):
         return ipm._build_lqr(cfg, problems, it, ipm._adaptive_mu(cfg, it, masks))
 
 
+def riccati_bound(batch, dtype):
+    """The Riccati kernel's least time on the card for ``batch`` scenarios
+    at N: (bound ms, "bytes" or "operations", bytes, flop).  Bytes: every
+    input read once (A, B, d, d0, Qxx, qx, Quu, qu) and dx, du and the
+    [B, N, 8] gains K, k written once."""
+    import torch
+
+    size = 4 if dtype == torch.float32 else 8
+    inputs = (9 + 6 + 3 + 4 + 2) * N + 3 + (9 + 3) * (N + 1)
+    outputs = 3 * (N + 1) + 2 * N + 8 * N
+    n_bytes = size * batch * (inputs + outputs)
+    flops = RICCATI_FLOPS_PER_STEP * N * batch
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / (PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, flops
+
+
+RICCATI_OUTPUTS = ("dx", "du", "K", "k")
+# How many times the plain version's own f32-vs-f64 gap in a scenario the
+# kernel may differ from it there, above 1e-4 of the scale: in a scenario
+# whose f32 round-off is amplified far above that floor, each f32 solve's
+# error is one draw of the same size, and the plain version's may be the
+# small one.  On phase 2's data at B=8192 the kernel as written, its build
+# without FMA contraction and the earlier one-thread-per-scenario kernel
+# need 3.18, 2.39 and 2.78 (dx, du of one scenario) where every other one
+# passes at 2, and planted faults need 788 or more
+# (scripts/riccati_gate_faults.py).
+RICCATI_NOISE_FACTOR = 4.0
+
+
+def riccati_gate(got, data, reg):
+    """Phase 2's gate: the kernel's solution ``got`` of ``data`` against the
+    plain version's, each output (dx, du, K, k) of each scenario held to its
+    own tolerance, so that one ill-conditioned scenario cannot widen the
+    limit of another, nor its gains the limit of its rollout.  In float32
+    1e-4 of that scenario's scale of that output (its largest magnitude, at
+    least 1) plus RICCATI_NOISE_FACTOR times the plain version's own
+    f32-vs-f64 gap there: the two sum in different orders over an N-step
+    recurrence, and a scenario's conditioning amplifies the round-off of
+    both alike.  In float64 1e-9 of the scale.  Works on any device.
+    Returns {"ok", "err" (max |kernel - plain| over everything), "outputs":
+    {name: {"err", "scenario" (the one nearest its limit), "err_at",
+    "tol_at", "scale_at", "ratio"; in float32
+    also "kernel64", "plain64" (largest gaps to the f64 solve) and
+    "kernel_further" (scenarios where the kernel is further from it than the
+    plain version)}}}."""
+    import torch
+
+    from kissmpc_tpu_torch.ops.lqr import LQRData, solve_lqr
+
+    f32 = data.A.dtype == torch.float32
+    ref = solve_lqr(data, reg)
+    ref64 = solve_lqr(LQRData(*(x.double() for x in data)), reg) if f32 else ref
+    B = data.A.shape[0]
+    ok, outputs = True, {}
+    for name, g, r, r64 in zip(RICCATI_OUTPUTS, got, ref, ref64):
+        g = g.reshape(B, -1).double()
+        r = r.reshape(B, -1).double().to(g.device)
+        err = (g - r).abs().amax(1)
+        scale = r.abs().amax(1).clamp(min=1.0)
+        if f32:
+            r64 = r64.reshape(B, -1).to(g.device)
+            plain64 = (r - r64).abs().amax(1)
+            kernel64 = (g - r64).abs().amax(1)
+            tol = 1e-4 * scale + RICCATI_NOISE_FACTOR * plain64
+        else:
+            tol = 1e-9 * scale
+        ratio = torch.where(torch.isfinite(g).all(1), err / tol,
+                            torch.full_like(err, float("inf")))
+        worst = int(ratio.argmax())
+        out = {"err": float(err.max()), "scenario": worst, "err_at": float(err[worst]),
+               "tol_at": float(tol[worst]), "scale_at": float(scale[worst]),
+               "ratio": float(ratio[worst])}
+        if f32:
+            out.update(kernel64=float(kernel64.max()), plain64=float(plain64.max()),
+                       kernel_further=int((kernel64 > plain64).sum()))
+        ok = ok and out["ratio"] <= 1.0
+        outputs[name] = out
+    return {"ok": ok, "err": max(o["err"] for o in outputs.values()), "outputs": outputs}
+
+
+def check_riccati(data, reg):
+    """``riccati_gate`` on the kernel's solution of ``data``, logged per
+    output; fails the run if the gate fails.  Returns the gate."""
+    import torch
+
+    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+
+    got = solve_lqr_cuda(data, reg)
+    torch.cuda.synchronize()
+    g = riccati_gate(got, data, reg)
+    B, dtype = data.A.shape[0], str(data.A.dtype)[6:]
+    for name, o in g["outputs"].items():
+        extra = (f"; vs f64: kernel {o['kernel64']:.3e}, plain {o['plain64']:.3e}, the kernel "
+                 f"further in {o['kernel_further']} of {B}" if "kernel64" in o else "")
+        log(f"[2] Riccati {dtype} B={B} N={N} {name}: max|kernel-plain| {o['err']:.3e}; "
+            f"nearest its limit: scenario {o['scenario']}, {o['err_at']:.3e} against tol "
+            f"{o['tol_at']:.3e} (scale {o['scale_at']:.3e}), {o['ratio']:.3f} of it{extra}")
+    if not g["ok"]:
+        fail(f"Riccati kernel disagrees with its plain version ({dtype}, B={B}): "
+             + ", ".join(f"{k} {o['ratio']:.3f} of its limit" for k, o in g["outputs"].items()))
+    return g
+
+
 def phase_kernel(cfg, pool):
+    """The Riccati kernel against its plain version on LQR data of a real
+    IPM iterate (K=8, B=8192; the smaller batches are its first B
+    scenarios), in float32 at every batch the split path hands it and in
+    float64 at B=8192 and 164; each timed by kernel_ms with its bound."""
     import torch
 
     from kissmpc_tpu_torch.ops.lqr import LQRData, solve_lqr
@@ -270,63 +451,48 @@ def phase_kernel(cfg, pool):
 
     reg = cfg.solver.reg
     data = lqr_from_iterate(cfg, gather(pool, torch.arange(BATCH, device="cuda")))
-    got = solve_lqr_cuda(data, reg)
-    ref = solve_lqr(data, reg)
-    ref64 = solve_lqr(LQRData(*(x.double() for x in data)), reg)
-    torch.cuda.synchronize()
-
-    def max_err(a, b):
-        return max(float((x.double() - y.double()).abs().max())
-                   for x, y in zip((a.dx, a.du), (b.dx, b.du)))
-
-    scale = max(1.0, float(ref.dx.abs().max()), float(ref.du.abs().max()))
-    err = max_err(got, ref)
-    err_kernel64 = max_err(got, ref64)
-    err_plain64 = max_err(ref, ref64)
-    # The two f32 versions sum in different orders over a 50-step
-    # recurrence; they may disagree by ~1e-4 of the solution's scale plus
-    # the f32 error of the system itself, which the f64 solve measures.
-    tol = 1e-4 * scale + 2.0 * err_plain64
-    finite = all(torch.isfinite(x).all() for x in (got.dx, got.du))
-    log(f"[2] Riccati f32 B={BATCH} N={N}: max|kernel-plain| {err:.3e} "
-        f"(tol {tol:.3e}, scale {scale:.3e}); vs f64: kernel {err_kernel64:.3e}, "
-        f"plain {err_plain64:.3e}")
-    if not finite or not err <= tol:
-        fail(f"Riccati kernel disagrees with its plain version: {err} > {tol}")
-
-    small = LQRData(*(x[:64].double().contiguous() for x in data))
-    got64, ref64s = solve_lqr_cuda(small, reg), solve_lqr(small, reg)
-    torch.cuda.synchronize()
-    scale64 = max(1.0, float(ref64s.dx.abs().max()), float(ref64s.du.abs().max()))
-    err64 = max_err(got64, ref64s)
-    log(f"[2] Riccati f64 B=64 N={N}: max|kernel-plain| {err64:.3e} "
-        f"(tol {1e-9 * scale64:.3e})")
-    if not err64 <= 1e-9 * scale64:
-        fail(f"f64 Riccati kernel disagrees with its plain version: {err64}")
-
-    ms = cuda_ms(lambda: solve_lqr_cuda(data, reg), reps=30)
-    plain_ms = cuda_ms(lambda: solve_lqr(data, reg), reps=5, warmup=1)
-    n_bytes = sum(x.numel() * x.element_size() for x in data) + sum(
-        x.numel() * x.element_size() for x in (got.dx, got.du))
-    flops = RICCATI_FLOPS_PER_STEP * N * BATCH
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"[2] Riccati kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({n_bytes} bytes -> {bytes_ms:.4f} ms; "
-        f"{flops} flop -> {ops_ms:.4f} ms)")
+    rows = []
+    for dtype, batches in ((torch.float32, RICCATI_BATCHES), (torch.float64, RICCATI_F64_BATCHES)):
+        full = LQRData(*(x.to(dtype) for x in data))
+        for B in batches:
+            sub = LQRData(*(x[:B].contiguous() for x in full))
+            gate = check_riccati(sub, reg)
+            ms = kernel_ms(lambda: solve_lqr_cuda(sub, reg), reps=20, graph=True)
+            bound_ms, bound_by, n_bytes, flops = riccati_bound(B, dtype)
+            rows.append({"dtype": str(dtype)[6:], "B": B, "ms": ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": gate["err"],
+                         "gate": {k: [o["err"], o["err_at"], o["tol_at"], o["ratio"]]
+                                  for k, o in gate["outputs"].items()}})
+            log(f"[2] Riccati kernel {str(dtype)[6:]} B={B}: {ms:.5f} ms, {ms / bound_ms:.2f}x "
+                f"its bound {bound_ms:.5f} ms ({n_bytes} bytes -> "
+                f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms; {flops} flop; {bound_by})")
+    single_ms = cuda_ms(lambda: solve_lqr_cuda(data, reg), reps=30)
+    log(f"[2] Riccati kernel f32 B={BATCH}, one call per event pair (the wrapper's host work "
+        f"inside, as timed before): {single_ms:.5f} ms; 20 launches per event pair in a CUDA "
+        f"graph: {rows[0]['ms']:.5f} ms")
+    plain_ms = kernel_ms(lambda: solve_lqr(data, reg), reps=3, warmup=1)
+    data64 = LQRData(*(x.double() for x in data))
+    plain64_ms = kernel_ms(lambda: solve_lqr(data64, reg), reps=3, warmup=1)
+    log(f"[2] Riccati plain version B={BATCH}: f32 {plain_ms:.4f} ms, f64 {plain64_ms:.4f} ms")
+    main, main64 = rows[0], rows[len(RICCATI_BATCHES)]
     return {
         "name": "riccati",
         "route": "cuda",
         "source": "kissmpc_tpu_torch/csrc/riccati.cu",
         "replaces": "kissmpc_tpu/ops/pallas/riccati.py:98",
         "launches": None,
-        "max_abs_err": err,
-        "ms": ms,
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"],
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         "library_ms": None,
+        "f64_ms": main64["ms"],
+        "f64_plain_ms": plain64_ms,
+        "f64_bound_ms": main64["bound_ms"],
+        "f64_bound_by": main64["bound_by"],
+        "single_call_ms": single_ms,
+        "batch_ms": rows,
     }
 
 
@@ -336,8 +502,9 @@ def phase_probe():
     from kissmpc_tpu_torch.ops.probe import dynamic_trip, dynamic_trip_plain
 
     x = torch.zeros((8, 128), dtype=torch.float32, device="cuda")
+    counts = {}
     for trips in PROBE_TRIPS:
-        iters = torch.tensor([trips], dtype=torch.int32, device="cuda")
+        counts[trips] = iters = torch.tensor([trips], dtype=torch.int32, device="cuda")
         got = dynamic_trip(x, iters)
         ref = dynamic_trip_plain(x, iters)
         torch.cuda.synchronize()
@@ -345,13 +512,16 @@ def phase_probe():
         log(f"[3] probe, trip count {trips} from device memory: values {vals}")
         if vals != [float(trips)] or not torch.equal(got, ref):
             fail(f"probe kernel gave {vals} for {trips} trips")
-    ms = cuda_ms(lambda: dynamic_trip(x, iters), reps=50)
-    plain_ms = cuda_ms(lambda: dynamic_trip_plain(x, iters), reps=10)
+    iters = counts[PROBE_TRIPS[-1]]
+    floor_ms = kernel_ms(lambda: dynamic_trip(x, counts[0]), reps=50, graph=True)
+    ms = kernel_ms(lambda: dynamic_trip(x, iters), reps=50, graph=True)
+    plain_ms = kernel_ms(lambda: dynamic_trip_plain(x, iters), reps=10)
     n_bytes = 2 * x.numel() * x.element_size() + iters.element_size()
     flops = PROBE_TRIPS[-1] * x.numel()
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    log(f"[3] probe kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({n_bytes} bytes -> "
-        f"{bytes_ms:.3e} ms; {flops} flop -> {ops_ms:.3e} ms)")
+    log(f"[3] probe kernel {ms:.5f} ms at {PROBE_TRIPS[-1]} trips, {floor_ms:.5f} ms at 0 trips "
+        f"(its launch floor), plain {plain_ms:.4f} ms ({n_bytes} bytes -> {bytes_ms:.3e} ms; "
+        f"{flops} flop -> {ops_ms:.3e} ms)")
     return {
         "name": "probe_dynamic_trip",
         "route": "cuda",
@@ -364,6 +534,7 @@ def phase_probe():
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "launch_floor_ms": floor_ms,
     }
 
 
@@ -484,11 +655,11 @@ def phase_fused_kernel(cfgs, pools):
         if cfg.max_obstacles:
             check_fused(name, cfg, gather(pools[name], torch.arange(
                 REFINE_CHECK_BATCH, device="cuda")), tol)
-        ms = cuda_ms(lambda: solve_batch_fused(cfg, batch, iterations=FUSED_ITERATIONS),
-                     reps=5, warmup=1)
-        plain_ms = cuda_ms(
+        ms = kernel_ms(lambda: solve_batch_fused(cfg, batch, iterations=FUSED_ITERATIONS),
+                       reps=5, warmup=1)
+        plain_ms = kernel_ms(
             lambda: solve_batch_fused_plain(cfg, batch, iterations=FUSED_ITERATIONS),
-            reps=1, warmup=0)
+            reps=1, warmup=0, windows=1)
         bound_ms, bound_by, n_bytes, ops = fused_bound(cfg, BATCH, FUSED_ITERATIONS)
         log(f"[4] fused {name} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at B={BATCH}, "
             f"{FUSED_ITERATIONS} iterations; bound {bound_ms:.4f} ms ({n_bytes} bytes, "

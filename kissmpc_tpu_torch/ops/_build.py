@@ -35,24 +35,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def build(source: Path, name: str, build_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``source`` (once per source content) to
-    ``build_dir/lib<name>-<hash>.so``.
+def build(source: Path, name: str, build_dir: Path = BUILD_DIR,
+          flags: tuple[str, ...] = ()) -> Path:
+    """Compile ``source`` (once per source content and ``flags``, extra
+    nvcc options after NVCC_FLAGS) to ``build_dir/lib<name>-<hash>.so``.
 
-    The library name carries a hash of the source, so an edited kernel is
-    rebuilt and a stale one is never loaded.  The compiler's register and
+    The library name carries a hash of the source and the flags, so an
+    edited kernel is rebuilt and a stale one is never loaded.  The compiler's register and
     spill report (``-Xptxas -v``) is kept beside it as ``.log``; the library
     appears by an atomic rename, so concurrent builds never load half a
     file.
     """
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     lib = build_dir / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)],
         capture_output=True,
         text=True,
     )
@@ -64,10 +65,11 @@ def build(source: Path, name: str, build_dir: Path = BUILD_DIR) -> Path:
     return lib
 
 
-def load(source: Path, name: str, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+def load(source: Path, name: str, build_dir: Path = BUILD_DIR,
+         flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build ``source`` if needed and load it; binds the shared error-string
     function every library exports."""
-    lib = ctypes.CDLL(str(build(source, name, build_dir)))
+    lib = ctypes.CDLL(str(build(source, name, build_dir, flags)))
     lib.kissmpc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.kissmpc_cuda_error_string.restype = ctypes.c_char_p
     return lib

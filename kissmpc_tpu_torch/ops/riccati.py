@@ -1,7 +1,7 @@
 """Wrapper of the hand-written CUDA Riccati kernel (`csrc/riccati.cu`).
 
 `solve_lqr_cuda(data, reg)` has the contract of `ops/lqr.py::solve_lqr`
-(dx, du, and the gains K and k as views of the kernel's [B, N, 8] scratch).
+(dx, du, and the gains K and k as views of the kernel's [B, N, 8] gains output).
 It replaces the TPU kernel `kissmpc_tpu/ops/pallas/riccati.py`.
 For tensors on the CPU it runs that plain version; for CUDA tensors it
 launches the kernel or raises, and counts each launch in
@@ -31,16 +31,51 @@ def build() -> Path:
     return _build.build(SOURCE, "kissmpc_riccati")
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE, "kissmpc_riccati")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of a loaded build of
+    `csrc/riccati.cu` (this package's, or an edited copy's)."""
     args = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_double, ctypes.c_void_p]
     for name in ("kissmpc_riccati_f32", "kissmpc_riccati_f64"):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.kissmpc_riccati_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.kissmpc_riccati_smem_bytes.restype = ctypes.c_longlong
+    lib.kissmpc_riccati_max_horizon.argtypes = [ctypes.c_int]
+    lib.kissmpc_riccati_max_horizon.restype = ctypes.c_int
+    lib.kissmpc_riccati_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.kissmpc_riccati_occupancy.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return bind(_build.load(SOURCE, "kissmpc_riccati"))
+
+
+@functools.lru_cache(maxsize=None)
+def max_horizon(dtype: torch.dtype) -> int:
+    """The longest horizon N the kernel takes in ``dtype``, the same at every
+    batch: its gains stay in shared memory for the whole horizon, beside
+    the staging ring, within the 227 KB a block may take on sm_90.  Builds
+    the kernel; needs nvcc."""
+    return _library().kissmpc_riccati_max_horizon(4 if dtype == torch.float32 else 8)
+
+
+def occupancy(Bsz: int, N: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The launch shape of a solve of B scenarios with horizon N on the
+    current card: lanes per scenario, scenarios per block, dynamic shared
+    memory per block, resident blocks and scenarios per SM, registers and
+    local (spill) bytes per thread.  Builds the kernel; needs CUDA."""
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    err = lib.kissmpc_riccati_occupancy(Bsz, N, 4 if dtype == torch.float32 else 8, out)
+    _build.check_launch(lib, err, "Riccati occupancy query")
+    lanes, per_block, smem, blocks, regs, local = out
+    return {"lanes_per_scenario": lanes, "scenarios_per_block": per_block,
+            "smem_bytes_per_block": smem, "blocks_per_sm": blocks,
+            "scenarios_per_sm": per_block * blocks, "registers": regs, "local_bytes": local}
 
 
 def _check(data: LQRData) -> tuple[int, int]:
@@ -76,6 +111,10 @@ def solve_lqr_cuda(data: LQRData, reg: float = 0.0) -> LQRSolution:
         return solve_lqr(data, reg)
     if device.type != "cuda":
         raise ValueError(f"Riccati kernel runs on CUDA or CPU tensors, got {device}")
+    if N > max_horizon(dtype):
+        raise ValueError(
+            f"Riccati kernel: horizon N={N} exceeds the N <= {max_horizon(dtype)} whose gains "
+            f"fit in one block's shared memory in {dtype}")
     lib = _library()
     fn = lib.kissmpc_riccati_f32 if dtype == torch.float32 else lib.kissmpc_riccati_f64
     dx = torch.empty((Bsz, N + 1, 3), dtype=dtype, device=device)

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from kissmpc_tpu_torch.ops import riccati
 from kissmpc_tpu_torch.ops.lqr import LQRData, solve_lqr
 from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
 
@@ -63,3 +65,59 @@ def test_cuda_kernel_rejects_mixed_devices(cuda):
     mixed = LQRData(*(x.cuda() for x in td))._replace(qu=td.qu)
     with pytest.raises(TypeError):
         solve_lqr_cuda(mixed, 0.0)
+
+
+def _check_gate(B, N, dtype, seed):
+    """The kernel on B random scenarios of horizon N against the plain
+    version, by chip_smoke.py's phase-2 gate: each output (dx, du, K, k) of
+    each scenario within its own tolerance (f32: 1e-4 of its scale plus
+    four times the plain version's own f32-vs-f64 gap there; f64: 1e-9 of its
+    scale)."""
+    td = LQRData(**{k: torch.tensor(v, dtype=dtype) for k, v in _random_batch(B, N, seed).items()})
+    got = solve_lqr_cuda(LQRData(*(x.cuda() for x in td)), 1e-8)
+    torch.cuda.synchronize()
+    gate = chip_smoke.riccati_gate(tuple(x.cpu() for x in got), td, 1e-8)
+    assert gate["ok"], gate["outputs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("N", [1, 12, 50, 120])
+@pytest.mark.parametrize("batch", ["S-1", "S", "S+1", "2S+3", "4096+3"])
+def test_cuda_kernel_ragged_batches(cuda, dtype, N, batch):
+    """dx, du, K, k at batches around the block's scenario count S and at
+    one above the batch where the launcher changes its chunk length."""
+    S = riccati.occupancy(1, N, dtype)["scenarios_per_block"]
+    B = {"S-1": S - 1, "S": S, "S+1": S + 1, "2S+3": 2 * S + 3, "4096+3": 4099}[batch]
+    _check_gate(B, N, dtype, seed=N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [9, 1024, 1025])
+def test_cuda_kernel_long_horizon(cuda, dtype, B):
+    """N=200, where in f64 the ring of 32 steps does not fit beside the
+    gains at B <= 1024 and the launcher takes chunks of 16 as above it; the
+    same horizon is taken at every batch."""
+    assert riccati.max_horizon(dtype) >= 200
+    occ = riccati.occupancy(B, 200, dtype)
+    assert occ["blocks_per_sm"] >= 1
+    _check_gate(B, 200, dtype, seed=B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["wrapper", "launch"])
+def test_cuda_kernel_refusal_raises(cuda, where, monkeypatch):
+    """A horizon whose gains do not fit in shared memory raises: the wrapper
+    refuses it before any work, and with that check out of the way the
+    launch the card refuses raises too; neither returns the plain version's
+    result."""
+    N = 2000
+    td = LQRData(**{k: torch.tensor(v, dtype=torch.float64, device="cuda")
+                    for k, v in _random_batch(2, N).items()})
+    if where == "launch":
+        monkeypatch.setattr(riccati, "max_horizon", lambda dtype: 1 << 30)
+    before = solve_lqr_cuda.launches
+    with pytest.raises(ValueError if where == "wrapper" else RuntimeError):
+        solve_lqr_cuda(td, 0.0)
+    assert solve_lqr_cuda.launches == before
