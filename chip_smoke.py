@@ -62,12 +62,32 @@ Phases, each a hard failure with a non-zero exit:
 7. the closed loop: `environment.fleet_step` plus `obstacles.advance` per
    tick at the configuration of `scripts/bench_fleet_episodes.py` (N=50,
    K=8, 32 iterations plus two refine stages, B=4096 episode worlds routed
-   by the "detour" router, 50 ticks), 3 fused launches per tick, each
+   by the "grid" router, the batched grid planner on a 96-cell grid with 3
+   route points per leg, 50 ticks), 3 fused launches per tick, each
    launch timed by CUDA events to give the fused stages' share of a tick;
-   then 64
-   episodes x 5 ticks on the card and on the CPU port, whose waypoint
-   indices must match on 95% of episode-ticks and whose executed states
-   must agree within 1e-3 on 95% of them.
+   the world build's time and its fraction of reachable legs; one replan
+   from the current poses at the middle tick (as the bench's, timed, and
+   left out of the tick latencies); a short loop on "detour" worlds for
+   that router's tick time beside it; then 64 episodes x 5 ticks on the
+   card and on the CPU port, whose waypoint indices must match on 95% of
+   episode-ticks and whose executed states must agree within 1e-3 on 95%
+   of them;
+8. the planner: `plan_waypoint_chain` and `bottleneck_clearance` timed at
+   the fleet's B=4096 on the card, then 64 episodes on the card and on the
+   CPU port: leg reachability equal, route points within 1e-4 m and
+   clearances within 1e-5 m on at least 63 of 64 episodes (the log names
+   any that differ);
+9. `lab_worlds` on a synthetic 820 x 1520 px P5 map written from a seed
+   into a temporary directory (rrc_lab's ~41 x 76 m at 0.05 m per pixel):
+   B=4096 worlds built on the card and timed, and 64 episodes on the card
+   against the CPU port as in phase 8;
+10. the kernels' horizon limits: the fused kernel at its longest horizon
+   (`ops/ipm_fused.py::max_horizon`, one warp per block) for K=0 and K=8,
+   B=64, held to phase 4's one-iteration gate after 3 iterations and
+   timed; one step more raises ValueError before any launch; the Riccati
+   kernel one step above its longest on-chip horizon (the global-gains
+   instance) and at N=2000, float32 and float64, B=9 and 1025, by phase
+   2's gate, timed at N=2000.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -81,6 +101,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,12 +129,30 @@ RICCATI_BATCHES = (8192, 1024, 410, 328, 164)
 RICCATI_F64_BATCHES = (8192, 164)
 FUSED_ITERATIONS = 32
 PROBE_TRIPS = (0, 7, 31)
-# Closed loop of scripts/bench_fleet_episodes.py:81-112, cut to 50 ticks and
-# the "detour" router (the grid planner is not ported yet).
+# Closed loop of scripts/bench_fleet_episodes.py:81-120, cut to 50 ticks,
+# its worlds routed by the grid planner as the bench routes them (:114-120)
+# and replanned once from the current poses at the middle tick (:200-215).
 FLEET_BATCH = 4096
 FLEET_TICKS = 50
 FLEET_STAGES = ((0.125, 64, 0.2), (0.02, 96, 0.7))
 FLEET_CHECK = (64, 5)  # episodes x ticks held against the CPU port
+FLEET_PLANNER_GRID = 96
+FLEET_POINTS_PER_LEG = 3
+DETOUR_TICKS = 10  # the short loop on "detour" worlds, for its tick time
+# Phases 8 and 9: episodes planned on the card and on the CPU port, at
+# least PLANNER_AGREE of them within the tolerances.
+PLANNER_CHECK = 64
+PLANNER_AGREE = 63
+PLANNER_POINT_TOL = 1e-4  # m
+PLANNER_CLEAR_TOL = 1e-5  # m
+LAB_BATCH = 4096
+LAB_MAP_PX = (820, 1520)  # rows, columns: ~41 x 76 m at 0.05 m per pixel
+# Phase 10: the Riccati kernel's long horizons (N above the on-chip limit
+# is added per dtype) and batches, and the fused kernel's edge batch.
+RICCATI_LONG_N = 2000
+RICCATI_LONG_BATCHES = (9, 1025)
+EDGE_BATCH = 64
+EDGE_ITERATIONS = 3
 # Phase 4 also holds the kernel to its plain version at the last refine
 # stage's batch of the K=8 cells.
 REFINE_CHECK_BATCH = 164
@@ -334,18 +373,18 @@ def lqr_from_iterate(cfg, problems, iterations=8):
         return ipm._build_lqr(cfg, problems, it, ipm._adaptive_mu(cfg, it, masks))
 
 
-def riccati_bound(batch, dtype):
+def riccati_bound(batch, dtype, n=N):
     """The Riccati kernel's least time on the card for ``batch`` scenarios
-    at N: (bound ms, "bytes" or "operations", bytes, flop).  Bytes: every
-    input read once (A, B, d, d0, Qxx, qx, Quu, qu) and dx, du and the
-    [B, N, 8] gains K, k written once."""
+    at horizon ``n``: (bound ms, "bytes" or "operations", bytes, flop).
+    Bytes: every input read once (A, B, d, d0, Qxx, qx, Quu, qu) and dx, du
+    and the [B, n, 8] gains K, k written once."""
     import torch
 
     size = 4 if dtype == torch.float32 else 8
-    inputs = (9 + 6 + 3 + 4 + 2) * N + 3 + (9 + 3) * (N + 1)
-    outputs = 3 * (N + 1) + 2 * N + 8 * N
+    inputs = (9 + 6 + 3 + 4 + 2) * n + 3 + (9 + 3) * (n + 1)
+    outputs = 3 * (n + 1) + 2 * n + 8 * n
     n_bytes = size * batch * (inputs + outputs)
-    flops = RICCATI_FLOPS_PER_STEP * N * batch
+    flops = RICCATI_FLOPS_PER_STEP * n * batch
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / (PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, flops
@@ -415,9 +454,10 @@ def riccati_gate(got, data, reg):
     return {"ok": ok, "err": max(o["err"] for o in outputs.values()), "outputs": outputs}
 
 
-def check_riccati(data, reg):
+def check_riccati(data, reg, phase=2):
     """``riccati_gate`` on the kernel's solution of ``data``, logged per
-    output; fails the run if the gate fails.  Returns the gate."""
+    output under ``phase``; fails the run if the gate fails.  Returns the
+    gate."""
     import torch
 
     from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
@@ -425,15 +465,15 @@ def check_riccati(data, reg):
     got = solve_lqr_cuda(data, reg)
     torch.cuda.synchronize()
     g = riccati_gate(got, data, reg)
-    B, dtype = data.A.shape[0], str(data.A.dtype)[6:]
+    B, n, dtype = data.A.shape[0], data.A.shape[1], str(data.A.dtype)[6:]
     for name, o in g["outputs"].items():
         extra = (f"; vs f64: kernel {o['kernel64']:.3e}, plain {o['plain64']:.3e}, the kernel "
                  f"further in {o['kernel_further']} of {B}" if "kernel64" in o else "")
-        log(f"[2] Riccati {dtype} B={B} N={N} {name}: max|kernel-plain| {o['err']:.3e}; "
+        log(f"[{phase}] Riccati {dtype} B={B} N={n} {name}: max|kernel-plain| {o['err']:.3e}; "
             f"nearest its limit: scenario {o['scenario']}, {o['err_at']:.3e} against tol "
             f"{o['tol_at']:.3e} (scale {o['scale_at']:.3e}), {o['ratio']:.3f} of it{extra}")
     if not g["ok"]:
-        fail(f"Riccati kernel disagrees with its plain version ({dtype}, B={B}): "
+        fail(f"Riccati kernel disagrees with its plain version ({dtype}, B={B}, N={n}): "
              + ", ".join(f"{k} {o['ratio']:.3f} of its limit" for k, o in g["outputs"].items()))
     return g
 
@@ -595,18 +635,18 @@ def fused_gates(ref, got1, got, tol):
     }
 
 
-def fused_bound(cfg, batch, iterations):
-    """The fused kernel's least time on the card for ``batch`` scenarios
-    and ``iterations``: (bound ms, "bytes" or "operations", bytes,
-    operations).  Bytes: its inputs read once and its outputs written once
-    (the iterate never leaves the chip)."""
+def fused_bound(cfg, batch, iterations, n=N):
+    """The fused kernel's least time on the card for ``batch`` scenarios,
+    ``iterations`` and horizon ``n``: (bound ms, "bytes" or "operations",
+    bytes, operations).  Bytes: its inputs read once and its outputs
+    written once (the iterate never leaves the chip)."""
     K = cfg.max_obstacles
     elastic = cfg.solver.elastic_obstacles
-    in_rows = 27 + 3 * (N + 1) + 2 * N + (4 * K + 2 * K + 1 if K else 0)
-    out_rows = 3 * (N + 1) + 2 * N + 6
+    in_rows = 27 + 3 * (n + 1) + 2 * n + (4 * K + 2 * K + 1 if K else 0)
+    out_rows = 3 * (n + 1) + 2 * n + 6
     n_bytes = 4 * (in_rows + out_rows) * batch + 4
-    ops = batch * (iterations * fused_ops_per_iteration(N, K, cfg.solver.ls_iters, elastic)
-                   + fused_ops_once(N, K, elastic))
+    ops = batch * (iterations * fused_ops_per_iteration(n, K, cfg.solver.ls_iters, elastic)
+                   + fused_ops_once(n, K, elastic))
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, ops
 
@@ -950,11 +990,41 @@ def fleet_config():
     return cfg, params
 
 
-def fleet_worlds(cfg, batch, seed, device):
+def fleet_worlds(cfg, batch, seed, device, router="grid"):
+    """(env, obstacles, info) of the bench's episode worlds
+    (scripts/bench_fleet_episodes.py:114-120)."""
     from kissmpc_tpu_torch.scenarios import episode_worlds
 
     return episode_worlds(cfg, batch, n_waypoints=3, seed=seed, n_dynamic=2,
-                          route_around_obstacles=True, router="detour", device=device)
+                          route_around_obstacles=True, router=router,
+                          planner_grid=FLEET_PLANNER_GRID, points_per_leg=FLEET_POINTS_PER_LEG,
+                          return_info=True, device=device)
+
+
+def static_circles(obstacles):
+    """(centers, radii, static mask) of a world's obstacles as numpy, for a
+    replan (the static circles stay where they are)."""
+    return (obstacles.position.cpu().numpy(), obstacles.radius.cpu().numpy(),
+            (obstacles.linear_velocity == 0.0).cpu().numpy())
+
+
+def replan(env, circles, inflation, device):
+    """The bench's global replan (scripts/bench_fleet_episodes.py:200-215):
+    one leg from each robot's current pose to its final waypoint, resampled
+    into the chain's length, the agents' goals and waypoint indices reset.
+    Returns (env, leg reachability [B, 1])."""
+    import torch
+
+    from kissmpc_tpu_torch.planner import plan_waypoint_chain
+
+    W = env.waypoints.shape[1]
+    new_wps, reach = plan_waypoint_chain(
+        env.agent.states_matrix[:, 1, :].cpu().numpy(), env.waypoints[:, -1:, :].cpu().numpy(),
+        *circles, inflation, points_per_leg=W - 1, grid=FLEET_PLANNER_GRID, device=device)
+    wps = torch.as_tensor(new_wps, dtype=env.waypoints.dtype, device=env.waypoints.device)
+    zero = torch.zeros_like(env.waypoint_index)
+    return env._replace(agent=env.agent._replace(goal_state=wps[:, 0].contiguous()),
+                        waypoints=wps, waypoint_index=zero, stall_ticks=zero), reach
 
 
 def fleet_tick(cfg, params, env, obstacles, device):
@@ -978,17 +1048,31 @@ def phase_fleet():
 
     cfg, params = fleet_config()
     t0 = time.perf_counter()
-    env, obstacles = fleet_worlds(cfg, FLEET_BATCH, 0, "cuda")
+    env, obstacles, winfo = fleet_worlds(cfg, FLEET_BATCH, 0, "cuda")
     torch.cuda.synchronize()
-    log(f"[7] {FLEET_BATCH} episode worlds (W={env.waypoints.shape[1]}) built in "
-        f"{time.perf_counter() - t0:.3f} s")
+    build_s = time.perf_counter() - t0
+    reach = winfo["leg_reachable"]
+    log(f"[7] {FLEET_BATCH} episode worlds (grid router, W={env.waypoints.shape[1]}) built on "
+        f"the card in {build_s:.3f} s; reachable legs {float(reach.mean()):.5f}, episodes "
+        f"with every leg reachable {float(reach.all(axis=1).mean()):.5f}")
+    circles = static_circles(obstacles)
     expected = 1 + len(cfg.solver.refine_stages)
     solve_batch_fused.launches = 0
     solve_lqr_cuda.launches = 0
     lat, conv, usable, clear, stage_ms = [], [], [], [], []
+    replan_s, replan_reach = None, None
     ever_final = torch.zeros(FLEET_BATCH, dtype=torch.bool, device="cuda")
     with stage_events() as events:
         for tick in range(FLEET_TICKS):
+            if tick == FLEET_TICKS // 2:
+                # The bench's replan pause, left out of the tick latencies.
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                env, replan_reach = replan(env, circles, params.inflation_radius, "cuda")
+                torch.cuda.synchronize()
+                replan_s = time.perf_counter() - t0
+                log(f"[7] replan at tick {tick} from the current poses: {replan_s:.3f} s, "
+                    f"reachable {float(replan_reach.mean()):.5f}")
             before, n_events = solve_batch_fused.launches, len(events)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1014,6 +1098,7 @@ def phase_fleet():
                     f"{float(ever_final.float().mean()):.5f}")
     if solve_lqr_cuda.launches:
         fail("the fused fleet loop launched the Riccati kernel")
+    fused_launches = solve_batch_fused.launches
     p50 = float(np.percentile(lat, 50))
     # Share of each tick's host-clock time spent inside the fused stages
     # (CUDA events around each launch): the card's busy share, to within
@@ -1033,9 +1118,29 @@ def phase_fleet():
         "final_goal_reached_fraction": float(ever_final.float().mean()),
         "min_clearance_m": min(clear),
         "fused_launches_per_tick": expected,
+        "fused_launches": fused_launches,
         "fused_stage_share_mean": float(np.mean(share)),
         "last_tick_stage_ms": stage_ms[-1],
+        "router": "grid",
+        "world_build_s": build_s,
+        "leg_reachable_fraction": float(reach.mean()),
+        "episode_reachable_fraction": float(reach.all(axis=1).mean()),
+        "replan_s": replan_s,
+        "replan_reachable_fraction": float(replan_reach.mean()),
     }
+
+    # The "detour" router's tick time beside it: a short loop on its worlds
+    # (6 route points per episode instead of 12).
+    env_d, obs_d, _ = fleet_worlds(cfg, FLEET_BATCH, 0, "cuda", router="detour")
+    detour = []
+    for _ in range(DETOUR_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env_d, obs_d, _ = fleet_tick(cfg, params, env_d, obs_d, "cuda")
+        torch.cuda.synchronize()
+        detour.append((time.perf_counter() - t0) * 1e3)
+    result["detour_tick_p50_ms"] = float(np.percentile(detour, 50))
+    result["detour_ticks"] = DETOUR_TICKS
     log("[7] fleet: " + json.dumps(result))
 
     # The same closed loop on the card and on the CPU port (the fused plain
@@ -1046,7 +1151,7 @@ def phase_fleet():
     # converged on one side only, or gated to the fallback on one side
     # only, may differ more, which the 5% allows.
     n_ep, n_ticks = FLEET_CHECK
-    worlds = {dev: fleet_worlds(cfg, n_ep, 1, dev) for dev in ("cuda", "cpu")}
+    worlds = {dev: fleet_worlds(cfg, n_ep, 1, dev)[:2] for dev in ("cuda", "cpu")}
     idx_match, close, worst = [], [], 0.0
     for tick in range(n_ticks):
         out = {}
@@ -1068,6 +1173,266 @@ def phase_fleet():
     result.update(cpu_check_index_match=idx_frac, cpu_check_state_close=close_frac,
                   cpu_check_state_max=worst)
     return result
+
+
+
+def planner_inputs(cfg, batch, seed):
+    """Start poses, waypoint chains and obstacle fields of ``batch`` fleet
+    episodes before routing, drawn as `scenarios.episode_worlds` draws them
+    (3 waypoints, 2 dynamic circles): (starts, waypoints, centers, radii,
+    static mask)."""
+    from kissmpc_tpu_torch.scenarios import (sample_endpoints, sample_obstacle_field,
+                                             waypoint_hops)
+
+    rng = np.random.default_rng(seed)
+    starts, first = sample_endpoints(cfg, batch, rng)
+    wps = waypoint_hops(cfg, first, 3, rng)
+    centers, radii, _, v = sample_obstacle_field(
+        starts, first, cfg.max_obstacles, rng, n_dynamic=2,
+        clear_points=list(wps[:, 1:].swapaxes(0, 1)))
+    return starts, wps, centers, radii, v == 0.0
+
+
+def compare_routes(label, card, cpu, tol=PLANNER_POINT_TOL):
+    """Leg reachability equal, and the episodes whose route points (and
+    headings, away from the +-pi cut) differ by more than ``tol``: fails
+    unless at least PLANNER_AGREE of PLANNER_CHECK agree.  Returns the
+    largest difference."""
+    (out_g, reach_g), (out_c, reach_c) = card, cpu
+    if not np.array_equal(reach_g, reach_c):
+        fail(f"{label}: leg reachability differs on the card and on the CPU in "
+             f"{int((reach_g != reach_c).any(axis=1).sum())} episodes")
+    dxy = np.abs(out_g[..., :2] - out_c[..., :2]).max(axis=(1, 2))
+    dth = np.abs(np.angle(np.exp(1j * (out_g[..., 2].astype(np.float64) - out_c[..., 2])))).max(1)
+    diff = np.maximum(dxy, dth)
+    bad = np.flatnonzero(diff > tol)
+    log(f"{label}: reachability equal; route points within {tol} on "
+        f"{len(diff) - len(bad)} of {len(diff)} episodes (max {float(diff.max()):.3e}); "
+        f"differing episodes: {bad.tolist()}")
+    if len(diff) - len(bad) < PLANNER_AGREE:
+        fail(f"{label}: routes on the card and on the CPU disagree")
+    return float(diff.max())
+
+
+def phase_planner():
+    """The planner at the fleet's size on the card, timed, then
+    PLANNER_CHECK episodes on the card against the CPU port."""
+    import torch
+
+    from kissmpc_tpu_torch.planner import bottleneck_clearance, plan_waypoint_chain
+
+    cfg, params = fleet_config()
+    infl = params.inflation_radius
+    kw = dict(points_per_leg=FLEET_POINTS_PER_LEG, grid=FLEET_PLANNER_GRID)
+    starts, wps, centers, radii, static = planner_inputs(cfg, FLEET_BATCH, 2)
+    plan_s, clear_s = [], []
+    for _ in range(2):  # the first call includes the card's warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, reach = plan_waypoint_chain(starts, wps, centers, radii, static, infl, **kw)
+        plan_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        w = bottleneck_clearance(starts, wps[:, -1], centers, radii, static, infl,
+                                 grid=FLEET_PLANNER_GRID)
+        clear_s.append(time.perf_counter() - t0)
+    if not (np.isfinite(out).all() and out.shape == (FLEET_BATCH, 12, 3)):
+        fail(f"the planner's chain is {out.shape} or not finite")
+    log(f"[8] plan_waypoint_chain B={FLEET_BATCH} W=3 G={FLEET_PLANNER_GRID} on the card: "
+        f"{plan_s[-1]:.4f} s (first call {plan_s[0]:.4f} s), reachable legs "
+        f"{float(reach.mean()):.5f}; bottleneck_clearance: {clear_s[-1]:.4f} s (first "
+        f"{clear_s[0]:.4f} s), median margin {float(np.median(w)):.4f} m")
+
+    n = PLANNER_CHECK
+    sub = tuple(x[:n] for x in (starts, wps, centers, radii, static))
+    t0 = time.perf_counter()
+    cpu = plan_waypoint_chain(*sub, infl, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    card = plan_waypoint_chain(*sub, infl, device="cuda", **kw)
+    route_max = compare_routes(f"[8] plan_waypoint_chain card vs CPU, {n} episodes", card, cpu)
+    w_cpu = bottleneck_clearance(sub[0], sub[1][:, -1], *sub[2:], infl, grid=FLEET_PLANNER_GRID,
+                                 device="cpu")
+    w_card = bottleneck_clearance(sub[0], sub[1][:, -1], *sub[2:], infl,
+                                  grid=FLEET_PLANNER_GRID, device="cuda")
+    dw = np.abs(w_card - w_cpu)
+    bad = np.flatnonzero(~(dw <= PLANNER_CLEAR_TOL))
+    log(f"[8] bottleneck_clearance card vs CPU: within {PLANNER_CLEAR_TOL} m on "
+        f"{n - len(bad)} of {n} (max {float(dw.max()):.3e}); differing episodes: "
+        f"{bad.tolist()}; the CPU port planned {n} episodes in {cpu_s:.3f} s")
+    if n - len(bad) < PLANNER_AGREE:
+        fail("bottleneck clearances on the card and on the CPU disagree")
+    return {"batch": FLEET_BATCH, "grid": FLEET_PLANNER_GRID, "plan_s": plan_s[-1],
+            "plan_first_s": plan_s[0], "clearance_s": clear_s[-1],
+            "reachable_fraction": float(reach.mean()), "route_max_diff": route_max,
+            "clearance_max_diff": float(dw.max())}
+
+
+def write_synthetic_map(path, shape=LAB_MAP_PX, seed=0):
+    """A P5 occupancy map of ``shape`` pixels (rows, columns) from ``seed``:
+    a light floor with dark outer walls, interior walls across the rows
+    with two doorways each, and dark boxes and disks, their count and
+    sizes following the map's area."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    img = np.full((h, w), 254, np.uint8)
+    img[:8], img[-8:], img[:, :8], img[:, -8:] = 0, 0, 0, 0
+    door = max(h // 20, 12)
+    for x in rng.integers(w // 10, w - w // 10, w // 300):
+        img[:, x:x + 6] = 0
+        for y in rng.integers(16, h - door - 16, 2):
+            img[y:y + door, x:x + 6] = 254
+    yy, xx = np.mgrid[0:h, 0:w]
+    for _ in range(max(h * w // 20000, 6)):
+        cy, cx = rng.integers(20, h - 20), rng.integers(20, w - 20)
+        if rng.random() < 0.5:
+            r = int(rng.integers(4, 16))
+            img[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 0
+        else:
+            bh, bw = rng.integers(5, 25, 2)
+            img[cy - bh:cy + bh, cx - bw:cx + bw] = 0
+    with open(path, "wb") as f:
+        f.write(f"P5\n# synthetic lab map, seed {seed}\n{w} {h}\n255\n".encode())
+        f.write(img.tobytes())
+
+
+def phase_lab(tmpdir):
+    """`lab_worlds` on a synthetic map: LAB_BATCH worlds on the card, timed,
+    then PLANNER_CHECK episodes on the card against the CPU port."""
+    import torch
+
+    from kissmpc_tpu_torch.scenarios import lab_worlds
+
+    cfg, params = fleet_config()
+    path = f"{tmpdir}/synthetic_lab.pgm"
+    write_synthetic_map(path)
+    t0 = time.perf_counter()
+    env, obs, info = lab_worlds(cfg, LAB_BATCH, map_path=path, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    start = env.agent.states_matrix[:, 0, :2]
+    margin = float(((start[:, None, :] - obs.position).norm(dim=-1) - obs.radius).min())
+    if obs.position.shape != (LAB_BATCH, 24, 2) or not bool(torch.isfinite(env.waypoints).all()):
+        fail(f"lab_worlds: obstacles {tuple(obs.position.shape)} or non-finite waypoints")
+    if margin <= params.inflation_radius:
+        fail(f"lab_worlds: a start lies {margin:.3f} m from a circle")
+    reach = info["leg_reachable"]
+    log(f"[9] lab_worlds B={LAB_BATCH} on a {LAB_MAP_PX[0]} x {LAB_MAP_PX[1]} px map "
+        f"({info['n_circles']} circles, extent {info['extent'].tolist()} m) built on the card "
+        f"in {build_s:.3f} s; reachable legs {float(reach.mean()):.5f}; closest start "
+        f"{margin:.3f} m from a circle")
+    worlds = {dev: lab_worlds(cfg, PLANNER_CHECK, map_path=path, seed=1, device=dev)
+              for dev in ("cuda", "cpu")}
+    (env_g, obs_g, info_g), (env_c, obs_c, info_c) = worlds["cuda"], worlds["cpu"]
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(obs_g, obs_c)):
+        fail("lab_worlds: the card's and the CPU's obstacles differ")
+    route_max = compare_routes(
+        f"[9] lab_worlds card vs CPU, {PLANNER_CHECK} episodes",
+        (env_g.waypoints.cpu().numpy(), info_g["leg_reachable"]),
+        (env_c.waypoints.numpy(), info_c["leg_reachable"]))
+    return {"batch": LAB_BATCH, "map_px": list(LAB_MAP_PX), "n_circles": info["n_circles"],
+            "build_s": build_s, "reachable_fraction": float(reach.mean()),
+            "route_max_diff": route_max}
+
+
+def random_lqr(B, n, seed, dtype):
+    """Well-posed LQR data on the card from a numpy seed (near-identity
+    dynamics, SPD costs), as the card tests and the CPU shim make it."""
+    import torch
+
+    from kissmpc_tpu_torch.ops.lqr import LQRData
+
+    rng = np.random.default_rng(seed)
+
+    def spd(m, count):
+        x = rng.normal(size=(B, count, m, m))
+        return x @ np.swapaxes(x, -1, -2) * 0.3 + np.eye(m) * 0.5
+
+    arrays = dict(A=rng.normal(size=(B, n, 3, 3)) * 0.1 + np.eye(3),
+                  B=rng.normal(size=(B, n, 3, 2)) * 0.5, d=rng.normal(size=(B, n, 3)) * 0.1,
+                  d0=rng.normal(size=(B, 3)) * 0.1, Qxx=spd(3, n + 1),
+                  qx=rng.normal(size=(B, n + 1, 3)), Quu=spd(2, n), qu=rng.normal(size=(B, n, 2)))
+    return LQRData(**{k: torch.tensor(v, dtype=dtype, device="cuda") for k, v in arrays.items()})
+
+
+def phase_horizons(fused_cfgs):
+    """Phase 10: the kernels at their horizon limits (see the module
+    docstring).  Returns the Riccati and fused rows for the kernels line."""
+    import torch
+
+    from kissmpc_tpu_torch.ops import ipm_fused, riccati
+    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused, solve_batch_fused_plain
+    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+    from kissmpc_tpu_torch.scenarios import free_problems, obstacle_problems
+    from kissmpc_tpu_torch.solver.problem import Problem
+
+    reg = 1e-8
+    ric = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        on_chip = riccati.max_horizon(dtype)
+        for n in (on_chip + 1, RICCATI_LONG_N):
+            for B in RICCATI_LONG_BATCHES:
+                data = random_lqr(B, n, seed=n + B, dtype=dtype)
+                occ = riccati.occupancy(B, n, dtype)
+                gate = check_riccati(data, reg, phase=10)
+                log(f"[10] Riccati {name} N={n} B={B} (longest on-chip horizon {on_chip}): "
+                    f"gate passes, max|kernel-plain| {gate['err']:.3e}; "
+                    f"{occ['smem_bytes_per_block']} bytes of shared memory per block, "
+                    f"{occ['blocks_per_sm']} blocks per SM")
+        B = RICCATI_LONG_BATCHES[-1]
+        data = random_lqr(B, RICCATI_LONG_N, seed=1, dtype=dtype)
+        ms = kernel_ms(lambda: solve_lqr_cuda(data, reg), reps=5, graph=True)
+        bound_ms, bound_by, n_bytes, flops = riccati_bound(B, dtype, RICCATI_LONG_N)
+        ric[name] = {"max_horizon": on_chip, "global_gains_ms": ms, "global_gains_B": B,
+                     "global_gains_N": RICCATI_LONG_N, "global_gains_bound_ms": bound_ms,
+                     "global_gains_bound_by": bound_by}
+        log(f"[10] Riccati global-gains instance {name} N={RICCATI_LONG_N} B={B}: {ms:.4f} ms, "
+            f"{ms / bound_ms:.2f}x its bound {bound_ms:.5f} ms ({n_bytes} bytes, {flops} flop: "
+            f"{bound_by})")
+
+    fused = {}
+    for label, base in (("free", fused_cfgs["free"]), ("k8_dyn2", fused_cfgs["k8_dyn2"])):
+        n = ipm_fused.max_horizon(base)
+        cfg = base.replace(horizon=n)
+        K = cfg.max_obstacles
+        pr = (obstacle_problems(cfg, EDGE_BATCH, seed=3, n_dynamic=2) if K
+              else free_problems(cfg, EDGE_BATCH, seed=3))
+        occ = ipm_fused.occupancy(cfg)
+        got = solve_batch_fused(cfg, pr, iterations=EDGE_ITERATIONS)
+        ref = solve_batch_fused_plain(cfg, pr, iterations=EDGE_ITERATIONS)
+        ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)),
+                                        iterations=EDGE_ITERATIONS)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(ref.states.abs().max()), float(ref.controls.abs().max()))
+        err, tol = solution_gap(got, ref), 1e-4 * scale + 2.0 * solution_gap(ref, ref64)
+        finite = bool(torch.isfinite(got.states).all() and torch.isfinite(got.controls).all())
+        log(f"[10] fused {label} at its longest horizon N={n} (K={K}), B={EDGE_BATCH}, "
+            f"{EDGE_ITERATIONS} iterations, {occ['warps_per_block']} warp(s) and "
+            f"{occ['smem_bytes_per_block']} bytes per block: max|kernel-plain| {err:.3e} "
+            f"(tol {tol:.3e})")
+        if not (finite and err <= tol and occ["warps_per_block"] == 1):
+            fail(f"the fused kernel at its longest horizon ({label}, N={n})")
+        ms = kernel_ms(lambda: solve_batch_fused(cfg, pr, iterations=EDGE_ITERATIONS), reps=3,
+                       warmup=1)
+        bound_ms, bound_by, _, _ = fused_bound(cfg, EDGE_BATCH, EDGE_ITERATIONS, n)
+        over = cfg.replace(horizon=n + 1)
+        pr_over = (obstacle_problems(over, 2, seed=3, n_dynamic=2) if K
+                   else free_problems(over, 2, seed=3))
+        before = solve_batch_fused.launches
+        try:
+            solve_batch_fused(over, pr_over, iterations=1)
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            fail(f"the fused kernel took N={n + 1} ({label})")
+        if solve_batch_fused.launches != before:
+            fail("the refused horizon launched the fused kernel")
+        log(f"[10] fused {label}: {ms:.4f} ms at N={n}, B={EDGE_BATCH}, {EDGE_ITERATIONS} "
+            f"iterations ({ms / bound_ms:.2f}x its bound {bound_ms:.4f} ms, {bound_by}); "
+            f"N={n + 1} refused before any launch: {refused}")
+        fused[label] = {"max_horizon": n, "ms": ms, "B": EDGE_BATCH,
+                        "iterations": EDGE_ITERATIONS, "bound_ms": bound_ms,
+                        "max_abs_err": err}
+    return ric, fused
 
 
 def main():
@@ -1117,6 +1482,11 @@ def main():
         log(f"[5] fused {name}: CUDA-event time of each stage's launch (B, ms): {stage_ms}")
     phase_cpu_check(fused_cfgs, split_cfgs, pools)
     fleet = phase_fleet()
+    planner = phase_planner()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        lab = phase_lab(tmpdir)
+    ric_edges, fused_edges = phase_horizons(fused_cfgs)
+    riccati.update(long_horizon=ric_edges)
 
     # The fused row is the K=8 cell's, with the elastic branch's numbers
     # beside it; its launches are the fused main path's (all three cells).
@@ -1125,12 +1495,14 @@ def main():
         entry["launches"] = fused_launches
     fused_k8.update(elastic_ms=elastic["ms"], elastic_plain_ms=elastic["plain_ms"],
                     elastic_bound_ms=elastic["bound_ms"],
-                    elastic_max_abs_err=elastic["max_abs_err"], stage_ms=fused_stages)
+                    elastic_max_abs_err=elastic["max_abs_err"], stage_ms=fused_stages,
+                    longest_horizon=fused_edges, fleet_launches=fleet["fused_launches"])
     log(json.dumps({"build_s": build_s, "fused_occupancy": occupancy,
                     "fused_free_kernel": fused["free"],
                     "main_path": {"fused": fused_results, "split": split_results,
                                   "split_mehrotra": mehrotra},
-                    "fleet": fleet, "total_s": time.perf_counter() - t_start}))
+                    "fleet": fleet, "planner": planner, "lab_worlds": lab,
+                    "total_s": time.perf_counter() - t_start}))
     log(smi)
     log(json.dumps({"kernels": [riccati, probe, fused_k8]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,11 @@ builders, the plain and CUDA Riccati solves, the batched IPM (Mehrotra
 elastic branch), the trip-count probe, `solve_batch` with both backends
 ("fused", the default, and "split"), `make_solver`, the receding-horizon
 agent and the episode loop (`environment.step`, `fleet_step`,
-`run_episode`), the benchmark scenario pools and episode worlds, and the
-numpy bridge.  Every public entry point takes ``device=None``, which means
+`run_episode`), the benchmark scenario pools, the batched grid planner
+(`planner.py`), the episode and lab-map worlds (`scenarios.episode_worlds`
+with either router, `scenarios.lab_worlds`), the map tools
+(`obstacles.mapping` and the g++-built `native` library), and the numpy
+bridge.  Every public entry point takes ``device=None``, which means
 ``"cuda"``; pass ``device="cpu"`` to run on the CPU.
 """
 

@@ -28,7 +28,8 @@
 // of operations per scenario: the condensation, two sweeps, and one merit
 // pass per line-search candidate, each with its sin, cos, sqrt and log.
 //
-// Design.  One warp per scenario, kWarps warps per block.  The scenario's
+// Design.  One warp per scenario, kWarps warps per block (fewer only at
+// long horizons, see below).  The scenario's
 // whole iterate lives in dynamic shared memory for the whole solve (the
 // TPU kernel kept it in VMEM): problem rows and tracks (non-affine tracks
 // too), the trajectory, slacks and duals of every family, elastic e, the
@@ -38,7 +39,13 @@
 // gradient rows of the diagnostics.  Device memory is read once, at the
 // start, and written once, at the end; the layout is sized at run time from
 // (N, K, elastic, affine tracks), ~11 KB per scenario free, ~15 KB with
-// K = 8 at N = 50.  Inputs and outputs are scenario-major ([B, rows]): a
+// K = 8 at N = 50.  The launcher takes kWarps scenarios per block where
+// they fit in the card's opt-in shared memory per block (227 KB on sm_90),
+// else 2, else 1 (warps_for); the kernel reads its count from blockDim.  At
+// one warp the longest horizon is N = 1036 at K = 0, and at K = 8 805
+// (affine tracks) or 659, 725 or 604 with elastic obstacles
+// (kissmpc_ipm_fused_max_horizon); the wrapper refuses a longer one before
+// any work.  Inputs and outputs are scenario-major ([B, rows]): a
 // warp reads and writes its scenario's contiguous rows.  The stage rows and
 // the stored step each beat their alternative on the card (condensing inside
 // the sweep on lane 0; recomputing the step where it is read): see
@@ -91,8 +98,13 @@ struct FusedParams {
 namespace {
 
 // Scenarios (warps) per block, chosen against 1, 2 and 8 by
-// scripts/fused_design_sweep.py: WARPS_READING
+// scripts/fused_design_sweep.py (tied with 1 and 2 at N = 50, 8 slower);
+// the most a block takes: the launcher halves it where a block does not fit.
 constexpr int kWarps = 4;
+// Dynamic shared memory a block may take on sm_90
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin there), for the host-only
+// queries; a launch reads the card's own.
+constexpr size_t kSmemOptin = 227 * 1024;
 constexpr int kLanes = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kScalRows = 27;
@@ -149,8 +161,17 @@ __host__ __device__ inline Layout layout(int N, int K, bool elastic, bool affine
   return L;
 }
 
-__host__ __device__ inline size_t smem_bytes(int N, int K, bool elastic, bool affine) {
-  return static_cast<size_t>(layout(N, K, elastic, affine).total) * sizeof(float) * kWarps;
+__host__ __device__ inline size_t smem_bytes(int N, int K, bool elastic, bool affine,
+                                             int warps) {
+  return static_cast<size_t>(layout(N, K, elastic, affine).total) * sizeof(float) * warps;
+}
+
+// Warps per block for a block of at most ``optin`` bytes: kWarps, or the
+// largest of kWarps / 2, ..., 1 that fits; 0 where not even one does.
+inline int warps_for(int N, int K, bool elastic, bool affine, size_t optin) {
+  for (int w = kWarps; w >= 1; w /= 2)
+    if (smem_bytes(N, K, elastic, affine, w) <= optin) return w;
+  return 0;
 }
 
 __device__ __forceinline__ float maxp(float a, float b) {
@@ -225,7 +246,8 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
   extern __shared__ float smem[];
   const int lane = static_cast<int>(threadIdx.x) % kLanes;
   const int warp = static_cast<int>(threadIdx.x) / kLanes;
-  const int b = static_cast<int>(blockIdx.x) * kWarps + warp;
+  const int warps = static_cast<int>(blockDim.x) / kLanes;
+  const int b = static_cast<int>(blockIdx.x) * warps + warp;
   if (b >= p.B) return;  // the whole warp leaves; nothing below syncs the block
   const int N = p.N, K = p.K, T1 = N + 1, KN = K * N;
   const bool affine = p.affine != 0;
@@ -943,12 +965,24 @@ using KernelFn = void (*)(const int*, const float*, const float*, const float*, 
                           const float*, float*, float*, float*, float*, float*, float*,
                           const FusedParams);
 
-// The instantiation for the branch, with its dynamic shared memory allowed
-// up to ``bytes`` (needed above 48 KB, before its first launch).
-cudaError_t prepare(bool elastic, size_t bytes, KernelFn* kernel) {
+// The instantiation for the branch, its warps per block (from the card's
+// opt-in shared memory per block; one where not even one fits, so that the
+// card refuses the launch) and dynamic shared memory per block, allowed
+// before the launch (needed above 48 KB).
+cudaError_t prepare(int N, int K, bool elastic, bool affine, KernelFn* kernel, int* warps,
+                    size_t* bytes) {
   *kernel = elastic ? ipm_fused_kernel<true> : ipm_fused_kernel<false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) {
+    const int w = warps_for(N, K, elastic, affine, static_cast<size_t>(optin));
+    *warps = w > 0 ? w : 1;
+    *bytes = smem_bytes(N, K, elastic, affine, *warps);
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(*bytes));
+  }
   if (err != cudaSuccess) cudaGetLastError();  // clear it; the caller reports it
   return err;
 }
@@ -962,12 +996,13 @@ extern "C" int kissmpc_ipm_fused_f32(
   const FusedParams p = *params;
   if (p.B > 0) {
     const bool elastic = p.elastic && p.K > 0;
-    const size_t bytes = smem_bytes(p.N, p.K, elastic, p.affine != 0);
     KernelFn kernel;
-    const cudaError_t err = prepare(elastic, bytes, &kernel);
+    int warps;
+    size_t bytes;
+    const cudaError_t err = prepare(p.N, p.K, elastic, p.affine != 0, &kernel, &warps, &bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int blocks = (p.B + kWarps - 1) / kWarps;
-    kernel<<<blocks, kWarps * kLanes, bytes, static_cast<cudaStream_t>(stream)>>>(
+    const int blocks = (p.B + warps - 1) / warps;
+    kernel<<<blocks, warps * kLanes, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(iters), static_cast<const float*>(scal),
         static_cast<const float*>(warm), static_cast<const float*>(tx),
         static_cast<const float*>(ty), static_cast<const float*>(obinfo),
@@ -983,22 +1018,33 @@ extern "C" int kissmpc_ipm_fused_f32(
 // thread}.  Returns a cudaError_t.
 extern "C" int kissmpc_ipm_fused_occupancy(int N, int K, int elastic, int affine, int* out) {
   const bool el = elastic && K > 0;
-  const size_t bytes = smem_bytes(N, K, el, affine != 0);
   KernelFn kernel;
-  cudaError_t err = prepare(el, bytes, &kernel);
+  int warps;
+  size_t bytes;
+  cudaError_t err = prepare(N, K, el, affine != 0, &kernel, &warps, &bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kWarps * kLanes, bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, warps * kLanes, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = kWarps;
+  out[0] = warps;
   out[1] = static_cast<int>(bytes);
   out[2] = blocks;
   out[3] = attr.numRegs;
   out[4] = static_cast<int>(attr.localSizeBytes);
   return 0;
+}
+
+// The longest horizon whose iterate fits in a block of one warp on sm_90,
+// for K obstacles, the elastic branch and affine tracks (the last two 0 or
+// 1).  Host arithmetic only: no CUDA call.
+extern "C" int kissmpc_ipm_fused_max_horizon(int K, int elastic, int affine) {
+  const bool el = elastic && K > 0;
+  int N = 0;
+  while (smem_bytes(N + 1, K, el, affine != 0, 1) <= kSmemOptin) ++N;
+  return N;
 }
 
 extern "C" const char* kissmpc_cuda_error_string(int code) {

@@ -46,11 +46,16 @@
 // scripts/riccati_design_sweep.py measured both (and 8) at every batch; B
 // and N alone decide, no setting does.
 //
-// Gains stay on chip.  K and k go to a [S, N, 8] region of shared memory
-// from the sweep to the rollout; after the sweep the block writes it out
-// once, with 16-byte stores (the block's span of the [B, N, 8] output is
-// contiguous and 16-byte aligned).  dx and du are written as the rollout
-// makes them, each value by one lane of its scenario.
+// Gains stay on chip up to max_horizon.  K and k go to a [S, N, 8] region
+// of shared memory from the sweep to the rollout; after the sweep the block
+// writes it out once, with 16-byte stores (the block's span of the
+// [B, N, 8] output is contiguous and 16-byte aligned).  dx and du are
+// written as the rollout makes them, each value by one lane of its
+// scenario.  Above max_horizon the launcher takes the kernel's other
+// instance (template flag GLOBAL_GAINS): the sweep writes K and k straight
+// to the gains output and the rollout reads them back from device memory
+// (from L2, where the sweep has just written them), so shared memory holds
+// only the staging ring and its barriers and no longer grows with N.
 //
 // Four lanes per scenario.  A step is written over the augmented 3 x 4
 // system [A | d]: column c < 3 of P A, of Qux = B' P A and of
@@ -71,12 +76,14 @@
 // 16 bytes of slack per tensor.  At N = 50: f32 12,800 bytes of gains and
 // 38,656 (C = 16) or 75,520 (C = 32) of ring per block, 51,472 / 88,336 in
 // all; f64 25,600 + 75,520 / 149,248, 101,136 / 174,864.  The gains grow
-// with N, so N is limited by the 227 KB a block may take on sm_90, the same
-// at every batch since C = 16 is taken wherever 32 does not fit: N <= 756 in
-// f32 and 306 in f64 (kissmpc_riccati_max_horizon).  The wrapper raises
-// above it before any work (ops/riccati.py), and a launch the card refuses
-// raises too.  The shared-memory attribute is set once per instance and
-// device.
+// with N, so the on-chip instance takes N up to the 227 KB a block may take
+// on sm_90, the same at every batch since C = 16 is taken wherever 32 does
+// not fit: N <= 756 in f32 and 306 in f64 (kissmpc_riccati_max_horizon).
+// Above it the global-gains instance runs, with the ring alone (chunks of 32
+// at B <= 1024, 16 above, as on chip): 75,536 / 38,672 bytes per block in
+// f32, 149,264 / 75,536 in f64, at any N.  A launch the card refuses still
+// raises (ops/riccati.py).  The shared-memory attribute is set once per
+// instance and device.
 //
 // The TPU's artefacts are gone: no BT = 512 tile, no padding of the batch
 // to a tile multiple, no VMEM specs, no scenario-major transpose.  The
@@ -123,14 +130,17 @@ __host__ __device__ constexpr int slot_offset(int k) {  // per scenario, before 
 template <typename T, int C>
 __host__ __device__ constexpr int ring_bytes() { return slot_offset<T, C>(kTensors); }
 
+// ``kept`` steps of gains (N on chip, 0 in the global-gains instance), two
+// ring buffers, their two barriers.
 template <typename T, int C>
-size_t smem_bytes(int N) {  // gains, two ring buffers, their two barriers
+size_t smem_bytes(int kept) {
   return static_cast<size_t>(kScenarios) *
-             (static_cast<size_t>(N) * 8 * sizeof(T) + 2 * ring_bytes<T, C>()) + 16;
+             (static_cast<size_t>(kept) * 8 * sizeof(T) + 2 * ring_bytes<T, C>()) + 16;
 }
 
-// The longest horizon whose gains fit beside the ring of kChunkLarge steps,
-// at every batch: the launcher takes kChunkSmall only where it fits.
+// The longest horizon whose gains stay on chip: they fit beside the ring of
+// kChunkLarge steps, at every batch (the launcher takes kChunkSmall only
+// where it fits).  Above it the global-gains instance runs.
 template <typename T>
 int max_horizon() {
   const size_t ring = smem_bytes<T, kChunkLarge>(0);
@@ -299,9 +309,11 @@ __device__ __forceinline__ void load_step(StepIn<T>& v, const Rows<T>& x, int k,
 // One backward step: P, p <- the step's value function; the gains K
 // (row-major 2 x 3) and k go to g[0..5], g[6..7].  Lane r of the group
 // computes column r of the augmented system [A | d].
+// ``store`` is false only for the idle lanes of a ragged block in the
+// global-gains instance, which have no row of the output to write.
 template <typename T>
 __device__ __forceinline__ void backward_step(T (&P)[9], T (&p)[3], const StepIn<T>& v, T* g,
-                                              int r, T reg) {
+                                              int r, T reg, bool store) {
   static_assert(kLanes == 4, "one lane per column of [A | d]");
   // Quu_hat = Quu + B'PB and its regularized closed-form inverse, per lane.
   T PB[6];
@@ -347,7 +359,7 @@ __device__ __forceinline__ void backward_step(T (&P)[9], T (&p)[3], const StepIn
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     Kc[i] = -(inv[i * 2 + 0] * Qc[0] + inv[i * 2 + 1] * Qc[1]);
-    g[r < 3 ? i * 3 + r : 6 + i] = Kc[i];
+    if (store) g[r < 3 ? i * 3 + r : 6 + i] = Kc[i];
   }
   // Every lane needs all of Qux = B'PA.
   T Qux[2][3];
@@ -397,7 +409,7 @@ __device__ __forceinline__ void load_roll(RollIn<T>& v, const T* g, const Rows<T
   for (int i = 0; i < 3; ++i) v.dv[i] = x.dv[k * 3 + i];
 }
 
-template <typename T, int C>
+template <typename T, int C, bool GLOBAL_GAINS>
 __global__ void __launch_bounds__(kThreads) riccati_kernel(
     const Inputs<T> in, T* __restrict__ dx, T* __restrict__ du, T* __restrict__ gains,
     int B, int N, T reg) {
@@ -409,8 +421,12 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
   const bool valid = s < nvalid;
   const int b = b0 + s;
   const size_t n = static_cast<size_t>(N);
-  T* gs = reinterpret_cast<T*>(smem) + static_cast<size_t>(s) * n * 8;  // this scenario's gains
-  unsigned char* ring = smem + static_cast<size_t>(S) * n * 8 * sizeof(T);
+  // This scenario's gains [N, 8]: in shared memory, or its rows of the
+  // output (an idle lane reads, and never writes, the block's first
+  // scenario's).
+  T* gs = GLOBAL_GAINS ? gains + static_cast<size_t>(valid ? b : b0) * n * 8
+                       : reinterpret_cast<T*>(smem) + static_cast<size_t>(s) * n * 8;
+  unsigned char* ring = GLOBAL_GAINS ? smem : smem + static_cast<size_t>(S) * n * 8 * sizeof(T);
   const size_t buffer = static_cast<size_t>(S) * ring_bytes<T, C>();
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(ring + 2 * buffer);
   const int chunks = (N + C - 1) / C;
@@ -458,7 +474,7 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
     for (int t = hi - 1; t >= lo; --t) {
       StepIn<T> next;
       load_step(next, x, (t > lo ? t - 1 : t) - lo, r);
-      backward_step(P, p, cur, gs + static_cast<size_t>(t) * 8, r, reg);
+      backward_step(P, p, cur, gs + static_cast<size_t>(t) * 8, r, reg, !GLOBAL_GAINS || valid);
       cur = next;
     }
     __syncthreads();  // the buffer is read; the copies of chunk c + 2 may land in it
@@ -467,8 +483,9 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
                                hi_of(c + 2), &bars[c & 1]);
   }
 
-  // ---- the gains out, once, 16 bytes at a time ----------------------------
-  {
+  // ---- the gains out, once, 16 bytes at a time (on chip only; the sweep's
+  // last __syncthreads made the global instance's writes visible) ---------
+  if constexpr (!GLOBAL_GAINS) {
     struct alignas(16) Unit { unsigned int v[4]; };
     const size_t units = static_cast<size_t>(nvalid) * n * 8 * sizeof(T) / 16;
     const Unit* from = reinterpret_cast<const Unit*>(smem);
@@ -542,24 +559,26 @@ __global__ void __launch_bounds__(kThreads) riccati_kernel(
 template <typename T>
 using KernelFn = void (*)(const Inputs<T>, T*, T*, T*, int, int, T);
 
-// The chunk length of a batch of B at horizon N: kChunkSmall at
-// B <= kSmallBatch where its ring fits beside the gains, kChunkLarge else.
+// The chunk length of a batch of B with ``kept`` steps of gains in shared
+// memory: kChunkSmall at B <= kSmallBatch where its ring fits beside them,
+// kChunkLarge else.
 template <typename T>
-int chunk_for(int B, int N) {
-  return B <= kSmallBatch && smem_bytes<T, kChunkSmall>(N) <= kSmemOptin ? kChunkSmall
-                                                                          : kChunkLarge;
+int chunk_for(int B, int kept) {
+  return B <= kSmallBatch && smem_bytes<T, kChunkSmall>(kept) <= kSmemOptin ? kChunkSmall
+                                                                             : kChunkLarge;
 }
 
 template <typename T>
-size_t smem_for(int B, int N) {
-  return chunk_for<T>(B, N) == kChunkSmall ? smem_bytes<T, kChunkSmall>(N)
-                                           : smem_bytes<T, kChunkLarge>(N);
+size_t smem_for(int B, int kept) {
+  return chunk_for<T>(B, kept) == kChunkSmall ? smem_bytes<T, kChunkSmall>(kept)
+                                              : smem_bytes<T, kChunkLarge>(kept);
 }
 
-// Let instance C take a block's whole dynamic shared memory (above 48 KB it
-// must be allowed before its first launch), once per device: the attribute
-// is per device, and setting it on every launch would cost the host a call.
-template <typename T, int C>
+// Let instance (C, G) take a block's whole dynamic shared memory (above
+// 48 KB it must be allowed before its first launch), once per device: the
+// attribute is per device, and setting it on every launch would cost the
+// host a call.
+template <typename T, int C, bool G>
 cudaError_t allow_shared_memory() {
   constexpr int kDevices = 64;
   static std::atomic<bool> allowed[kDevices];
@@ -568,7 +587,7 @@ cudaError_t allow_shared_memory() {
   if (err == cudaSuccess && device < kDevices && allowed[device].load(std::memory_order_relaxed))
     return cudaSuccess;
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(riccati_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(riccati_kernel<T, C, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kSmemOptin));
   if (err == cudaSuccess && device < kDevices)
     allowed[device].store(true, std::memory_order_relaxed);
@@ -576,17 +595,24 @@ cudaError_t allow_shared_memory() {
   return err;
 }
 
+template <typename T, bool G>
+cudaError_t pick(int B, int kept, KernelFn<T>* kernel) {
+  if (chunk_for<T>(B, kept) == kChunkSmall) {
+    *kernel = riccati_kernel<T, kChunkSmall, G>;
+    return allow_shared_memory<T, kChunkSmall, G>();
+  }
+  *kernel = riccati_kernel<T, kChunkLarge, G>;
+  return allow_shared_memory<T, kChunkLarge, G>();
+}
+
 // The instantiation a batch of B at horizon N takes and its dynamic shared
-// memory.
+// memory: the gains on chip up to max_horizon, in the output above it.
 template <typename T>
 cudaError_t prepare(int B, int N, KernelFn<T>* kernel, size_t* bytes) {
-  *bytes = smem_for<T>(B, N);
-  if (chunk_for<T>(B, N) == kChunkSmall) {
-    *kernel = riccati_kernel<T, kChunkSmall>;
-    return allow_shared_memory<T, kChunkSmall>();
-  }
-  *kernel = riccati_kernel<T, kChunkLarge>;
-  return allow_shared_memory<T, kChunkLarge>();
+  const bool on_chip = N <= max_horizon<T>();
+  const int kept = on_chip ? N : 0;
+  *bytes = smem_for<T>(B, kept);
+  return on_chip ? pick<T, false>(B, kept, kernel) : pick<T, true>(B, kept, kernel);
 }
 
 template <typename T>
@@ -650,15 +676,20 @@ extern "C" int kissmpc_riccati_f64(
                         reg, stream);
 }
 
-// Dynamic shared memory per block of a solve of B scenarios with horizon N
-// and values of ``elem_bytes`` (4 or 8).  Host arithmetic only: no CUDA call.
+// Dynamic shared memory per block of the on-chip instance (the gains of all
+// N steps in shared memory) for B scenarios with horizon N and values of
+// ``elem_bytes`` (4 or 8); above kissmpc_riccati_max_horizon it exceeds
+// what a block may take, and the launcher takes the global-gains instance
+// (kissmpc_riccati_occupancy reports what a launch takes).  Host arithmetic
+// only: no CUDA call.
 extern "C" long long kissmpc_riccati_smem_bytes(int B, int N, int elem_bytes) {
   return static_cast<long long>(elem_bytes == 8 ? smem_for<double>(B, N)
                                                 : smem_for<float>(B, N));
 }
 
-// The longest horizon the kernel takes, at every batch, in values of
-// ``elem_bytes``.  Host arithmetic only: no CUDA call.
+// The longest horizon whose gains stay in shared memory, at every batch, in
+// values of ``elem_bytes``; the kernel takes any N.  Host arithmetic only:
+// no CUDA call.
 extern "C" int kissmpc_riccati_max_horizon(int elem_bytes) {
   return elem_bytes == 8 ? max_horizon<double>() : max_horizon<float>();
 }

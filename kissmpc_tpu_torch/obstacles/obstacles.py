@@ -75,6 +75,13 @@ def static_set(centers, radii, max_obstacles=None, dtype=torch.float32,
     )
 
 
+def concatenate(a: ObstacleSet, b: ObstacleSet) -> ObstacleSet:
+    """The obstacles of ``a`` followed by those of ``b``: every field joined
+    on its leading axis, as `kissmpc_tpu/obstacles/obstacles.py:125` joins
+    the leaves on axis 0 (the obstacle axis of an unbatched set)."""
+    return ObstacleSet(*(torch.cat([x, y], dim=0) for x, y in zip(a, b)))
+
+
 def dynamic_set(
     positions,
     orientations,

@@ -8,7 +8,9 @@ launch.  It replaces the TPU kernel
 wrapper's contract (`solve_batch_fused`, minus the TPU tile settings
 ``interpret``, ``bt`` and ``sb``).  For problems on the CPU it runs
 `solve_batch_fused_plain`; for CUDA tensors it launches the kernel or
-raises, and counts each launch in ``solve_batch_fused.launches``.
+raises, and counts each launch in ``solve_batch_fused.launches``.  A
+horizon above ``max_horizon(cfg)`` (the longest whose iterate fits in a
+block of one warp) raises ValueError before any work.
 
 The plain version follows the kernel, not `solver/ipm.py`; the two differ
 where the fused algorithm does:
@@ -90,6 +92,11 @@ class FusedInputs(NamedTuple):
 def _elastic(cfg: MPCConfig) -> bool:
     """Whether the elastic obstacle branch runs (it needs obstacles)."""
     return cfg.max_obstacles > 0 and cfg.solver.elastic_obstacles
+
+
+def _affine(cfg: MPCConfig) -> bool:
+    """Whether the tracks go in as (start, per-step delta) pairs."""
+    return cfg.max_obstacles > 0 and cfg.solver.fused_affine_tracks
 
 
 def _check_supported(cfg: MPCConfig) -> None:
@@ -711,7 +718,7 @@ def _params(cfg: MPCConfig, B: int) -> _Params:
         exclude_terminal=int(cc.goal_cost_mode == "exclude_terminal"),
         reverse_squared=int(cc.reverse_penalty_mode == "squared"),
         curvature=int(sc.obstacle_curvature),
-        affine=int(cfg.max_obstacles > 0 and sc.fused_affine_tracks),
+        affine=int(_affine(cfg)),
         adaptive_sigma=int(sc.mu_sigma_max > 0.0),
         elastic=int(_elastic(cfg)),
         dt=cfg.time_step, tau=sc.tau, reg=sc.reg, mu_init=sc.mu_init,
@@ -734,12 +741,28 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     occ = lib.kissmpc_ipm_fused_occupancy
     occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     occ.restype = ctypes.c_int
+    lib.kissmpc_ipm_fused_max_horizon.argtypes = [ctypes.c_int] * 3
+    lib.kissmpc_ipm_fused_max_horizon.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     return bind(_build.load(SOURCE, "kissmpc_ipm_fused"))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_horizon(K: int, elastic: bool, affine: bool) -> int:
+    return _library().kissmpc_ipm_fused_max_horizon(K, int(elastic), int(affine))
+
+
+def max_horizon(cfg: MPCConfig) -> int:
+    """The longest horizon the kernel takes for ``cfg``'s obstacle count,
+    branch and track form: the one whose whole iterate fits in a block of
+    one warp within the 227 KB of shared memory a block may take on sm_90
+    (the launcher takes 4 warps per block where they fit, else 2, else 1).
+    Builds the kernel; needs nvcc."""
+    return _max_horizon(cfg.max_obstacles, _elastic(cfg), _affine(cfg))
 
 
 def _check_problems(cfg: MPCConfig, problems: Problem) -> None:
@@ -782,6 +805,11 @@ def solve_batch_fused(cfg: MPCConfig, problems: Problem, *,
     if device.type != "cuda":
         raise ValueError(f"the fused kernel runs on CUDA or CPU tensors, got {device}")
     N = cfg.horizon
+    if N > max_horizon(cfg):
+        raise ValueError(
+            f"fused kernel: horizon N={N} exceeds N <= {max_horizon(cfg)}, the longest whose "
+            f"iterate fits in one block's shared memory at K={cfg.max_obstacles}"
+            f"{' (elastic)' if _elastic(cfg) else ''}; use solve_backend=\"split\"")
     T1 = N + 1
     B = problems.initial_state.shape[0]
     iters = cfg.solver.iterations if iterations is None else int(iterations)
@@ -810,15 +838,14 @@ solve_batch_fused.launches = 0
 
 def occupancy(cfg: MPCConfig) -> dict:
     """The launch shape of the kernel instantiation that ``cfg`` takes on
-    the current card: warps (scenarios) per block, dynamic shared memory
-    per block, resident blocks and scenarios per SM, registers and bytes
-    of local memory (stack frame and spills) per thread.  Builds the
-    kernel; needs CUDA."""
+    the current card: warps (scenarios) per block as launched (4, or 2 or 1
+    where 4 do not fit), dynamic shared memory per block, resident blocks
+    and scenarios per SM, registers and bytes of local memory (stack frame
+    and spills) per thread.  Builds the kernel; needs CUDA."""
     lib = _library()
     out = (ctypes.c_int * 5)()
     err = lib.kissmpc_ipm_fused_occupancy(
-        cfg.horizon, cfg.max_obstacles, int(_elastic(cfg)),
-        int(cfg.max_obstacles > 0 and cfg.solver.fused_affine_tracks), out)
+        cfg.horizon, cfg.max_obstacles, int(_elastic(cfg)), int(_affine(cfg)), out)
     _build.check_launch(lib, err, "fused IPM occupancy query")
     warps, smem, blocks, regs, local = out
     return {"warps_per_block": warps, "smem_bytes_per_block": smem, "blocks_per_sm": blocks,

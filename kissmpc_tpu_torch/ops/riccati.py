@@ -56,9 +56,11 @@ def _library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def max_horizon(dtype: torch.dtype) -> int:
-    """The longest horizon N the kernel takes in ``dtype``, the same at every
-    batch: its gains stay in shared memory for the whole horizon, beside
-    the staging ring, within the 227 KB a block may take on sm_90.  Builds
+    """The longest horizon N whose gains stay on chip in ``dtype``, the same
+    at every batch: up to it the kernel keeps them in shared memory for the
+    whole horizon, beside the staging ring, within the 227 KB a block may
+    take on sm_90; above it the kernel's global-gains instance writes them
+    to the output in the sweep and reads them back in the rollout.  Builds
     the kernel; needs nvcc."""
     return _library().kissmpc_riccati_max_horizon(4 if dtype == torch.float32 else 8)
 
@@ -104,17 +106,17 @@ def _check(data: LQRData) -> tuple[int, int]:
 
 def solve_lqr_cuda(data: LQRData, reg: float = 0.0) -> LQRSolution:
     """Batched Riccati solve: CUDA kernel for CUDA tensors, plain torch on
-    the CPU.  Returns dx [B, N+1, 3], du [B, N, 2], K [B, N, 2, 3], k [B, N, 2]."""
+    the CPU.  Returns dx [B, N+1, 3], du [B, N, 2], K [B, N, 2, 3], k [B, N, 2].
+
+    Any horizon: at N <= ``max_horizon(dtype)`` the launcher takes the
+    instance that keeps the gains in shared memory, above it the one that
+    keeps them in the [B, N, 8] output (`csrc/riccati.cu`)."""
     Bsz, N = _check(data)
     device, dtype = data.A.device, data.A.dtype
     if device.type == "cpu":
         return solve_lqr(data, reg)
     if device.type != "cuda":
         raise ValueError(f"Riccati kernel runs on CUDA or CPU tensors, got {device}")
-    if N > max_horizon(dtype):
-        raise ValueError(
-            f"Riccati kernel: horizon N={N} exceeds the N <= {max_horizon(dtype)} whose gains "
-            f"fit in one block's shared memory in {dtype}")
     lib = _library()
     fn = lib.kissmpc_riccati_f32 if dtype == torch.float32 else lib.kissmpc_riccati_f64
     dx = torch.empty((Bsz, N + 1, 3), dtype=dtype, device=device)

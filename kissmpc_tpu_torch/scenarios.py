@@ -4,8 +4,9 @@ reference's sampling).
 `sample_endpoints`, `sample_obstacle_field` and `route_waypoints` are copies
 of the numpy code in `kissmpc_tpu/scenarios.py` (the port imports nothing of
 the JAX package), so one seed gives bit-identical geometry in both packages.
-`free_problems`, `obstacle_problems` and `episode_worlds` build the batches
-with the port's own builders.
+`free_problems`, `obstacle_problems`, `episode_worlds` and `lab_worlds` build
+the batches with the port's own builders; the grid router and `lab_worlds`
+plan with the port's batched grid planner (`planner.py`).
 """
 
 from __future__ import annotations
@@ -96,6 +97,27 @@ def sample_obstacle_field(
         away = np.arctan2(rel[..., 1], rel[..., 0]).astype(np.float32)
         orientation = np.where(sweep, away, orientation)
     return centers, radii, orientation, v
+
+
+def waypoint_hops(cfg, first_goal: np.ndarray, n_waypoints: int, rng: np.random.Generator):
+    """An episode's waypoint chain [B, n_waypoints, 3]: the first hop is the
+    sampled goal, each further hop a random step of comparable length (a
+    decimated global plan), drawn as `kissmpc_tpu/scenarios.py` draws it."""
+    batch = first_goal.shape[0]
+    hop_len = cfg.horizon * cfg.time_step * 0.5
+    hops = [first_goal]
+    for _ in range(n_waypoints - 1):
+        r = rng.uniform(0.3 * hop_len, 1.0 * hop_len, (batch, 1))
+        ang = rng.uniform(-np.pi, np.pi, (batch, 1))
+        prev = hops[-1]
+        hops.append(
+            np.concatenate(
+                [prev[:, 0:1] + r * np.cos(ang), prev[:, 1:2] + r * np.sin(ang),
+                 rng.uniform(-3.1, 3.1, (batch, 1))],
+                axis=1,
+            ).astype(np.float32)
+        )
+    return np.stack(hops, axis=1)
 
 
 def free_problems(cfg, batch: int, *, seed: int = 0, dtype=torch.float32,
@@ -229,6 +251,9 @@ def episode_worlds(
     inflation: float = DEFAULT_INFLATION,
     route_around_obstacles: bool = False,
     router: str = "detour",
+    points_per_leg: int = 3,
+    planner_grid: int = 64,
+    return_info: bool = False,
     dtype=torch.float32,
     device=None,
 ):
@@ -237,9 +262,14 @@ def episode_worlds(
     an obstacle field seeded along the first leg and cleared off every hop.
 
     Returns ``(env: EnvState[B], obstacles: ObstacleSet[B, K])`` for
-    `environment.fleet_step`.  ``route_around_obstacles`` inserts a detour
-    point per leg (`route_waypoints`); ``router="grid"``, the reference's
-    batched grid planner (`kissmpc_tpu/planner.py`), is not ported yet.
+    `environment.fleet_step`.  ``route_around_obstacles`` routes the chain
+    around the static circles: ``router="grid"`` with the batched grid
+    planner (`planner.plan_waypoint_chain`: ``points_per_leg`` route points
+    per leg plus the waypoint, on a ``planner_grid``-cell grid, run on
+    ``device``), any other router with one detour point per leg
+    (`route_waypoints`).  With ``return_info=True`` a third element is
+    ``{"leg_reachable": [B, W'] bool}`` per routed leg: the grid router's
+    connectivity, all True on every other path (K == 0 included).
     """
     from .environment import init_env
     from .obstacles.obstacles import ObstacleSet, empty
@@ -248,27 +278,13 @@ def episode_worlds(
     K = cfg.max_obstacles
     rng = np.random.default_rng(seed)
     starts, first_goal = sample_endpoints(cfg, batch, rng)
-    # Waypoint chain: first hop = sampled goal, further hops random steps of
-    # comparable length (a decimated global plan).
-    hop_len = cfg.horizon * cfg.time_step * 0.5
-    hops = [first_goal]
-    for _ in range(n_waypoints - 1):
-        r = rng.uniform(0.3 * hop_len, 1.0 * hop_len, (batch, 1))
-        ang = rng.uniform(-np.pi, np.pi, (batch, 1))
-        prev = hops[-1]
-        hops.append(
-            np.concatenate(
-                [prev[:, 0:1] + r * np.cos(ang), prev[:, 1:2] + r * np.sin(ang),
-                 rng.uniform(-3.1, 3.1, (batch, 1))],
-                axis=1,
-            ).astype(np.float32)
-        )
-    waypoints = np.stack(hops, axis=1)  # [B, W, 3]
+    leg_reach = None  # the grid router's [B, W] connectivity; else all True
+    waypoints = waypoint_hops(cfg, first_goal, n_waypoints, rng)  # [B, W, 3]
     t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
     if K > 0:
         centers, radii, orientation, v = sample_obstacle_field(
             starts, first_goal, K, rng, n_dynamic=n_dynamic,
-            inflation=inflation, clear_points=hops[1:],
+            inflation=inflation, clear_points=list(waypoints[:, 1:].swapaxes(0, 1)),
         )
         obstacles = ObstacleSet(
             position=t(centers),
@@ -280,12 +296,184 @@ def episode_worlds(
         )
         if route_around_obstacles:
             if router == "grid":
-                raise NotImplementedError(
-                    'router="grid" needs the batched grid planner '
-                    "(kissmpc_tpu/planner.py), which a later slice ports; "
-                    'use router="detour"'
+                from .planner import plan_waypoint_chain
+
+                waypoints, leg_reach = plan_waypoint_chain(
+                    starts, waypoints, centers, radii, v == 0.0, inflation,
+                    points_per_leg=points_per_leg, grid=planner_grid, device=dev,
                 )
-            waypoints = route_waypoints(starts, waypoints, centers, radii, v == 0.0, inflation)
+            else:
+                waypoints = route_waypoints(starts, waypoints, centers, radii, v == 0.0,
+                                            inflation)
     else:
         obstacles = ObstacleSet(*(x.expand((batch,) + x.shape) for x in empty(0, dtype, dev)))
-    return init_env(cfg, t(starts), t(waypoints), dtype=dtype, device=dev), obstacles
+    env = init_env(cfg, t(starts), t(waypoints), dtype=dtype, device=dev)
+    if return_info:
+        if leg_reach is None:
+            leg_reach = np.ones((batch, waypoints.shape[1]), bool)
+        return env, obstacles, {"leg_reachable": leg_reach}
+    return env, obstacles
+
+
+def lab_worlds(
+    cfg,
+    batch: int,
+    *,
+    map_path,
+    resolution: float = 0.05,
+    seed: int = 0,
+    goal_range=(2.0, 4.5),
+    circles_per_episode: int = 24,
+    max_circles: int = 400,
+    inflation: float = DEFAULT_INFLATION,
+    points_per_leg: int = 3,
+    planner_grid: int = 96,
+    n_dynamic: int = 0,
+    dtype=torch.float32,
+    device=None,
+):
+    """Batched episode worlds on an occupancy map (the reference's own
+    operating envelope, `mpc/environment.py:39-80` and
+    `obstacle_handling/static_obstacle.py`), as `kissmpc_tpu/scenarios.py`'s
+    `lab_worlds` builds them from the same ``map_path``, which is required
+    here (the reference's default path belongs to one machine).
+
+    Packs the map (a PGM, ``resolution`` meters per pixel) into circles,
+    samples start/goal pairs in free space (clearance > inflation + 0.25 m,
+    goal distance in ``goal_range``), routes each episode with the batched
+    grid planner on ``device``, and hands each episode its
+    ``circles_per_episode`` circles nearest the segment's midpoint; the
+    per-tick sensor top-K selects the solver's K from these.
+    ``n_dynamic`` adds that many walking humans per episode (r = 0.3,
+    constant velocity 0.3-1.0 m/s near the route), appended after the
+    static circles; humans whose straight-line track would sweep the pinned
+    start are redirected radially away.  Advance them with
+    `obstacles.advance` each tick.
+
+    Returns ``(env: EnvState[B], obstacles: ObstacleSet[B, M + n_dynamic],
+    info)`` with ``info["extent"]`` the map extent in meters,
+    ``info["leg_reachable"]`` the router's per-leg connectivity and
+    ``info["n_circles"]`` the circles the map packed into.  Map frames are
+    large: pass AgentParams ``state_bounds`` that cover the extent.
+    """
+    from .environment import init_env
+    from .obstacles.mapping import circles_to_world, pack_circles, read_pgm
+    from .obstacles.obstacles import ObstacleSet
+    from .planner import plan_waypoint_chain
+
+    dev = resolve_device(device)
+    img = read_pgm(map_path)
+    centers_px, radii_px = pack_circles(
+        img, min_radius=3.0, max_circles=max_circles
+    )
+    centers, radii = circles_to_world(
+        centers_px, radii_px, resolution=resolution,
+        map_height_px=img.shape[0],
+    )
+    rng = np.random.default_rng(seed)
+    extent = np.array([img.shape[1], img.shape[0]]) * resolution
+
+    def clearances(P):
+        d = np.linalg.norm(
+            P[:, None, :] - centers[None], axis=-1
+        ) - radii
+        return d.min(axis=1)
+
+    pool = rng.uniform([0.5, 0.5], extent - 0.5, size=(120000, 2))
+    pool = pool[clearances(pool) > inflation + 0.25]
+    if len(pool) < 1000:
+        raise ValueError("free-space pool too small for this map")
+
+    starts_xy = np.zeros((batch, 2), np.float32)
+    goals_xy = np.zeros((batch, 2), np.float32)
+    n_done = 0
+    while n_done < batch:
+        s = pool[rng.integers(0, len(pool), batch)]
+        g = pool[rng.integers(0, len(pool), batch)]
+        d = np.linalg.norm(s - g, axis=1)
+        ok = (d > goal_range[0]) & (d < goal_range[1])
+        take = min(batch - n_done, int(ok.sum()))
+        starts_xy[n_done:n_done + take] = s[ok][:take]
+        goals_xy[n_done:n_done + take] = g[ok][:take]
+        n_done += take
+
+    starts = np.concatenate(
+        [starts_xy, rng.uniform(-np.pi, np.pi, (batch, 1))], axis=1
+    ).astype(np.float32)
+    goals = np.concatenate(
+        [goals_xy, rng.uniform(-np.pi, np.pi, (batch, 1))], axis=1
+    ).astype(np.float32)
+
+    M = circles_per_episode
+    mid = 0.5 * (starts_xy + goals_xy)
+    d_mid = np.linalg.norm(
+        mid[:, None, :] - centers[None], axis=-1
+    ) - radii
+    idx = np.argsort(d_mid, axis=1)[:, :M]
+    ep_centers = centers[idx].astype(np.float32)
+    ep_radii = radii[idx].astype(np.float32)
+
+    waypoints, leg_reach = plan_waypoint_chain(
+        starts, goals[:, None, :], ep_centers, ep_radii,
+        np.ones((batch, M), bool), inflation,
+        points_per_leg=points_per_leg, grid=planner_grid, device=dev,
+    )
+    all_centers = ep_centers
+    all_radii = ep_radii
+    orientation = np.zeros((batch, M), np.float32)
+    lin_v = np.zeros((batch, M), np.float32)
+    if n_dynamic > 0:
+        D = n_dynamic
+        HUMAN_R = 0.3  # `obstacle_handling/dynamic_obstacle.py:9`
+        frac = rng.uniform(0.3, 0.7, (batch, D)).astype(np.float32)
+        seg = goals_xy - starts_xy
+        lat = rng.uniform(0.5, 1.5, (batch, D)).astype(np.float32)
+        lat *= rng.choice([-1.0, 1.0], (batch, D)).astype(np.float32)
+        perp = np.stack([-seg[:, 1], seg[:, 0]], axis=1)
+        perp /= np.maximum(np.linalg.norm(perp, axis=1, keepdims=True), 1e-6)
+        h_pos = (
+            starts_xy[:, None, :]
+            + frac[..., None] * seg[:, None, :]
+            + lat[..., None] * perp[:, None, :]
+        ).astype(np.float32)
+        # push clear of goal then start (start last: the pinned initial
+        # state inside an inflated human is infeasible by construction)
+        need = HUMAN_R + inflation + 0.12
+        for p in (goals_xy, starts_xy):
+            d = h_pos - p[:, None, :]
+            dist = np.maximum(np.linalg.norm(d, axis=-1), 1e-6)
+            push = np.maximum(need - dist, 0.0)
+            h_pos = h_pos + d / dist[..., None] * push[..., None]
+        h_ori = rng.uniform(-np.pi, np.pi, (batch, D)).astype(np.float32)
+        h_v = rng.uniform(0.3, 1.0, (batch, D)).astype(np.float32)
+        # redirect tracks that would sweep the pinned start
+        rel = h_pos - starts_xy[:, None, :]
+        u = np.stack([np.cos(h_ori), np.sin(h_ori)], axis=-1)
+        t_star = np.clip(-np.sum(rel * u, axis=-1), 0.0, None)
+        closest = np.linalg.norm(rel + t_star[..., None] * u, axis=-1)
+        sweep = closest < need
+        away = np.arctan2(rel[..., 1], rel[..., 0]).astype(np.float32)
+        h_ori = np.where(sweep, away, h_ori)
+        all_centers = np.concatenate([ep_centers, h_pos], axis=1)
+        all_radii = np.concatenate(
+            [ep_radii, np.full((batch, D), HUMAN_R, np.float32)], axis=1
+        )
+        orientation = np.concatenate([orientation, h_ori], axis=1)
+        lin_v = np.concatenate([lin_v, h_v], axis=1)
+    MT = M + n_dynamic
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    obstacles = ObstacleSet(
+        position=t(all_centers),
+        radius=t(all_radii),
+        orientation=t(orientation),
+        linear_velocity=t(lin_v),
+        angular_velocity=torch.zeros((batch, MT), dtype=dtype, device=dev),
+        active=torch.ones((batch, MT), dtype=dtype, device=dev),
+    )
+    env = init_env(cfg, t(starts), t(waypoints), dtype=dtype, device=dev)
+    info = {
+        "extent": extent,
+        "leg_reachable": np.asarray(leg_reach),
+        "n_circles": int(len(radii)),
+    }
+    return env, obstacles, info

@@ -12,11 +12,15 @@ writes the lane's value to the warp's shared slots, waits, reads its
 partner's slot and waits again; the block's dynamic shared memory is a
 `std::vector<float>` of exactly the launch's byte count, filled with NaN so
 that a read before a write shows; the launch runs the blocks one after
-another.  The build's launcher is called through ctypes on CPU tensors
+another, with `blockDim` set, and the card's opt-in shared memory per
+block is sm_90's 227 KB, so a long horizon takes 2 or 1 warps per block
+as on the card.  The build's launcher is called through ctypes on CPU tensors
 packed as `solve_batch_fused` packs them, and its solution is held against
 `solve_batch_fused_plain`: at one iteration within 1e-4 of the solution's
 scale plus twice the plain version's own f32-vs-f64 gap (chip_smoke.py
 phase 4's gate); over 32 iterations the converged flags and the controls.
+Two long-horizon cases (B=3, 2 and 1 warps per block) are held to the
+same gate at 3 iterations.
 
 With ``--sanitize address`` the build and the run use AddressSanitizer: an
 access past a scenario's shared-memory block, or past an input or output
@@ -55,11 +59,20 @@ SHIM = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 struct ShimDim { unsigned x; };
-thread_local ShimDim threadIdx, blockIdx;
+thread_local ShimDim threadIdx, blockIdx, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 0;
+constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 0;
+inline int cudaGetDevice(int* device) {
+  *device = 0;
+  return 0;
+}
+inline int cudaDeviceGetAttribute(int* value, int, int) {  // sm_90's opt-in shared memory
+  *value = 227 * 1024;
+  return 0;
+}
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
@@ -103,6 +116,7 @@ void shim_launch(Kern kernel, int blocks, int threads, size_t bytes, cudaStream_
       lanes.emplace_back([&, t] {
         threadIdx.x = static_cast<unsigned>(t);
         blockIdx.x = static_cast<unsigned>(blk);
+        blockDim.x = static_cast<unsigned>(threads);
         shim_warp = warps[t / 32].get();
         shim_smem = sm.data();
         kernel(args...);
@@ -144,6 +158,19 @@ def build(tmp, sanitize, drop_syncwarp):
     return ipm_fused.bind(ctypes.CDLL(str(out)))
 
 
+def warps_per_block(lib, cfg):
+    """The warps per block the shim build's launcher takes for ``cfg``."""
+    from kissmpc_tpu_torch.ops import ipm_fused
+
+    out = (ctypes.c_int * 5)()
+    err = lib.kissmpc_ipm_fused_occupancy(cfg.horizon, cfg.max_obstacles,
+                                          int(ipm_fused._elastic(cfg)),
+                                          int(ipm_fused._affine(cfg)), out)
+    if err != 0:
+        raise SystemExit(f"fused_cpu_shim: the occupancy query returned {err}")
+    return out[0]
+
+
 def run(lib, cfg, problems, iterations):
     """The shim build's solution of ``problems`` (CPU tensors)."""
     import torch
@@ -168,6 +195,57 @@ def gap(a, b):
                for x, y in ((a.states, b.states), (a.controls, b.controls)))
 
 
+# (N, K, elastic, affine tracks, batch, iterations of the gate, warps per
+# block): ragged against the block's warps; then one horizon that takes 2
+# warps per block and one that takes 1.
+CASES = ((12, 0, False, False, 7, 1, 4), (12, 2, False, True, 9, 1, 4),
+         (12, 2, True, True, 9, 1, 4), (12, 8, True, False, 5, 1, 4),
+         (50, 8, False, True, 3, 1, 4), (300, 0, False, False, 3, 3, 2),
+         (500, 2, True, True, 3, 3, 1))
+
+
+def config(n, K, elastic, affine):
+    from kissmpc_tpu_torch import MPCConfig
+
+    cfg = MPCConfig(horizon=n, time_step=0.1 if n < 20 else 0.041, max_obstacles=K)
+    return cfg.replace(solver=dataclasses.replace(
+        cfg.solver, mu_sigma_max=0.7 if K else 0.0, fused_affine_tracks=affine,
+        elastic_obstacles=elastic))
+
+
+def check(lib, n, K, elastic, affine, batch, iterations, warps, report_full=True):
+    """One case: the shim build against the plain version after
+    ``iterations`` within 1e-4 of the solution's scale plus twice the plain
+    version's own f32-vs-f64 gap, with the block's warps as expected; at
+    one iteration, with ``report_full``, also the flags and controls after
+    32 (printed, not gated).  Returns (ok, a line for the log)."""
+    import torch
+
+    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused_plain
+    from kissmpc_tpu_torch.scenarios import free_problems, obstacle_problems
+    from kissmpc_tpu_torch.solver.problem import Problem
+
+    cfg = config(n, K, elastic, affine)
+    pr = (obstacle_problems(cfg, batch, seed=5, n_dynamic=1, device="cpu") if K
+          else free_problems(cfg, batch, seed=5, device="cpu"))
+    got1 = run(lib, cfg, pr, iterations)
+    ref1 = solve_batch_fused_plain(cfg, pr, iterations=iterations)
+    ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)), iterations=iterations)
+    scale = max(1.0, float(ref1.states.abs().max()), float(ref1.controls.abs().max()))
+    err1, tol1 = gap(got1, ref1), 1e-4 * scale + 2.0 * gap(ref1, ref64)
+    got_warps = warps_per_block(lib, cfg)
+    ok = err1 <= tol1 and bool(torch.isfinite(got1.states).all()) and got_warps == warps
+    line = (f"N={n} K={K} elastic={elastic} affine={affine} B={batch}, {got_warps} warps per "
+            f"block (expected {warps}): {iterations} iteration(s) max|shim-plain| {err1:.3e} "
+            f"(tol {tol1:.3e}) {'passes' if ok else 'FAILS'}")
+    if report_full and iterations == 1:
+        got, ref = run(lib, cfg, pr, 32), solve_batch_fused_plain(cfg, pr, iterations=32)
+        flips = int((got.diagnostics.converged != ref.diagnostics.converged).sum())
+        line += (f"; 32 iterations: flags differ on {flips} of {batch}, max|du| "
+                 f"{float((got.controls - ref.controls).abs().max()):.3e}")
+    return ok, line
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sanitize", choices=("address", "thread"))
@@ -183,40 +261,18 @@ def main():
 
     import torch
 
-    from kissmpc_tpu_torch import MPCConfig
-    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused_plain
-    from kissmpc_tpu_torch.scenarios import free_problems, obstacle_problems
-    from kissmpc_tpu_torch.solver.problem import Problem
-
     torch.set_num_threads(1)
     failed = []
     with tempfile.TemporaryDirectory() as tmp:
         lib = build(tmp, args.sanitize, args.drop_syncwarp)
-        # (N, K, elastic, affine tracks, batch): ragged against 4 warps per block.
-        for n, K, elastic, affine, batch in ((12, 0, False, False, 7), (12, 2, False, True, 9),
-                                             (12, 2, True, True, 9), (12, 8, True, False, 5),
-                                             (50, 8, False, True, 3)):
-            cfg = MPCConfig(horizon=n, time_step=0.1 if n < 20 else 0.041, max_obstacles=K)
-            cfg = cfg.replace(solver=dataclasses.replace(
-                cfg.solver, mu_sigma_max=0.7 if K else 0.0, fused_affine_tracks=affine,
-                elastic_obstacles=elastic))
-            pr = (obstacle_problems(cfg, batch, seed=5, n_dynamic=1, device="cpu") if K
-                  else free_problems(cfg, batch, seed=5, device="cpu"))
-            got1, ref1 = run(lib, cfg, pr, 1), solve_batch_fused_plain(cfg, pr, iterations=1)
-            ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)), iterations=1)
-            scale = max(1.0, float(ref1.states.abs().max()), float(ref1.controls.abs().max()))
-            err1, tol1 = gap(got1, ref1), 1e-4 * scale + 2.0 * gap(ref1, ref64)
-            got, ref = run(lib, cfg, pr, 32), solve_batch_fused_plain(cfg, pr, iterations=32)
-            flips = int((got.diagnostics.converged != ref.diagnostics.converged).sum())
-            ok = err1 <= tol1 and bool(torch.isfinite(got.states).all())
-            print(f"N={n} K={K} elastic={elastic} affine={affine} B={batch}: one iteration "
-                  f"max|shim-plain| {err1:.3e} (tol {tol1:.3e}) {'passes' if ok else 'FAILS'}; "
-                  f"32 iterations: flags differ on {flips} of {batch}, max|du| "
-                  f"{float((got.controls - ref.controls).abs().max()):.3e}", flush=True)
+        for case in CASES:
+            ok, line = check(lib, *case)
+            print(line, flush=True)
             if not ok:
-                failed.append((n, K, elastic, affine, batch))
+                failed.append(case)
     if failed:
-        raise SystemExit(f"fused_cpu_shim: the shim build disagrees with the plain version: {failed}")
+        raise SystemExit(
+            f"fused_cpu_shim: the shim build disagrees with the plain version: {failed}")
     print(f"fused_cpu_shim: done ({args.sanitize or 'no'} sanitizer"
           f"{', __syncwarp after the condensation dropped' if args.drop_syncwarp else ''})")
     return 0

@@ -11,7 +11,9 @@ compiles the source as written and one edited copy per alternative into a
 temporary directory (the checkout is left as it is): 1, 2 and 8 warps per
 block; the stage rows condensed inside the sweep on lane 0 instead (their
 shared-memory rows dropped); the obstacle step recomputed where the line
-search and the update read it (its rows still written).  Each build is
+search and the update read it (its rows still written); the warps per
+block a compile-time constant in the kernel body instead of read from
+blockDim (the body before the launcher chose the count from the horizon).  Each build is
 held to chip_smoke.py's phase-4 gates in free, k8_dyn2 and k8_dyn2_elastic
 (N=50, B=8192, float32), then timed through the wrapper with CUDA events at
 every solve stage's (B, iterations) of one `solve_batch` call of those
@@ -46,6 +48,12 @@ VARIANTS = {
     ],
     "obstacle step recomputed": [
         ("const ObStep st = ob_step_now(r, mu);", "const ObStep st = ob_step(r, mu);", 2),
+    ],
+    # The kernel body before the launcher chose the warps per block: the
+    # count a constant, as every N=50 launch takes it.
+    "warps a constant (no blockDim read)": [
+        ("  const int warps = static_cast<int>(blockDim.x) / kLanes;\n",
+         "  const int warps = kWarps;\n", 1),
     ],
 }
 TURNS = 4

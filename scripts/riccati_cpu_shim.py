@@ -339,9 +339,12 @@ def main():
             # N=100: three chunks or more at B <= 1024, so both sweeps reuse
             # a buffer; B=1025: the kernel's large-batch instance; N=200:
             # in f64 the ring of 32 steps does not fit beside the gains, so
-            # a small batch takes chunks of 16.
+            # a small batch takes chunks of 16; one step above the longest
+            # horizon whose gains stay on chip: the global-gains instance.
+            above = lib.kissmpc_riccati_max_horizon(4 if dtype == torch.float32 else 8) + 1
             cases = [(12, S + 1, False), (12, 2 * S + 3, True), (50, S - 1, False), (1, S, True),
-                     (100, 2 * S + 1, False), (12, 1025, False), (200, S + 1, False)]
+                     (100, 2 * S + 1, False), (12, 1025, False), (200, S + 1, False),
+                     (above, S + 1, True)]
             for N, B, shift in cases:
                 data = random_data(B, N, seed=N + B, dtype=dtype)
                 if shift:

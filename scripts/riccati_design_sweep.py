@@ -543,21 +543,16 @@ def build_all(tmp, texts):
 
 
 @contextlib.contextmanager
-def kernel_library(lib, earlier):
-    """Route `solve_lqr_cuda` to the loaded library ``lib``, with that
-    build's horizon limit (the earlier kernel has none)."""
-    import torch
-
+def kernel_library(lib):
+    """Route `solve_lqr_cuda` to the loaded library ``lib``."""
     from kissmpc_tpu_torch.ops import riccati
 
-    real_lib, real_max = riccati._library, riccati.max_horizon
+    real_lib = riccati._library
     riccati._library = lambda: lib
-    riccati.max_horizon = (lambda dtype: 1 << 30) if earlier else (
-        lambda dtype: lib.kissmpc_riccati_max_horizon(4 if dtype == torch.float32 else 8))
     try:
         yield
     finally:
-        riccati._library, riccati.max_horizon = real_lib, real_max
+        riccati._library = real_lib
 
 
 def split_calls(cs, libs, pools, calls):
@@ -584,7 +579,7 @@ def split_calls(cs, libs, pools, calls):
         res = {name: {"ms": [], "converged": []} for name in order}
         for turn in range(TURNS):
             for name in (order if turn % 2 == 0 else order[::-1]):
-                with kernel_library(libs[name], name == EARLIER):
+                with kernel_library(libs[name]):
                     for batch in batches:
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
@@ -637,7 +632,7 @@ def main():
         order = list(libs)
         fits = {}
         for name, lib in libs.items():
-            with kernel_library(lib, name == EARLIER):
+            with kernel_library(lib):
                 for (dtype, B), sub in inputs.items():
                     key = f"{str(dtype)[6:]} B={B}"
                     try:
@@ -656,7 +651,7 @@ def main():
             turns = {name: [] for name in runs}
             for turn in range(TURNS):
                 for name in (runs if turn % 2 == 0 else runs[::-1]):
-                    with kernel_library(libs[name], name == EARLIER):
+                    with kernel_library(libs[name]):
                         turns[name].append(cs.kernel_ms(lambda: solve_lqr_cuda(sub, reg),
                                                         reps=20, graph=True))
             bound_ms = cs.riccati_bound(B, dtype)[0]

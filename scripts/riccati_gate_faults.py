@@ -102,16 +102,15 @@ def builds(tmp):
 
 @contextlib.contextmanager
 def routed(lib):
-    """Route `solve_lqr_cuda` to the loaded library ``lib`` (the horizon
-    limit left at the package's, which every build here meets at N=50)."""
+    """Route `solve_lqr_cuda` to the loaded library ``lib``."""
     from kissmpc_tpu_torch.ops import riccati
 
-    real_lib, real_max = riccati._library, riccati.max_horizon
-    riccati._library, riccati.max_horizon = (lambda: lib), (lambda dtype: 1 << 30)
+    real_lib = riccati._library
+    riccati._library = lambda: lib
     try:
         yield
     finally:
-        riccati._library, riccati.max_horizon = real_lib, real_max
+        riccati._library = real_lib
 
 
 def needed_factors(got, data, reg, top=3):

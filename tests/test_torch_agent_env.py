@@ -277,6 +277,14 @@ def test_episode_worlds_match_jax(K, route):
 
 
 def test_grid_router_is_not_ported():
-    _, tcfg = _cfgs(max_obstacles=2)
-    with pytest.raises(NotImplementedError, match="planner"):
-        t_episode_worlds(tcfg, 2, route_around_obstacles=True, router="grid", device=CPU)
+    """The grid router, once refused, now routes with the port's planner:
+    the same chain and reachability as JAX's `episode_worlds` (P route
+    points per leg plus the waypoint)."""
+    jcfg, tcfg = _cfgs(max_obstacles=2)
+    kw = dict(n_waypoints=2, seed=4, n_dynamic=1, route_around_obstacles=True, router="grid",
+              planner_grid=32, return_info=True)
+    je, _, jinfo = j_episode_worlds(jcfg, 2, **kw)
+    te, _, tinfo = t_episode_worlds(tcfg, 2, device=CPU, **kw)
+    assert te.waypoints.shape == (2, 8, 3)
+    np.testing.assert_array_equal(tinfo["leg_reachable"], np.asarray(jinfo["leg_reachable"]))
+    np.testing.assert_allclose(te.waypoints.numpy(), np.asarray(je.waypoints), rtol=0, atol=1e-4)

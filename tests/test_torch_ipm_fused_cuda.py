@@ -17,7 +17,9 @@ scenarios converged on both agree within the f32 budget of
 tests/test_ipm_fused.py (controls 1e-3 without obstacles, 2e-3 with
 them).  Full solves at N = 50 are `chip_smoke.py` phase 4's, at B = 8192
 and at the refine stage's B = 164, with its flag noise floor: at a batch of
-a few hundred, round-off alone changes a few flags (PERF.md).
+a few hundred, round-off alone changes a few flags (PERF.md).  At the
+longest horizon (one warp per block) the kernel holds to the one-iteration
+gate after 3 iterations, and one step more is refused before any launch.
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ import pytest
 import torch
 
 from kissmpc_tpu_torch import MPCConfig
+from kissmpc_tpu_torch.ops import ipm_fused
 from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused, solve_batch_fused_plain
 from kissmpc_tpu_torch.ops.probe import dynamic_trip, dynamic_trip_plain
 from kissmpc_tpu_torch.scenarios import free_problems, obstacle_problems
@@ -65,13 +68,14 @@ def _gap(a, b):
                for x, y in ((a.states, b.states), (a.controls, b.controls)))
 
 
-def _check_one_iteration(cfg, pr):
+def _check_one_iteration(cfg, pr, iterations=1):
     before = solve_batch_fused.launches
-    got = solve_batch_fused(cfg, pr, iterations=1)
+    got = solve_batch_fused(cfg, pr, iterations=iterations)
     torch.cuda.synchronize()
     assert solve_batch_fused.launches == before + 1
-    ref = solve_batch_fused_plain(cfg, pr, iterations=1)
-    ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)), iterations=1)
+    ref = solve_batch_fused_plain(cfg, pr, iterations=iterations)
+    ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)),
+                                    iterations=iterations)
     scale = max(1.0, float(ref.states.abs().max()), float(ref.controls.abs().max()))
     assert bool(torch.isfinite(got.states).all() and torch.isfinite(got.controls).all())
     assert _gap(got, ref) <= 1e-4 * scale + 2.0 * _gap(ref, ref64)
@@ -134,6 +138,24 @@ def test_fused_kernel_same_scenario_in_every_slot(cuda, K, elastic):
     torch.cuda.synchronize()
     for x in (sol.states, sol.controls, *sol.diagnostics):
         assert torch.equal(x, x[:1].expand_as(x)), "output depends on the slot"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [0, 8])
+def test_fused_kernel_at_its_longest_horizon(cuda, K):
+    """At ``max_horizon(cfg)`` (one warp per block) the kernel holds to the
+    one-iteration gate after 3 iterations, B=64; one step more raises
+    ValueError before any launch."""
+    cfg, _ = _case(K, n=50)
+    N = ipm_fused.max_horizon(cfg)
+    cfg, pr = _case(K, n=N)
+    assert ipm_fused.occupancy(cfg)["warps_per_block"] == 1
+    _check_one_iteration(cfg, pr, iterations=3)
+    cfg, pr = _case(K, n=N + 1, batch=2)
+    before = solve_batch_fused.launches
+    with pytest.raises(ValueError, match="split"):
+        solve_batch_fused(cfg, pr, iterations=1)
+    assert solve_batch_fused.launches == before
 
 
 @pytest.mark.cuda

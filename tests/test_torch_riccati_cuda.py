@@ -106,18 +106,29 @@ def test_cuda_kernel_long_horizon(cuda, dtype, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("where", ["wrapper", "launch"])
-def test_cuda_kernel_refusal_raises(cuda, where, monkeypatch):
-    """A horizon whose gains do not fit in shared memory raises: the wrapper
-    refuses it before any work, and with that check out of the way the
-    launch the card refuses raises too; neither returns the plain version's
-    result."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [9, 1025])
+def test_cuda_kernel_refusal_raises(cuda, dtype, B):
+    """N=2000, whose gains do not fit in shared memory, is no longer
+    refused: the launcher takes the instance that keeps the gains in the
+    output, with the ring alone in shared memory, and the solve passes the
+    phase-2 gate with one launch."""
     N = 2000
-    td = LQRData(**{k: torch.tensor(v, dtype=torch.float64, device="cuda")
-                    for k, v in _random_batch(2, N).items()})
-    if where == "launch":
-        monkeypatch.setattr(riccati, "max_horizon", lambda dtype: 1 << 30)
+    assert N > riccati.max_horizon(dtype)
+    occ = riccati.occupancy(B, N, dtype)
+    assert occ["blocks_per_sm"] >= 1
+    size = 4 if dtype == torch.float32 else 8
+    ring = riccati._library().kissmpc_riccati_smem_bytes(B, 0, size)  # no gains kept
+    assert occ["smem_bytes_per_block"] == ring
     before = solve_lqr_cuda.launches
-    with pytest.raises(ValueError if where == "wrapper" else RuntimeError):
-        solve_lqr_cuda(td, 0.0)
-    assert solve_lqr_cuda.launches == before
+    _check_gate(B, N, dtype, seed=B)
+    assert solve_lqr_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_kernel_just_above_max_horizon(cuda, dtype):
+    """One step above the longest horizon whose gains stay on chip (N=757
+    in f32, 307 in f64), at B=9: the global-gains instance's first horizon."""
+    N = riccati.max_horizon(dtype) + 1
+    _check_gate(9, N, dtype, seed=N)

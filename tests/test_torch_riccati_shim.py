@@ -9,7 +9,8 @@ is held against the plain version `ops/lqr.py::solve_lqr` by chip_smoke.py's
 phase-2 gate (each output dx, du, K, k of each scenario within its own
 tolerance), at ragged batches around the block's scenario count, and
 against the JAX Pallas kernel in interpret mode; the build's host
-functions give the horizon limit.  The tests skip where g++ is missing;
+functions give the longest horizon whose gains stay on chip, and one step
+above it the global-gains instance is held to the same gate.  The tests skip where g++ is missing;
 they cannot see what only the card shows (ptxas, the real bulk copies,
 speed).
 """
@@ -31,6 +32,16 @@ from .test_lqr import _random_lqr
 
 ROOT = Path(__file__).resolve().parents[1]
 REG = 1e-8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tests run beside others in parallel
+    workers, where many threads per worker only contend for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _shim_module():
@@ -72,6 +83,20 @@ def test_shim_matches_plain_large_batch(shim, dtype):
     chunks (the kernel's other instance), at N=12."""
     module, lib = shim
     data = module.random_data(1025, 12, seed=7, dtype=dtype)
+    gate = module.compare(module.run(lib, data, REG), data, REG)
+    assert gate["ok"], module.describe(gate)
+
+
+@pytest.mark.parametrize("dtype,N", [(torch.float32, 757), (torch.float64, 307)],
+                         ids=["f32", "f64"])
+def test_shim_global_gains_above_max_horizon(shim, dtype, N):
+    """One step above the longest horizon whose gains stay on chip, the
+    launcher takes the instance that keeps them in the gains output (the
+    sweep writes them there, the rollout reads them back); B=9 leaves a
+    ragged second block whose idle lanes must write no gains."""
+    module, lib = shim
+    assert lib.kissmpc_riccati_max_horizon(4 if dtype == torch.float32 else 8) == N - 1
+    data = module.random_data(9, N, seed=N, dtype=dtype)
     gate = module.compare(module.run(lib, data, REG), data, REG)
     assert gate["ok"], module.describe(gate)
 
