@@ -87,7 +87,32 @@ Phases, each a hard failure with a non-zero exit:
    timed; one step more raises ValueError before any launch; the Riccati
    kernel one step above its longest on-chip horizon (the global-gains
    instance) and at N=2000, float32 and float64, B=9 and 1025, by phase
-   2's gate, timed at N=2000.
+   2's gate, timed at N=2000;
+11. the perception-in-the-loop fleet tick of
+   `scripts/bench_perception_tick.py` at its default size: B=2048 episode
+   worlds (grid router, 2 waypoints), N=50, K=8 solver slots, 32 iterations
+   plus two refine stages; 2048 perception pipelines (projection, DBSCAN,
+   tracker of 4 slots) fed one frame of the port's synthetic walk per tick
+   (61 frames at 0.1 s, P=128, M=1, 48x64), their tracked humans offset
+   to each episode's start and joined to its static circles; the
+   solver-only and perception variants alternate in chunks of 8 ticks
+   (56 timed ticks each after one at frame 0), 3 fused launches per tick;
+   tick p50 and p99 of each and their difference, converged fraction and
+   tracked total; the perception step's CUDA-event time and DBSCAN's share
+   of it, and its kernels by the profiler; gates: at the last tick exactly
+   B confirmed tracks, each within 0.25 m of the walk's ground truth,
+   converged >= 0.90 in both variants; then 64 pipelines x 10 frames on the
+   card and on the CPU port: found flags, DBSCAN labels and track ids
+   equal, centres and track positions within 1e-5 m on at least 63;
+12. the single-robot node: `io.Model` at the node's defaults (N=7,
+   planning dt 0.8, 40 iterations) with 4 obstacle slots, driven by
+   `io.pubsub.ControlLoop` for 50 ticks (odometry every tick, the walk's
+   tracked humans from `io.frames.replay_session` every 10); tick p50 and
+   p99 against the 10 ms period of the node's 100 Hz timer; Riccati
+   launches per tick (must equal the iterations run) and their CUDA-event
+   share of a tick; gates: the first 10 ticks' commands within 1e-3 of the
+   CPU port's on the same inputs, and the kernel against its plain version
+   by phase 2's gate on one tick's LQR data (B=1, N=7).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -153,6 +178,30 @@ RICCATI_LONG_N = 2000
 RICCATI_LONG_BATCHES = (9, 1025)
 EDGE_BATCH = 64
 EDGE_ITERATIONS = 3
+# Phase 11: the perception-in-the-loop fleet tick of
+# scripts/bench_perception_tick.py:25-160 at its default size: B episodes,
+# the walk of FRAMES_DT, TRACK_CAPACITY tracker slots, PERCEPTION_TICKS ticks
+# with the two variants alternating in chunks of PERCEPTION_CHUNK.
+PERCEPTION_BATCH = 2048
+PERCEPTION_TICKS = 60
+PERCEPTION_CHUNK = 8
+PERCEPTION_STAGES = ((0.125, 64, 0.2), (0.02, 96, 0.7))
+PERCEPTION_OFFSET = (1.2, 0.0)  # the walk crosses ~1.5 m ahead of each robot
+TRACK_CAPACITY = 4
+FRAMES_DT = 0.1
+TRACK_TRUTH_TOL = 0.25  # m, tests/test_perception.py:449-455
+PERCEPTION_CHECK = (64, 10)  # pipelines x frames held against the CPU port
+PERCEPTION_AGREE = 63
+PERCEPTION_TOL = 1e-5  # m, centres and track positions
+# Phase 12: the single-robot node (io.Model at its defaults, N=7, planning
+# dt 0.8, 40 iterations, with 4 obstacle slots) through io.pubsub's
+# ControlLoop at the reference node's 100 Hz (kissmpc_tpu/io/ros2.py:95,145).
+NODE_TICKS = 50
+NODE_PERIOD_MS = 10.0
+NODE_CHECK_TICKS = 10
+NODE_CMD_TOL = 1e-3
+NODE_FIRST_FRAME = 20  # the walker is confirmed and ahead of the robot
+NODE_PLAN = ((1.5, 0.4, 0.0), (3.0, 0.0, 0.0))
 # Phase 4 also holds the kernel to its plain version at the last refine
 # stage's batch of the K=8 cells.
 REFINE_CHECK_BATCH = 164
@@ -1435,6 +1484,406 @@ def phase_horizons(fused_cfgs):
     return ric, fused
 
 
+def perception_config():
+    """The fleet configuration of scripts/bench_perception_tick.py:58-66."""
+    from kissmpc_tpu_torch import MPCConfig
+    from kissmpc_tpu_torch.agent import AgentParams
+
+    cfg = MPCConfig(horizon=N, time_step=0.041, max_obstacles=8)
+    cfg = cfg.replace(solver=dataclasses.replace(
+        cfg.solver, iterations=32, refine_stages=PERCEPTION_STAGES, mu_sigma_max=0.7))
+    params = AgentParams(prediction_dt=cfg.time_step, complete_warm_starts=False,
+                         stall_skip_ticks=50)
+    return cfg, params
+
+
+def walk_frames(path, n_frames):
+    """(frames, truth): the port's synthetic walk recorded to ``path`` and
+    replayed time-synced (scripts/bench_perception_tick.py:43-56)."""
+    from kissmpc_tpu_torch.io.frames import FrameReplayer, record_synthetic_walk
+
+    truth = record_synthetic_walk(path, n_frames=n_frames, dt=FRAMES_DT)
+    return list(FrameReplayer(path).synced()), truth
+
+
+def stacked_frames(frames, device):
+    """(geometry, points [F, P, 3], point masks, instance masks, instance
+    valid) on ``device``, the frames stacked once as the bench stacks them."""
+    import torch
+
+    from kissmpc_tpu_torch.bridge import geometry_from_numpy
+
+    stack = lambda name: torch.as_tensor(  # noqa: E731
+        np.stack([getattr(f, name) for f in frames]), device=device)
+    return (geometry_from_numpy(frames[0].geometry, device=device), stack("points"),
+            stack("point_mask"), stack("instance_masks"), stack("instance_valid"))
+
+
+@contextlib.contextmanager
+def perception_trace():
+    """Record what `pipeline.step` computes inside the block: for each call,
+    DBSCAN's points, selection and labels, and the centres and found flags
+    handed to the tracker.  Yields the list of dicts it appends to."""
+    from kissmpc_tpu_torch.perception import clustering, tracker
+
+    real_dbscan, real_update = clustering.dbscan, tracker.update
+    calls = []
+
+    def dbscan(points, mask, *args, **kwargs):
+        out = real_dbscan(points, mask, *args, **kwargs)
+        calls.append({"points": points, "mask": mask, "labels": out.labels})
+        return out
+
+    def update(cfg, tracks, detections, det_mask, dt):
+        calls[-1].update(centres=detections, found=det_mask)
+        return real_update(cfg, tracks, detections, det_mask, dt)
+
+    clustering.dbscan, tracker.update = dbscan, update
+    try:
+        yield calls
+    finally:
+        clustering.dbscan, tracker.update = real_dbscan, real_update
+
+
+def run_pipelines(frames, batch, n_frames, device):
+    """``batch`` pipelines fed the first ``n_frames`` frames on ``device``:
+    per frame (labels, centres, found, track ids, track positions) as CPU
+    tensors."""
+    from kissmpc_tpu_torch.perception import pipeline, tracker
+
+    geom, pts, pm, im, iv = stacked_frames(frames[:n_frames], device)
+    state = pipeline.init_perception(TRACK_CAPACITY, batch=batch, device=device)
+    out = []
+    with perception_trace() as calls:
+        for f in range(n_frames):
+            state, _ = pipeline.step(tracker.TrackerConfig(), state, geom, pts[f], pm[f], im[f],
+                                     iv[f], FRAMES_DT, device=device)
+            c = calls[-1]
+            out.append([x.cpu() for x in (c["labels"], c["centres"], c["found"],
+                                          state.tracks.track_id, state.tracks.position)])
+    return out
+
+
+def compare_pipelines(card, cpu, tol=PERCEPTION_TOL):
+    """(agreeing pipelines, differing pipeline indices, largest centre or
+    track-position gap): a pipeline agrees when on every frame its found
+    flags, labels and track ids are equal and its centres and track
+    positions within ``tol``."""
+    import torch
+
+    ok, worst = None, 0.0
+    for g, c in zip(card, cpu):
+        same = torch.ones(g[0].shape[0], dtype=torch.bool)
+        for i in (0, 2, 3):  # labels, found, track ids
+            same &= (g[i] == c[i]).reshape(len(same), -1).all(1)
+        for i in (1, 4):  # centres, track positions
+            gap = (g[i] - c[i]).abs().reshape(len(same), -1).amax(1)
+            worst = max(worst, float(gap.max()))
+            same &= gap <= tol
+        ok = same if ok is None else ok & same
+    return int(ok.sum()), torch.nonzero(~ok).flatten().tolist(), worst
+
+
+def phase_perception(tmpdir):
+    """The perception-in-the-loop fleet tick (scripts/bench_perception_tick.py
+    at its default size) on the card, the two variants interleaved; the
+    perception step's CUDA-event time and DBSCAN's share of it; then
+    PERCEPTION_CHECK pipelines x frames on the card against the CPU port."""
+    import torch
+
+    from kissmpc_tpu_torch import environment
+    from kissmpc_tpu_torch.obstacles import ObstacleSet
+    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
+    from kissmpc_tpu_torch.perception import clustering, pipeline, tracker
+    from kissmpc_tpu_torch.scenarios import episode_worlds
+
+    B, ticks = PERCEPTION_BATCH, PERCEPTION_TICKS
+    frames, truth = walk_frames(f"{tmpdir}/walk.npz", ticks + 1)
+    F = len(frames)
+    geom, pts, pm, im, iv = stacked_frames(frames, "cuda")
+    cfg, params = perception_config()
+    t0 = time.perf_counter()
+    env, static = episode_worlds(cfg, B, n_waypoints=2, seed=0, n_dynamic=0,
+                                 route_around_obstacles=True, router="grid", device="cuda")
+    torch.cuda.synchronize()
+    log(f"[11] {F} synced frames; {B} episode worlds (grid router) built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    offsets = env.agent.states_matrix[:, 0, :2] + torch.tensor(PERCEPTION_OFFSET,
+                                                               device="cuda")
+    tcfg = tracker.TrackerConfig()
+    expected = 1 + len(cfg.solver.refine_stages)
+
+    def perceive(pstate, f):
+        return pipeline.step(tcfg, pstate, geom, pts[f], pm[f], im[f], iv[f], FRAMES_DT,
+                             device="cuda")
+
+    def tick_perception(env, pstate, f):
+        pstate, tracked = perceive(pstate, f)
+        tracked = tracked._replace(position=tracked.position + offsets[:, None, :])
+        obstacles = ObstacleSet(*(torch.cat([a, b], dim=1) for a, b in zip(static, tracked)))
+        env, info = environment.fleet_step(cfg, params, env, obstacles, device="cuda")
+        return env, pstate, info, tracked
+
+    def tick_solver_only(env, pstate, f):
+        env, info = environment.fleet_step(cfg, params, env, static, device="cuda")
+        return env, pstate, info, None
+
+    pstate0 = pipeline.init_perception(TRACK_CAPACITY, batch=B, device="cuda")
+    variants = {"solver_only": tick_solver_only, "with_perception": tick_perception}
+    solve_batch_fused.launches = 0
+    st = {}
+    for name, fn in variants.items():  # the bench's first call, at frame 0
+        e, p, info, tracked = fn(env, pstate0, 0)
+        torch.cuda.synchronize()
+        st[name] = {"fn": fn, "e": e, "p": p, "lat": [], "launches": [], "info": info,
+                    "tracked": tracked, "f": 0}
+    rounds = max(1, (ticks - 1) // PERCEPTION_CHUNK)
+    for r in range(rounds):
+        for name, s in st.items():
+            for j in range(PERCEPTION_CHUNK):
+                f = (r * PERCEPTION_CHUNK + j) % F
+                before = solve_batch_fused.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s["e"], s["p"], s["info"], s["tracked"] = s["fn"](s["e"], s["p"], f)
+                conv = float(s["info"].diagnostics.converged.float().mean())
+                s["lat"].append((time.perf_counter() - t0) * 1e3)
+                s["launches"].append(solve_batch_fused.launches - before)
+                s["conv"], s["f"] = conv, f
+    if solve_batch_fused.launches == 0:
+        fail("the perception tick never launched the fused kernel")
+    results = {}
+    for name, s in st.items():
+        lat = np.asarray(s["lat"])
+        if set(s["launches"]) != {expected}:
+            fail(f"{name}: fused launches per tick {sorted(set(s['launches']))}, "
+                 f"expected {expected}")
+        tracked_total = (float(s["tracked"].active.sum()) if s["tracked"] is not None else 0.0)
+        results[name] = {"tick_p50_ms": float(np.percentile(lat, 50)),
+                         "tick_p99_ms": float(np.percentile(lat, 99)),
+                         "ticks": len(lat), "converged": s["conv"],
+                         "tracked_total": tracked_total,
+                         "fused_launches_per_tick": expected}
+        log(f"[11] {name}: " + json.dumps(results[name]))
+    results["perception_added_ms"] = (results["with_perception"]["tick_p50_ms"]
+                                      - results["solver_only"]["tick_p50_ms"])
+
+    # Gates: every episode tracks the walker near the ground truth, and the
+    # episodes keep converging (tests/test_perception.py:449-455).
+    s = st["with_perception"]
+    tracked = s["tracked"]
+    active = tracked.active > 0
+    n_active = int(active.sum())
+    err = float((tracked.position - offsets[:, None, :] - torch.as_tensor(
+        truth[s["f"]], device="cuda"))[active].abs().max())
+    log(f"[11] last tick (frame {s['f']}): {n_active} confirmed tracks for {B} episodes, "
+        f"largest error to the walk's ground truth {err:.4f} m")
+    if n_active != B or err > TRACK_TRUTH_TOL:
+        fail(f"perception tick: {n_active} tracks for {B} episodes, error {err:.4f} m")
+    for name in variants:
+        if results[name]["converged"] < 0.90:
+            fail(f"perception tick {name}: converged {results[name]['converged']:.5f} < 0.90")
+
+    # The perception step alone, one call per event pair, and DBSCAN on the
+    # selection it clusters; launches of one step by the profiler's trace.
+    p = st["with_perception"]["p"]
+    step_ms = cuda_ms(lambda: perceive(p, 5), reps=20)
+    with perception_trace() as calls:
+        perceive(p, 5)
+    c = calls[-1]
+    dbscan_ms = cuda_ms(lambda: clustering.dbscan(c["points"], c["mask"], pipeline.DBSCAN_EPS,
+                                                  pipeline.DBSCAN_MIN_SAMPLES), reps=20)
+    results.update(perception_step_ms=step_ms, dbscan_ms=dbscan_ms,
+                   dbscan_share=dbscan_ms / step_ms)
+    log(f"[11] perception step alone (B={B}, one call per event pair): {step_ms:.4f} ms; "
+        f"DBSCAN on its selection {dbscan_ms:.4f} ms, {dbscan_ms / step_ms:.5f} of it")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        perceive(p, 5)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3 if kernels else None
+    results.update(perception_launches_per_step=len(kernels) if kernels else None,
+                   perception_step_device_busy_ms=busy_ms)
+    log(f"[11] one perception step by the profiler: {len(kernels)} kernels on the card, "
+        f"busy {busy_ms} ms" if kernels else
+        "[11] the profiler recorded no kernel of the perception step: not measured")
+
+    # Card against the CPU port on the same frames.
+    n_pipe, n_frames = PERCEPTION_CHECK
+    card = run_pipelines(frames, n_pipe, n_frames, "cuda")
+    cpu = run_pipelines(frames, n_pipe, n_frames, "cpu")
+    agree, differ, worst = compare_pipelines(card, cpu)
+    log(f"[11] perception card vs CPU, {n_pipe} pipelines x {n_frames} frames: {agree} agree "
+        f"(found, labels, track ids equal; centres and tracks within {PERCEPTION_TOL} m; "
+        f"largest gap {worst:.3e} m); differing: {differ}")
+    if agree < PERCEPTION_AGREE:
+        fail(f"perception on the card disagrees with the CPU port in {differ}")
+    results.update(batch=B, frames=F, cpu_check_agree=agree, cpu_check_max_gap=worst)
+    log("[11] perception tick: " + json.dumps(results))
+    return results
+
+
+@contextlib.contextmanager
+def riccati_events():
+    """Time every Riccati launch the split IPM makes inside the block with
+    CUDA events (the wrapper's packing included); yields the list of
+    (start, end) it appends to."""
+    import torch
+
+    from kissmpc_tpu_torch.solver import ipm
+
+    real = ipm.solve_lqr_cuda
+    events = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    ipm.solve_lqr_cuda = timed
+    try:
+        yield events
+    finally:
+        ipm.solve_lqr_cuda = real
+
+
+def node_obstacles(walk_path, device):
+    """The walk's tracked humans after each frame (`io.frames.replay_session`
+    on ``device``), moved ahead of the robot by PERCEPTION_OFFSET."""
+    import torch
+
+    from kissmpc_tpu_torch.io.frames import FrameReplayer, replay_session
+    from kissmpc_tpu_torch.perception.tracker import TrackerConfig
+
+    _, per_frame = replay_session(FrameReplayer(walk_path), TrackerConfig(),
+                                  capacity=TRACK_CAPACITY, device=device)
+    offset = torch.tensor(PERCEPTION_OFFSET, device=device)
+    return [o._replace(position=o.position + offset) for o in per_frame]
+
+
+def node_loop(device, ticks, obstacles, odoms=None):
+    """The node's control loop (`io.pubsub.ControlLoop` over `io.Model` at
+    its defaults with 4 obstacle slots), ``ticks`` ticks back to back on
+    ``device``: the plan NODE_PLAN once; a fresh odometry pose every tick
+    (where the last command takes the robot in one 10 ms period, or
+    ``odoms``); the walk's humans every 10 ticks (perception at 10 Hz).
+    Returns (commands [ticks, 2], odometry poses, tick ms, the loop and its
+    odometry slot)."""
+    import torch
+
+    from kissmpc_tpu_torch.io import ControlLoop, LatestValue, Model
+
+    model = Model(max_obstacles=4, device=device)
+    odom, plan, obs = LatestValue(), LatestValue(), LatestValue()
+    commands = []
+    loop = ControlLoop(model, odometry=odom, plan=plan, obstacles=obs,
+                       on_command=lambda v, w: commands.append((v, w)))
+    plan.publish(np.array(NODE_PLAN))
+    pose, poses, lat = np.zeros(3), [], []
+    period = NODE_PERIOD_MS / 1e3
+    for tick in range(ticks):
+        if tick % 10 == 0:
+            obs.publish(obstacles[NODE_FIRST_FRAME + tick // 10])
+        if odoms is not None:
+            pose = odoms[tick]
+        odom.publish(pose)
+        poses.append(pose)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not loop.tick():
+            fail(f"node tick {tick} produced no command")
+        lat.append((time.perf_counter() - t0) * 1e3)
+        v, w = commands[-1]
+        pose = pose + period * np.array([v * np.cos(pose[2]), v * np.sin(pose[2]), w])
+    return np.array(commands), poses, lat, (loop, odom)
+
+
+def phase_node(tmpdir):
+    """The single-robot node tick on the card: NODE_TICKS ticks with their
+    Riccati launches counted and timed; its commands against the CPU port;
+    the kernel against its plain version on one tick's LQR data."""
+    import torch
+
+    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+
+    walk = f"{tmpdir}/walk.npz"
+    obstacles = node_obstacles(walk, "cuda")
+    solve_lqr_cuda.launches = 0
+    with riccati_events() as events:
+        commands, poses, lat, (loop, odom) = node_loop("cuda", NODE_TICKS, obstacles)
+    torch.cuda.synchronize()
+    model = loop.model
+    iters = model.cfg.solver.iterations
+    launches = solve_lqr_cuda.launches
+    if launches != iters * NODE_TICKS:
+        fail(f"node: {launches} Riccati launches in {NODE_TICKS} ticks, expected "
+             f"{iters} per tick")
+    ric_ms = [sum(s.elapsed_time(e) for s, e in events[t * iters:(t + 1) * iters])
+              for t in range(NODE_TICKS)]
+    share = [r / t for r, t in zip(ric_ms, lat)]
+    if not np.isfinite(commands).all():
+        fail("node: non-finite command")
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    result = {"ticks": NODE_TICKS, "horizon": model.cfg.horizon,
+              "iterations": iters, "tick_p50_ms": p50, "tick_p99_ms": p99,
+              "first_tick_ms": lat[0], "period_ms": NODE_PERIOD_MS,
+              "p50_over_period": p50 / NODE_PERIOD_MS,
+              "riccati_launches_per_tick": launches // NODE_TICKS,
+              "riccati_ms_per_tick_p50": float(np.percentile(ric_ms, 50)),
+              "riccati_share_mean": float(np.mean(share)),
+              "converged_last": bool(model.last_diagnostics.converged),
+              "last_command": commands[-1].tolist()}
+    log(f"[12] node tick (N={model.cfg.horizon}, {iters} iterations, B=1): p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms against the {NODE_PERIOD_MS} ms period of the 100 Hz timer "
+        f"({p50 / NODE_PERIOD_MS:.2f}x); {launches // NODE_TICKS} Riccati launches per tick, "
+        f"their CUDA-event time {result['riccati_ms_per_tick_p50']:.4f} ms per tick, "
+        f"{result['riccati_share_mean']:.5f} of a tick")
+
+    # One more tick under the profiler: kernels, the card's busy share and
+    # the host's synchronising calls.
+    from torch.profiler import ProfilerActivity, profile
+
+    odom.publish(poses[-1])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    runtime = {name: sum(1 for e in events if e.name == name)
+               for name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
+    result.update(profiled_tick_ms=wall_ms, profiled_kernels=len(kernels),
+                  profiled_busy_ms=busy_ms, profiled_runtime_calls=runtime)
+    log(f"[12] one node tick under the profiler: {wall_ms:.3f} ms, {len(kernels)} kernels, "
+        f"card busy {busy_ms:.4f} ms (idle {1 - busy_ms / wall_ms:.5f}); runtime calls "
+        f"{runtime}")
+
+    # The same inputs on the CPU port: odometry and humans as the card saw them.
+    cpu_cmds, _, cpu_lat, _ = node_loop("cpu", NODE_CHECK_TICKS, node_obstacles(walk, "cpu"),
+                                        odoms=poses)
+    gap = float(np.abs(cpu_cmds - commands[:NODE_CHECK_TICKS]).max())
+    result.update(cpu_tick_p50_ms=float(np.percentile(cpu_lat, 50)))
+    log(f"[12] node card vs CPU, first {NODE_CHECK_TICKS} ticks: largest command gap "
+        f"{gap:.3e} (limit {NODE_CMD_TOL}); the CPU port's tick p50 on this host "
+        f"{result['cpu_tick_p50_ms']:.3f} ms")
+    if not gap <= NODE_CMD_TOL:
+        fail(f"node commands on the card differ from the CPU port's by {gap:.3e}")
+    data = lqr_from_iterate(model.cfg, model.last_problem)
+    gate = check_riccati(data, model.cfg.solver.reg, phase=12)
+    result.update(cpu_check_max_gap=gap, riccati_gate_err=gate["err"])
+    log("[12] node: " + json.dumps(result))
+    return result
+
+
 def main():
     try:
         import torch
@@ -1487,6 +1936,11 @@ def main():
         lab = phase_lab(tmpdir)
     ric_edges, fused_edges = phase_horizons(fused_cfgs)
     riccati.update(long_horizon=ric_edges)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        perception = phase_perception(tmpdir)
+        node = phase_node(tmpdir)
+    riccati.update(node_launches_per_tick=node["riccati_launches_per_tick"],
+                   node_launches=node["riccati_launches_per_tick"] * node["ticks"])
 
     # The fused row is the K=8 cell's, with the elastic branch's numbers
     # beside it; its launches are the fused main path's (all three cells).
@@ -1496,12 +1950,15 @@ def main():
     fused_k8.update(elastic_ms=elastic["ms"], elastic_plain_ms=elastic["plain_ms"],
                     elastic_bound_ms=elastic["bound_ms"],
                     elastic_max_abs_err=elastic["max_abs_err"], stage_ms=fused_stages,
-                    longest_horizon=fused_edges, fleet_launches=fleet["fused_launches"])
+                    longest_horizon=fused_edges, fleet_launches=fleet["fused_launches"],
+                    perception_launches_per_tick=perception["with_perception"][
+                        "fused_launches_per_tick"])
     log(json.dumps({"build_s": build_s, "fused_occupancy": occupancy,
                     "fused_free_kernel": fused["free"],
                     "main_path": {"fused": fused_results, "split": split_results,
                                   "split_mehrotra": mehrotra},
                     "fleet": fleet, "planner": planner, "lab_worlds": lab,
+                    "perception_tick": perception, "node_tick": node,
                     "total_s": time.perf_counter() - t_start}))
     log(smi)
     log(json.dumps({"kernels": [riccati, probe, fused_k8]}))

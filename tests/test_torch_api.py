@@ -18,6 +18,7 @@ from kissmpc_tpu import MPCConfig as JConfig
 from kissmpc_tpu.scenarios import obstacle_problems as j_obstacle_problems
 from kissmpc_tpu.solver.api import solve_batch as j_solve_batch
 from kissmpc_tpu_torch import MPCConfig as TConfig
+from kissmpc_tpu_torch import bridge
 from kissmpc_tpu_torch import make_batch_solver, solve_batch
 from kissmpc_tpu_torch.bridge import problem_from_numpy, solution_to_numpy
 from kissmpc_tpu_torch.solver.api import _dispatch
@@ -136,12 +137,68 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         assert out is not None, name
 
 
+def _perception_io_calls(tmp_path):
+    """Each public entry point of the perception and I/O packages, as a call
+    taking the device keyword."""
+    from kissmpc_tpu_torch.io import frames, model
+    from kissmpc_tpu_torch.perception import detectors, pipeline, segnet, tracker
+
+    walk = str(tmp_path / "walk.npz")
+    frames.record_synthetic_walk(walk, n_frames=3)
+    fr = next(frames.FrameReplayer(walk).synced())
+    cfg = tracker.TrackerConfig()
+    geom = lambda **d: bridge.geometry_from_numpy(fr.geometry, **d)  # noqa: E731
+    table = tracker.init_tracks(2, device="cpu")
+    cpu_geom = geom(device="cpu")
+    state = pipeline.init_perception(2, device="cpu")
+    net = segnet.TinySegNet.brightness(device="cpu")
+    return {
+        "init_tracks": lambda **d: tracker.init_tracks(2, **d),
+        "init_perception": lambda **d: pipeline.init_perception(2, batch=3, **d),
+        "detect_centers": lambda **d: pipeline.detect_centers(
+            cpu_geom, fr.points, fr.point_mask, fr.instance_masks, fr.instance_valid, **d),
+        "pipeline.step": lambda **d: pipeline.step(
+            cfg, state, cpu_geom, torch.tensor(fr.points), torch.tensor(fr.point_mask),
+            torch.tensor(fr.instance_masks), torch.tensor(fr.instance_valid), 0.1, **d),
+        "replay_session": lambda **d: frames.replay_session(
+            frames.FrameReplayer(walk), cfg, capacity=2, **d),
+        "Model": lambda **d: model.Model(**d),
+        "TinySegNet.brightness": lambda **d: segnet.TinySegNet.brightness(**d),
+        "TorchSegmentationAdapter": lambda **d: detectors.TorchSegmentationAdapter(net, **d),
+        "geometry_from_numpy": geom,
+        "perception_state_from_numpy": lambda **d: bridge.perception_state_from_numpy(
+            table, **d),
+        "segnet_from_numpy": lambda **d: bridge.segnet_from_numpy(
+            {k: v.numpy() for k, v in net.state_dict().items()}, **d),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "init_tracks", "init_perception", "detect_centers", "pipeline.step", "replay_session",
+    "Model", "TinySegNet.brightness", "TorchSegmentationAdapter", "geometry_from_numpy",
+    "perception_state_from_numpy", "segnet_from_numpy",
+])
+def test_perception_and_io_need_cuda_unless_cpu_is_asked(name, tmp_path):
+    """Every entry point of the perception and I/O packages runs on the card
+    by default and raises without CUDA; device="cpu" runs it here."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal is for machines without CUDA")
+    call = _perception_io_calls(tmp_path)[name]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert call(device="cpu") is not None
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, kissmpc_tpu_torch, kissmpc_tpu_torch.ops.riccati\n"
         "import kissmpc_tpu_torch.ops.ipm_fused, kissmpc_tpu_torch.ops.probe\n"
         "import kissmpc_tpu_torch.agent, kissmpc_tpu_torch.environment\n"
         "import kissmpc_tpu_torch.scenarios, kissmpc_tpu_torch.bridge\n"
+        "import kissmpc_tpu_torch.perception, kissmpc_tpu_torch.perception.detectors\n"
+        "import kissmpc_tpu_torch.perception.segnet, kissmpc_tpu_torch.io\n"
+        "import kissmpc_tpu_torch.io.frames, kissmpc_tpu_torch.io.replay\n"
+        "import kissmpc_tpu_torch.io.ros2, kissmpc_tpu_torch.io.markers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kissmpc_tpu' or m.startswith('kissmpc_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
