@@ -26,7 +26,9 @@ Phases, each a hard failure with a non-zero exit:
    per event pair with the wrapper's host work inside;
 3. the trip-count probe: counts 0, 7 and then 31 read from device memory
    by one loaded library; the results must be exactly those counts; timed
-   at 31 trips and at 0 (its launch floor) by `kernel_ms`;
+   at 31 trips and at 0 (its launch floor) by `kernel_ms`, beside
+   `torch.add(x, iters)`, the one PyTorch call of the same function, whose
+   result must equal the kernel's exactly;
 4. hold the fused IPM kernel against its plain version on the card at
    B=8192, N=50, float32, for both benchmark configurations and for
    k8_dyn2_elastic (k8_dyn2 with elastic obstacle constraints, the kernel's
@@ -605,12 +607,18 @@ def phase_probe():
     floor_ms = kernel_ms(lambda: dynamic_trip(x, counts[0]), reps=50, graph=True)
     ms = kernel_ms(lambda: dynamic_trip(x, iters), reps=50, graph=True)
     plain_ms = kernel_ms(lambda: dynamic_trip_plain(x, iters), reps=10)
+    # One PyTorch call computes the same function: x + iters[0], broadcast.
+    library = torch.add(x, iters)
+    torch.cuda.synchronize()
+    if library.dtype != torch.float32 or not torch.equal(library, dynamic_trip(x, iters)):
+        fail("torch.add(x, iters) differs from the probe kernel")
+    library_ms = kernel_ms(lambda: torch.add(x, iters), reps=50, graph=True)
     n_bytes = 2 * x.numel() * x.element_size() + iters.element_size()
     flops = PROBE_TRIPS[-1] * x.numel()
     bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     log(f"[3] probe kernel {ms:.5f} ms at {PROBE_TRIPS[-1]} trips, {floor_ms:.5f} ms at 0 trips "
-        f"(its launch floor), plain {plain_ms:.4f} ms ({n_bytes} bytes -> {bytes_ms:.3e} ms; "
-        f"{flops} flop -> {ops_ms:.3e} ms)")
+        f"(its launch floor), plain {plain_ms:.4f} ms, torch.add {library_ms:.5f} ms "
+        f"({n_bytes} bytes -> {bytes_ms:.3e} ms; {flops} flop -> {ops_ms:.3e} ms)")
     return {
         "name": "probe_dynamic_trip",
         "route": "cuda",
@@ -622,7 +630,7 @@ def phase_probe():
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "library_ms": library_ms,
         "launch_floor_ms": floor_ms,
     }
 
