@@ -114,7 +114,31 @@ Phases, each a hard failure with a non-zero exit:
    launches per tick (must equal the iterations run) and their CUDA-event
    share of a tick; gates: the first 10 ticks' commands within 1e-3 of the
    CPU port's on the same inputs, and the kernel against its plain version
-   by phase 2's gate on one tick's LQR data (B=1, N=7).
+   by phase 2's gate on one tick's LQR data (B=1, N=7);
+13. the data-parallel fleet (`parallel.fleet`) over a one-rank NCCL group
+   from an in-process store: `make_fleet_solver` on the K=8 cell at B=8192
+   bitwise equal to `solve_batch` and its `FleetMetrics` equal to that
+   call's diagnostics', its collectives per call, p50 of 5 calls beside
+   `solve_batch`'s; `make_fleet_env_stepper` for 10 ticks at B=4096 (grid
+   worlds) with its EnvState bitwise equal to `fleet_step`'s every tick,
+   both ticks' p50; `multihost.health_check` True within its timeout;
+14. the associative-scan LQR (`ops/lqr_pt.py`) against the Riccati kernel
+   on phase 2's data (N=50, B=8192, float32 and float64) and phase 10's
+   (N=2000, B=1025, float64 and float32): on phase 2's data each
+   scenario's KKT residual within 1e-5 (f32) / 1e-9 (f64) of its data's
+   scale, dx and du against the kernel's output reported (there the
+   sequential solve is not the more accurate one); at N=2000 in float64 dx
+   and du within phase 2's per-scenario limits against the kernel's
+   output, in float32 reported (not conditioned for the method); each timed
+   beside the kernel, the backward scan apart from the forward recovery,
+   and one call's kernels at N=2000 counted by the profiler;
+15. the CLI on the card: `demo --ticks 60`, `map` and `lab --batch 256
+   --ticks 50` on phase 9's synthetic map (written again from its seed),
+   each returning 0; one fleet tick (B=4096) in `utils.profiling.trace`
+   with an `annotate("fleet_tick")` span, whose trace must name the span
+   and the fused kernel; `measure` on `solve_batch` (K=8, B=8192); a
+   `FleetCheckpoint` of the fleet's EnvState saved, restored onto the card
+   bitwise, and its next tick bitwise equal to the uninterrupted one.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -207,6 +231,21 @@ NODE_PLAN = ((1.5, 0.4, 0.0), (3.0, 0.0, 0.0))
 # Phase 4 also holds the kernel to its plain version at the last refine
 # stage's batch of the K=8 cells.
 REFINE_CHECK_BATCH = 164
+# Phase 13: the data-parallel fleet over a one-rank NCCL group.
+DP_CALLS = 5
+DP_TICKS = 10
+GROUP_TIMEOUT_S = 120.0
+# Phase 14: the associative-scan LQR.  Each scenario's KKT residual
+# (`ops/lqr.py::kkt_residual`) relative to its data's largest magnitude:
+# a sound solve in either dtype sits far below (on phase 2's data,
+# `scripts/lqr_pt_accuracy.py --device cpu` at B=1024: 1.3e-7 f32, 5.2e-11
+# f64, the sequential solve 7.6e-8, 9.9e-10; phase 14 at B=8192 on an H100:
+# 1.3e-6, 1.8e-10, the Riccati kernel 3.2e-7, 1.8e-9).
+LQR_PT_KKT_REL = {"float32": 1e-5, "float64": 1e-9}
+# Phase 15: the CLI and the utils.
+DEMO_TICKS = 60
+CLI_LAB_BATCH = 256
+CLI_LAB_TICKS = 50
 # The earlier fused kernel (one thread per scenario, iterate in global
 # scratch) at each solve stage, (B, iterations): ms, CUDA events around the
 # wrapper's call, NVIDIA H100 80GB HBM3 at 700 W (recorded in PERF.md).
@@ -454,9 +493,11 @@ RICCATI_OUTPUTS = ("dx", "du", "K", "k")
 RICCATI_NOISE_FACTOR = 4.0
 
 
-def riccati_gate(got, data, reg):
+def riccati_gate(got, data, reg, ref=None, outputs=RICCATI_OUTPUTS):
     """Phase 2's gate: the kernel's solution ``got`` of ``data`` against the
-    plain version's, each output (dx, du, K, k) of each scenario held to its
+    plain version's (or against ``ref``, another solution of ``data``,
+    whose own f32-vs-f64 gap then takes the plain version's place), each
+    of ``outputs`` (dx, du, K, k) of each scenario held to its
     own tolerance, so that one ill-conditioned scenario cannot widen the
     limit of another, nor its gains the limit of its rollout.  In float32
     1e-4 of that scenario's scale of that output (its largest magnitude, at
@@ -475,11 +516,13 @@ def riccati_gate(got, data, reg):
     from kissmpc_tpu_torch.ops.lqr import LQRData, solve_lqr
 
     f32 = data.A.dtype == torch.float32
-    ref = solve_lqr(data, reg)
+    ref = solve_lqr(data, reg) if ref is None else ref
     ref64 = solve_lqr(LQRData(*(x.double() for x in data)), reg) if f32 else ref
     B = data.A.shape[0]
-    ok, outputs = True, {}
-    for name, g, r, r64 in zip(RICCATI_OUTPUTS, got, ref, ref64):
+    ok, gated = True, {}
+    for name in outputs:
+        i = RICCATI_OUTPUTS.index(name)
+        g, r, r64 = got[i], ref[i], ref64[i]
         g = g.reshape(B, -1).double()
         r = r.reshape(B, -1).double().to(g.device)
         err = (g - r).abs().amax(1)
@@ -501,8 +544,8 @@ def riccati_gate(got, data, reg):
             out.update(kernel64=float(kernel64.max()), plain64=float(plain64.max()),
                        kernel_further=int((kernel64 > plain64).sum()))
         ok = ok and out["ratio"] <= 1.0
-        outputs[name] = out
-    return {"ok": ok, "err": max(o["err"] for o in outputs.values()), "outputs": outputs}
+        gated[name] = out
+    return {"ok": ok, "err": max(o["err"] for o in gated.values()), "outputs": gated}
 
 
 def check_riccati(data, reg, phase=2):
@@ -1892,6 +1935,274 @@ def phase_node(tmpdir):
     return result
 
 
+def phase_data_parallel(cfg, pool):
+    """Phase 13: `parallel.fleet` over a one-rank NCCL group (an in-process
+    store, no port): the fleet solver on the K=8 cell at B=8192 bitwise
+    against `solve_batch`, the stepper for DP_TICKS ticks at FLEET_BATCH
+    bitwise against `fleet_step`, and the health check."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from kissmpc_tpu_torch import environment, solve_batch
+    from kissmpc_tpu_torch._tree import leaves
+    from kissmpc_tpu_torch.obstacles import advance
+    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
+    from kissmpc_tpu_torch.parallel import fleet, multihost
+    from kissmpc_tpu_torch.solver.problem import gather
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        mesh = fleet.make_mesh()
+        batch = gather(pool, torch.arange(BATCH, device="cuda"))
+        solver = fleet.make_fleet_solver(cfg, mesh)
+        ref, (sol, metrics) = solve_batch(cfg, batch), solver(batch)
+        torch.cuda.synchronize()
+        d = ref.diagnostics
+        if not all(torch.equal(a, b) for a, b in zip((sol.states, sol.controls, *sol.diagnostics),
+                                                     (ref.states, ref.controls, *d))):
+            fail("the fleet solver's solution differs from solve_batch's")
+        own = (d.converged.float().mean(), d.kkt_stationarity.amax(), d.kkt_feasibility.amax(),
+               d.final_cost.mean())
+        if not all(torch.equal(a, b) for a, b in zip(metrics, own)):
+            fail(f"fleet metrics {[float(x) for x in metrics]} differ from the diagnostics' "
+                 f"{[float(x) for x in own]}")
+        lat = {"solve_batch": [], "fleet": []}
+        collectives, launches = fleet.fleet_metrics.collectives, solve_batch_fused.launches
+        for _ in range(DP_CALLS):
+            for name, call in (("solve_batch", lambda: solve_batch(cfg, batch)),
+                               ("fleet", lambda: solver(batch))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        per_call = (fleet.fleet_metrics.collectives - collectives) / DP_CALLS
+        p50 = {name: float(np.percentile(v, 50)) for name, v in lat.items()}
+        # What the fleet adds to a call, alone: the metric reduction.
+        metrics_ms = cuda_ms(lambda: fleet.fleet_metrics(d, fleet.mesh_group(mesh)), reps=20)
+        log(f"[13] fleet solver, one NCCL rank, k8_dyn2 B={BATCH}: solution bitwise equal to "
+            f"solve_batch's, metrics equal to its diagnostics' (converged "
+            f"{float(metrics.converged_fraction):.5f}); {per_call:g} collectives per call, "
+            f"{(solve_batch_fused.launches - launches) / (2 * DP_CALLS):g} fused launches per "
+            f"call; p50 {p50['fleet']:.3f} ms against solve_batch's {p50['solve_batch']:.3f} ms "
+            f"(+{p50['fleet'] - p50['solve_batch']:.3f} ms); the metric reduction alone "
+            f"{metrics_ms:.4f} ms (CUDA events, one call per pair)")
+
+        fcfg, params = fleet_config()
+        env, obstacles, _ = fleet_worlds(fcfg, FLEET_BATCH, 2, "cuda")
+        stepper = fleet.make_fleet_env_stepper(fcfg, params, mesh)
+        chains = {"fleet_step": [env, obstacles], "stepper": [env, obstacles]}
+        tick_ms = {name: [] for name in chains}
+        for tick in range(DP_TICKS):
+            for name, chain in chains.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "stepper":
+                    new_env, _, step_metrics = stepper(*chain)
+                else:
+                    new_env, _ = environment.fleet_step(fcfg, params, *chain)
+                chain[:] = [new_env, advance(chain[1], fcfg.time_step)]
+                torch.cuda.synchronize()
+                tick_ms[name].append((time.perf_counter() - t0) * 1e3)
+            a, b = (leaves(chains[n][0]) for n in chains)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                fail(f"the fleet stepper's EnvState differs from fleet_step's at tick {tick}")
+        tick_p50 = {name: float(np.percentile(v, 50)) for name, v in tick_ms.items()}
+        log(f"[13] fleet stepper B={FLEET_BATCH}, {DP_TICKS} ticks: EnvState bitwise equal to "
+            f"fleet_step's every tick; tick p50 {tick_p50['stepper']:.3f} ms against "
+            f"fleet_step's {tick_p50['fleet_step']:.3f} ms; last tick converged "
+            f"{float(step_metrics.converged_fraction):.5f}")
+        t0 = time.perf_counter()
+        healthy = multihost.health_check(mesh, timeout_s=GROUP_TIMEOUT_S)
+        health_s = time.perf_counter() - t0
+        log(f"[13] health check: {healthy} in {health_s:.4f} s")
+        if not healthy:
+            fail("the one-rank health check failed")
+    finally:
+        dist.destroy_process_group()
+    return {"batch": BATCH, "calls": DP_CALLS, "collectives_per_call": per_call,
+            "fleet_p50_ms": p50["fleet"], "solve_batch_p50_ms": p50["solve_batch"],
+            "fleet_minus_solve_batch_ms": p50["fleet"] - p50["solve_batch"],
+            "metrics_ms": metrics_ms,
+            "stepper_batch": FLEET_BATCH, "stepper_ticks": DP_TICKS,
+            "stepper_tick_p50_ms": tick_p50["stepper"],
+            "fleet_step_tick_p50_ms": tick_p50["fleet_step"], "health_check_s": health_s}
+
+
+def lqr_pt_check(label, data, reg, gates):
+    """`solve_lqr_associative` on ``data`` against the Riccati kernel: each
+    scenario's KKT residual relative to its data's scale (at most
+    LQR_PT_KKT_REL if "kkt" is in ``gates``), and phase 2's per-scenario
+    dx/du gate against the kernel's output (gated if "riccati" is in
+    ``gates``), each else reported; timed beside the kernel, the backward
+    scan apart from the forward recovery."""
+    import torch
+
+    from kissmpc_tpu_torch.ops.lqr import kkt_residual
+    from kissmpc_tpu_torch.ops.lqr_pt import backward_pass, solve_lqr_associative
+    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+
+    B, n, dtype = data.A.shape[0], data.A.shape[1], str(data.A.dtype)[6:]
+    kern = solve_lqr_cuda(data, reg)
+    got = solve_lqr_associative(data, reg)
+    torch.cuda.synchronize()
+    scale = torch.stack([x.reshape(B, -1).abs().amax(1).double() for x in data]).amax(0)
+    # The system both solve: Quu regularized by reg.
+    solved = data._replace(Quu=data.Quu + reg * torch.eye(2, dtype=data.Quu.dtype,
+                                                          device=data.Quu.device))
+    rel = kkt_residual(solved, got).double() / scale
+    rel_kernel = kkt_residual(solved, kern).double() / scale
+    finite = bool(torch.isfinite(got.dx).all() and torch.isfinite(got.du).all())
+    gate = riccati_gate(got, data, reg, ref=kern, outputs=("dx", "du"))
+    ratios = {k: o["ratio"] for k, o in gate["outputs"].items()}
+    log(f"[14] lqr_pt {label} {dtype} B={B} N={n}: relative KKT residual max "
+        f"{float(rel.max()):.3e} (limit {LQR_PT_KKT_REL[dtype]:.0e}, "
+        f"{'gated' if 'kkt' in gates else 'reported'}; the kernel's "
+        f"{float(rel_kernel.max()):.3e}); dx/du against the kernel: max "
+        f"{gate['err']:.3e}, {ratios} of phase 2's per-scenario limits "
+        f"({'gated' if 'riccati' in gates else 'reported'})")
+    if not finite:
+        fail(f"lqr_pt {label} {dtype}: non-finite dx or du")
+    if "kkt" in gates and not float(rel.max()) <= LQR_PT_KKT_REL[dtype]:
+        fail(f"lqr_pt {label} {dtype}: KKT residual {float(rel.max()):.3e} of the data's scale")
+    if "riccati" in gates and not gate["ok"]:
+        fail(f"lqr_pt {label} {dtype} disagrees with the Riccati kernel: {ratios}")
+    reps = 3 if n > 500 else 10
+    total_ms = cuda_ms(lambda: solve_lqr_associative(data, reg), reps=reps, warmup=1)
+    backward_ms = cuda_ms(lambda: backward_pass(data, reg), reps=reps, warmup=1)
+    kernel = kernel_ms(lambda: solve_lqr_cuda(data, reg), reps=5 if n > 500 else 20, graph=True)
+    log(f"[14] lqr_pt {label} {dtype} B={B} N={n}: {total_ms:.3f} ms (backward scan "
+        f"{backward_ms:.3f}, forward recovery {total_ms - backward_ms:.3f}) against the Riccati "
+        f"kernel's {kernel:.5f} ms ({total_ms / kernel:.1f}x)")
+    return {"B": B, "N": n, "dtype": dtype, "gates": sorted(gates), "ms": total_ms,
+            "backward_ms": backward_ms, "forward_ms": total_ms - backward_ms,
+            "kernel_ms": kernel, "kkt_rel_max": float(rel.max()),
+            "kernel_kkt_rel_max": float(rel_kernel.max()), "max_abs_err": gate["err"],
+            "gate_ratio": ratios}
+
+
+def phase_lqr_pt(cfg, pool):
+    """Phase 14: the associative-scan LQR against the Riccati kernel on
+    phase 2's data (N=50, B=8192, float32 and float64) and phase 10's
+    (N=2000, B=1025, float64 gated, float32 reported), with the kernel
+    launches of one call counted by the profiler at N=2000."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kissmpc_tpu_torch.ops.lqr import LQRData
+    from kissmpc_tpu_torch.ops.lqr_pt import solve_lqr_associative
+    from kissmpc_tpu_torch.solver.problem import gather
+
+    reg = cfg.solver.reg
+    data = lqr_from_iterate(cfg, gather(pool, torch.arange(BATCH, device="cuda")))
+    # On phase 2's barrier-conditioned data the sequential solve is not the
+    # more accurate of the two (f64 KKT residuals), so the dx/du gate
+    # against it is reported there and the KKT residual gates.  At N=2000
+    # the residual's own adjoint recursion grows through 2000 steps of
+    # near-identity A (1.6e-4 and 6.0e-4 of the scale for the two solves
+    # where they agree to 2e-14, on an H100), so there the dx/du gate holds
+    # f64; f32 at N=2000 is reported only (the composition of inverses is
+    # not conditioned for it).
+    rows = [lqr_pt_check("phase 2's data", LQRData(*(x.to(dtype) for x in data)), reg,
+                         gates={"kkt"})
+            for dtype in (torch.float32, torch.float64)]
+    B = RICCATI_LONG_BATCHES[-1]
+    for dtype, gates in ((torch.float64, {"riccati"}), (torch.float32, set())):
+        long = random_lqr(B, RICCATI_LONG_N, seed=1, dtype=dtype)
+        rows.append(lqr_pt_check("phase 10's data", long, 1e-8, gates))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve_lqr_associative(long, 1e-8)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum(1 for e in events if e.device_type.name == "CUDA")
+    runtime = {name: sum(1 for e in events if e.name == name)
+               for name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
+    log(f"[14] one lqr_pt call at N={RICCATI_LONG_N}, B={B}: {launches} kernels on the card "
+        f"(profiler), {launches / RICCATI_LONG_N:.2f} per step; runtime calls {runtime}")
+    return {"rows": rows, "launches_n2000": launches, "runtime_calls_n2000": runtime}
+
+
+def phase_utils_cli(tmpdir, cfg, pool):
+    """Phase 15: the CLI's demo, map and lab on the card, a profiler trace
+    of one fleet tick, `measure` on solve_batch, and a checkpoint of the
+    fleet's EnvState resumed bitwise."""
+    import glob
+
+    import torch
+
+    from kissmpc_tpu_torch import cli, environment, solve_batch
+    from kissmpc_tpu_torch._tree import leaves
+    from kissmpc_tpu_torch.solver.problem import gather
+    from kissmpc_tpu_torch.utils import profiling
+    from kissmpc_tpu_torch.utils.checkpoint import CheckpointManager, FleetCheckpoint
+
+    result = {}
+    path = f"{tmpdir}/synthetic_lab.pgm"
+    write_synthetic_map(path)  # phase 9's map: the same shape and seed
+    for name, argv in (("demo", ["demo", "--ticks", str(DEMO_TICKS)]),
+                       ("map", ["map", path, "-o", f"{tmpdir}/circles.npz"]),
+                       ("lab", ["lab", "--map", path, "--batch", str(CLI_LAB_BATCH),
+                                "--ticks", str(CLI_LAB_TICKS)])):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        result[f"{name}_s"] = time.perf_counter() - t0
+        log(f"[15] cli {' '.join(argv[:1] + argv[2:] if name == 'map' else argv)}: rc {rc} in "
+            f"{result[f'{name}_s']:.3f} s")
+        if rc != 0:
+            fail(f"cli {name} returned {rc}")
+    circles = np.load(f"{tmpdir}/circles.npz")
+    if not (len(circles["radii"]) > 0 and np.isfinite(circles["centers"]).all()):
+        fail("cli map wrote no circles")
+
+    fcfg, params = fleet_config()
+    env, obstacles, _ = fleet_worlds(fcfg, FLEET_BATCH, 3, "cuda")
+    env, _ = environment.fleet_step(fcfg, params, env, obstacles)
+    with profiling.trace(f"{tmpdir}/trace") as prof:
+        with profiling.annotate("fleet_tick"):
+            traced, _ = environment.fleet_step(fcfg, params, env, obstacles)
+        torch.cuda.synchronize()
+    files = glob.glob(f"{tmpdir}/trace/*.json")
+    text = open(files[0]).read() if len(files) == 1 else ""
+    device_ms = sum(e.device_time for e in prof.events() if e.device_type.name == "CUDA") / 1e3
+    log(f"[15] profiling.trace of one fleet tick (B={FLEET_BATCH}): {len(text)} bytes; names "
+        f"fleet_tick: {'fleet_tick' in text}, ipm_fused_kernel: {'ipm_fused_kernel' in text}; "
+        f"device time {device_ms:.3f} ms")
+    if "fleet_tick" not in text or "ipm_fused_kernel" not in text:
+        fail("the trace names neither the fleet_tick span nor the fused kernel")
+    result.update(trace_bytes=len(text), trace_device_ms=device_ms)
+
+    batch = gather(pool, torch.arange(BATCH, device="cuda"))
+    stats = profiling.measure(solve_batch, cfg, batch, warmup=1, reps=5)
+    log(f"[15] measure(solve_batch) k8_dyn2 B={BATCH}: {json.dumps(stats)}")
+    result.update(measure=stats)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    state = FleetCheckpoint(env_state=env, rng_key=gen.get_state(),
+                            scenario_cursor=torch.tensor(FLEET_BATCH), tick=torch.tensor(1))
+    mgr = CheckpointManager(f"{tmpdir}/ckpt")
+    t0 = time.perf_counter()
+    mgr.save(1, state)
+    save_s = time.perf_counter() - t0
+    restored = mgr.restore(mgr.latest_step(), state)
+    mgr.close()
+    resumed, _ = environment.fleet_step(fcfg, params, restored.env_state, obstacles)
+    torch.cuda.synchronize()
+    same_state = all(torch.equal(a, b) for a, b in zip(leaves(restored), leaves(state)))
+    same_tick = all(torch.equal(a, b) for a, b in zip(leaves(resumed), leaves(traced)))
+    on_card = all(x.is_cuda for x in leaves(restored.env_state))
+    log(f"[15] checkpoint of the B={FLEET_BATCH} EnvState: saved in {save_s:.4f} s, restored "
+        f"bitwise {same_state} (on the card {on_card}), resumed tick bitwise equal to the "
+        f"uninterrupted one {same_tick}")
+    if not (same_state and same_tick and on_card):
+        fail("the checkpoint did not resume the fleet bitwise")
+    result.update(checkpoint_save_s=save_s)
+    return result
+
+
 def main():
     try:
         import torch
@@ -1949,6 +2260,15 @@ def main():
         node = phase_node(tmpdir)
     riccati.update(node_launches_per_tick=node["riccati_launches_per_tick"],
                    node_launches=node["riccati_launches_per_tick"] * node["ticks"])
+    t0 = time.perf_counter()
+    data_parallel = phase_data_parallel(fused_cfgs["k8_dyn2"], pools["k8_dyn2"])
+    data_parallel["phase_s"] = t1 = time.perf_counter() - t0
+    lqr_pt = phase_lqr_pt(split_cfgs["k8_dyn2"], pools["k8_dyn2"])
+    lqr_pt["phase_s"] = t2 = time.perf_counter() - t0 - t1
+    with tempfile.TemporaryDirectory() as tmpdir:
+        utils_cli = phase_utils_cli(tmpdir, fused_cfgs["k8_dyn2"], pools["k8_dyn2"])
+    utils_cli["phase_s"] = time.perf_counter() - t0 - t1 - t2
+    log(f"phases 13-15 took {t1:.3f} / {t2:.3f} / {utils_cli['phase_s']:.3f} s")
 
     # The fused row is the K=8 cell's, with the elastic branch's numbers
     # beside it; its launches are the fused main path's (all three cells).
@@ -1967,6 +2287,7 @@ def main():
                                   "split_mehrotra": mehrotra},
                     "fleet": fleet, "planner": planner, "lab_worlds": lab,
                     "perception_tick": perception, "node_tick": node,
+                    "data_parallel": data_parallel, "lqr_pt": lqr_pt, "utils_cli": utils_cli,
                     "total_s": time.perf_counter() - t_start}))
     log(smi)
     log(json.dumps({"kernels": [riccati, probe, fused_k8]}))

@@ -199,6 +199,10 @@ def test_import_leaves_jax_out():
         "import kissmpc_tpu_torch.perception.segnet, kissmpc_tpu_torch.io\n"
         "import kissmpc_tpu_torch.io.frames, kissmpc_tpu_torch.io.replay\n"
         "import kissmpc_tpu_torch.io.ros2, kissmpc_tpu_torch.io.markers\n"
+        "import kissmpc_tpu_torch.parallel.fleet, kissmpc_tpu_torch.parallel.multihost\n"
+        "import kissmpc_tpu_torch.utils.metrics, kissmpc_tpu_torch.utils.profiling\n"
+        "import kissmpc_tpu_torch.utils.checkpoint, kissmpc_tpu_torch.ops.lqr_pt\n"
+        "import kissmpc_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kissmpc_tpu' or m.startswith('kissmpc_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
