@@ -125,7 +125,7 @@ Phases, each a hard failure with a non-zero exit:
 14. the associative-scan LQR (`ops/lqr_pt.py`) against the Riccati kernel
    on phase 2's data (N=50, B=8192, float32 and float64) and phase 10's
    (N=2000, B=1025, float64 and float32): on phase 2's data each
-   scenario's KKT residual within 1e-5 (f32) / 1e-9 (f64) of its data's
+   scenario's KKT residual within 1e-3 (f32) / 1e-6 (f64) of its data's
    scale, dx and du against the kernel's output reported (there the
    sequential solve is not the more accurate one); at N=2000 in float64 dx
    and du within phase 2's per-scenario limits against the kernel's
@@ -236,12 +236,12 @@ DP_CALLS = 5
 DP_TICKS = 10
 GROUP_TIMEOUT_S = 120.0
 # Phase 14: the associative-scan LQR.  Each scenario's KKT residual
-# (`ops/lqr.py::kkt_residual`) relative to its data's largest magnitude:
-# a sound solve in either dtype sits far below (on phase 2's data,
-# `scripts/lqr_pt_accuracy.py --device cpu` at B=1024: 1.3e-7 f32, 5.2e-11
-# f64, the sequential solve 7.6e-8, 9.9e-10; phase 14 at B=8192 on an H100:
-# 1.3e-6, 1.8e-10, the Riccati kernel 3.2e-7, 1.8e-9).
-LQR_PT_KKT_REL = {"float32": 1e-5, "float64": 1e-9}
+# (`ops/lqr.py::kkt_residual`) relative to its data's largest magnitude, on
+# phase 2's data.  Sound solves sit far below the limits (on an H100, two
+# runs: f32 1.3e-6 and 7.8e-6, f64 1.8e-10 and 8.7e-10; the Riccati kernel
+# up to 1.9e-6 / 3.3e-8), planted faults far above
+# (`scripts/lqr_pt_accuracy.py --faults`: 0.24 or more).
+LQR_PT_KKT_REL = {"float32": 1e-3, "float64": 1e-6}
 # Phase 15: the CLI and the utils.
 DEMO_TICKS = 60
 CLI_LAB_BATCH = 256
@@ -1970,24 +1970,32 @@ def phase_data_parallel(cfg, pool):
             fail(f"fleet metrics {[float(x) for x in metrics]} differ from the diagnostics' "
                  f"{[float(x) for x in own]}")
         lat = {"solve_batch": [], "fleet": []}
-        collectives, launches = fleet.fleet_metrics.collectives, solve_batch_fused.launches
+        collectives = fleet.fleet_metrics.collectives
+        solve_batch_fused.launches = fleet_launches = 0
         for _ in range(DP_CALLS):
             for name, call in (("solve_batch", lambda: solve_batch(cfg, batch)),
                                ("fleet", lambda: solver(batch))):
+                before = solve_batch_fused.launches
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 call()
                 torch.cuda.synchronize()
                 lat[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "fleet":
+                    fleet_launches += solve_batch_fused.launches - before
         per_call = (fleet.fleet_metrics.collectives - collectives) / DP_CALLS
+        expected = (1 + len(cfg.solver.refine_stages)) * DP_CALLS
+        if fleet_launches != expected:
+            fail(f"the fleet solver launched the fused kernel {fleet_launches} times in "
+                 f"{DP_CALLS} calls, expected {expected}")
         p50 = {name: float(np.percentile(v, 50)) for name, v in lat.items()}
         # What the fleet adds to a call, alone: the metric reduction.
         metrics_ms = cuda_ms(lambda: fleet.fleet_metrics(d, fleet.mesh_group(mesh)), reps=20)
         log(f"[13] fleet solver, one NCCL rank, k8_dyn2 B={BATCH}: solution bitwise equal to "
             f"solve_batch's, metrics equal to its diagnostics' (converged "
             f"{float(metrics.converged_fraction):.5f}); {per_call:g} collectives per call, "
-            f"{(solve_batch_fused.launches - launches) / (2 * DP_CALLS):g} fused launches per "
-            f"call; p50 {p50['fleet']:.3f} ms against solve_batch's {p50['solve_batch']:.3f} ms "
+            f"{fleet_launches} fused launches in its {DP_CALLS} calls; p50 {p50['fleet']:.3f} ms "
+            f"against solve_batch's {p50['solve_batch']:.3f} ms "
             f"(+{p50['fleet'] - p50['solve_batch']:.3f} ms); the metric reduction alone "
             f"{metrics_ms:.4f} ms (CUDA events, one call per pair)")
 
@@ -1996,8 +2004,10 @@ def phase_data_parallel(cfg, pool):
         stepper = fleet.make_fleet_env_stepper(fcfg, params, mesh)
         chains = {"fleet_step": [env, obstacles], "stepper": [env, obstacles]}
         tick_ms = {name: [] for name in chains}
+        solve_batch_fused.launches = stepper_launches = 0
         for tick in range(DP_TICKS):
             for name, chain in chains.items():
+                before = solve_batch_fused.launches
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if name == "stepper":
@@ -2007,13 +2017,20 @@ def phase_data_parallel(cfg, pool):
                 chain[:] = [new_env, advance(chain[1], fcfg.time_step)]
                 torch.cuda.synchronize()
                 tick_ms[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "stepper":
+                    stepper_launches += solve_batch_fused.launches - before
             a, b = (leaves(chains[n][0]) for n in chains)
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
                 fail(f"the fleet stepper's EnvState differs from fleet_step's at tick {tick}")
         tick_p50 = {name: float(np.percentile(v, 50)) for name, v in tick_ms.items()}
+        expected = (1 + len(fcfg.solver.refine_stages)) * DP_TICKS
+        if stepper_launches != expected:
+            fail(f"the fleet stepper launched the fused kernel {stepper_launches} times in "
+                 f"{DP_TICKS} ticks, expected {expected}")
         log(f"[13] fleet stepper B={FLEET_BATCH}, {DP_TICKS} ticks: EnvState bitwise equal to "
             f"fleet_step's every tick; tick p50 {tick_p50['stepper']:.3f} ms against "
-            f"fleet_step's {tick_p50['fleet_step']:.3f} ms; last tick converged "
+            f"fleet_step's {tick_p50['fleet_step']:.3f} ms; {stepper_launches} fused launches in "
+            f"its {DP_TICKS} ticks; last tick converged "
             f"{float(step_metrics.converged_fraction):.5f}")
         t0 = time.perf_counter()
         healthy = multihost.health_check(mesh, timeout_s=GROUP_TIMEOUT_S)
@@ -2024,6 +2041,7 @@ def phase_data_parallel(cfg, pool):
     finally:
         dist.destroy_process_group()
     return {"batch": BATCH, "calls": DP_CALLS, "collectives_per_call": per_call,
+            "fused_launches": fleet_launches, "stepper_fused_launches": stepper_launches,
             "fleet_p50_ms": p50["fleet"], "solve_batch_p50_ms": p50["solve_batch"],
             "fleet_minus_solve_batch_ms": p50["fleet"] - p50["solve_batch"],
             "metrics_ms": metrics_ms,
@@ -2136,6 +2154,8 @@ def phase_utils_cli(tmpdir, cfg, pool):
 
     from kissmpc_tpu_torch import cli, environment, solve_batch
     from kissmpc_tpu_torch._tree import leaves
+    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
+    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
     from kissmpc_tpu_torch.solver.problem import gather
     from kissmpc_tpu_torch.utils import profiling
     from kissmpc_tpu_torch.utils.checkpoint import CheckpointManager, FleetCheckpoint
@@ -2147,13 +2167,20 @@ def phase_utils_cli(tmpdir, cfg, pool):
                        ("map", ["map", path, "-o", f"{tmpdir}/circles.npz"]),
                        ("lab", ["lab", "--map", path, "--batch", str(CLI_LAB_BATCH),
                                 "--ticks", str(CLI_LAB_TICKS)])):
+        solve_batch_fused.launches = solve_lqr_cuda.launches = 0
         t0 = time.perf_counter()
         rc = cli.main(argv)
         result[f"{name}_s"] = time.perf_counter() - t0
+        launches = {"fused": solve_batch_fused.launches, "riccati": solve_lqr_cuda.launches}
+        result[f"{name}_launches"] = launches
         log(f"[15] cli {' '.join(argv[:1] + argv[2:] if name == 'map' else argv)}: rc {rc} in "
-            f"{result[f'{name}_s']:.3f} s")
+            f"{result[f'{name}_s']:.3f} s; kernel launches {launches}")
         if rc != 0:
             fail(f"cli {name} returned {rc}")
+        # demo solves split (the agent's make_solver), lab through fleet_step.
+        kernel = {"demo": "riccati", "lab": "fused"}.get(name)
+        if kernel and not launches[kernel]:
+            fail(f"cli {name} never launched the {kernel} kernel")
     circles = np.load(f"{tmpdir}/circles.npz")
     if not (len(circles["radii"]) > 0 and np.isfinite(circles["centers"]).all()):
         fail("cli map wrote no circles")
@@ -2269,6 +2296,7 @@ def main():
         utils_cli = phase_utils_cli(tmpdir, fused_cfgs["k8_dyn2"], pools["k8_dyn2"])
     utils_cli["phase_s"] = time.perf_counter() - t0 - t1 - t2
     log(f"phases 13-15 took {t1:.3f} / {t2:.3f} / {utils_cli['phase_s']:.3f} s")
+    riccati.update(cli_demo_launches=utils_cli["demo_launches"]["riccati"])
 
     # The fused row is the K=8 cell's, with the elastic branch's numbers
     # beside it; its launches are the fused main path's (all three cells).
@@ -2280,7 +2308,10 @@ def main():
                     elastic_max_abs_err=elastic["max_abs_err"], stage_ms=fused_stages,
                     longest_horizon=fused_edges, fleet_launches=fleet["fused_launches"],
                     perception_launches_per_tick=perception["with_perception"][
-                        "fused_launches_per_tick"])
+                        "fused_launches_per_tick"],
+                    data_parallel_launches=data_parallel["fused_launches"],
+                    data_parallel_stepper_launches=data_parallel["stepper_fused_launches"],
+                    cli_lab_launches=utils_cli["lab_launches"]["fused"])
     log(json.dumps({"build_s": build_s, "fused_occupancy": occupancy,
                     "fused_free_kernel": fused["free"],
                     "main_path": {"fused": fused_results, "split": split_results,

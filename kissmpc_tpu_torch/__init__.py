@@ -14,8 +14,11 @@ agent and the episode loop (`environment.step`, `fleet_step`,
 `run_episode`), the benchmark scenario pools, the batched grid planner
 (`planner.py`), the episode and lab-map worlds (`scenarios.episode_worlds`
 with either router, `scenarios.lab_worlds`), the map tools
-(`obstacles.mapping` and the g++-built `native` library), and the numpy
-bridge.  Every public entry point takes ``device=None``, which means
+(`obstacles.mapping` and the g++-built `native` library), perception
+(`perception/`), the ROS-facing I/O layer (`io/`), the data-parallel fleet
+over `torch.distributed` (`parallel/`), `utils/` (metrics, profiling,
+checkpoints), the command line (`cli.py`), the associative-scan LQR
+(`ops/lqr_pt.py`), and the numpy bridge.  Every public entry point takes ``device=None``, which means
 ``"cuda"``; pass ``device="cpu"`` to run on the CPU.
 """
 

@@ -40,7 +40,9 @@ class FleetMetrics(NamedTuple):
     mean_cost: torch.Tensor
 
 
-def _require_group() -> None:
+def require_group() -> None:
+    """Raise unless a default process group is initialized (the mesh
+    constructors would otherwise start one from the environment)."""
     if not dist.is_initialized():
         raise RuntimeError(
             "no process group: call torch.distributed.init_process_group (or "
@@ -50,7 +52,7 @@ def _require_group() -> None:
 def make_mesh(device_type=None, axis_name: str = "data") -> DeviceMesh:
     """1-D mesh over every rank of the initialized group.  ``device_type``
     None means "cuda" (raising without CUDA); "cpu" for gloo on the CPU."""
-    _require_group()
+    require_group()
     dev = resolve_device(device_type)
     return init_device_mesh(dev.type, (dist.get_world_size(),), mesh_dim_names=(axis_name,))
 
@@ -111,7 +113,6 @@ def make_fleet_solver(cfg: MPCConfig, mesh: DeviceMesh, axis_name: AxisName = "d
     every rank calls the solver once per step, as every device runs the
     reference's `shard_map` body.
     """
-    _require_group()
     group = mesh_group(mesh, axis_name)
     device = mesh_device(mesh)
 
@@ -130,7 +131,6 @@ def make_fleet_env_stepper(cfg: MPCConfig, params, mesh: DeviceMesh,
     Each rank runs `environment.fleet_step` on its own episodes; the
     metrics are reduced over the ``axis_name`` group.
     """
-    _require_group()
     group = mesh_group(mesh, axis_name)
     device = mesh_device(mesh)
 

@@ -30,7 +30,7 @@ from torch.distributed.tensor import Shard
 
 from .._device import resolve_device
 from .._tree import leaves, tree_map
-from .fleet import mesh_device, mesh_group
+from .fleet import mesh_device, mesh_group, require_group
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -69,8 +69,7 @@ def make_pod_mesh(ranks_per_host: Optional[int] = None, device_type=None) -> Dev
     """2-D ("host", "chip") mesh over every rank, ``ranks_per_host`` ranks
     per host (default: `LOCAL_WORLD_SIZE`, else all ranks on one host).
     ``device_type`` None means "cuda"; "cpu" for gloo on the CPU."""
-    if not dist.is_initialized():
-        raise RuntimeError("no process group: call initialize_distributed first")
+    require_group()
     dev = resolve_device(device_type)
     world = dist.get_world_size()
     per_host = ranks_per_host or int(os.environ.get("LOCAL_WORLD_SIZE", world))
