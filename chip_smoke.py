@@ -237,10 +237,10 @@ DP_TICKS = 10
 GROUP_TIMEOUT_S = 120.0
 # Phase 14: the associative-scan LQR.  Each scenario's KKT residual
 # (`ops/lqr.py::kkt_residual`) relative to its data's largest magnitude, on
-# phase 2's data.  Sound solves sit far below the limits (on an H100, two
-# runs: f32 1.3e-6 and 7.8e-6, f64 1.8e-10 and 8.7e-10; the Riccati kernel
-# up to 1.9e-6 / 3.3e-8), planted faults far above
-# (`scripts/lqr_pt_accuracy.py --faults`: 0.24 or more).
+# phase 2's data.  Sound solves sit far below the limits (on an H100: f32
+# 7.8e-6, f64 8.7e-10, the Riccati kernel 1.9e-6, 3.3e-8; on the scenarios
+# of `scripts/lqr_pt_accuracy.py --batch 8192`: 1.3e-6, 1.8e-10), planted
+# faults far above (its `--faults`: 0.24 or more).
 LQR_PT_KKT_REL = {"float32": 1e-3, "float64": 1e-6}
 # Phase 15: the CLI and the utils.
 DEMO_TICKS = 60
