@@ -109,12 +109,23 @@ Phases, each a hard failure with a non-zero exit:
 12. the single-robot node: `io.Model` at the node's defaults (N=7,
    planning dt 0.8, 40 iterations) with 4 obstacle slots, driven by
    `io.pubsub.ControlLoop` for 50 ticks (odometry every tick, the walk's
-   tracked humans from `io.frames.replay_session` every 10); tick p50 and
-   p99 against the 10 ms period of the node's 100 Hz timer; Riccati
-   launches per tick (must equal the iterations run) and their CUDA-event
-   share of a tick; gates: the first 10 ticks' commands within 1e-3 of the
-   CPU port's on the same inputs, and the kernel against its plain version
-   by phase 2's gate on one tick's LQR data (B=1, N=7);
+   tracked humans from `io.frames.replay_session` every 10), its tick one
+   CUDA graph (`solver/graph.py`: captured at the first tick, replayed
+   after it); tick p50 and p99 of ticks 2-50 against the 10 ms period of
+   the node's 100 Hz timer, the first tick (warm-up and capture) apart;
+   the same walk and
+   odometry on the eager path on the card (`graph.eager()`), its p50 and
+   p99; one eager tick under the profiler (kernels, idle share, kernel
+   launches by op) and 3 replayed ticks, each traced alone (kernels, idle
+   share, host syncs, Riccati kernels and their time); the tick's program
+   eagerly under `torch.cuda.set_sync_debug_mode("error")`; gates: one
+   graph for the 50 ticks, Riccati launches per tick equal to the
+   iterations run on both paths, the captured commands bitwise equal to
+   the eager ones, each replayed tick's trace showing exactly 40 Riccati
+   kernels, as its launch counter does, and at most 8 host syncs (one per
+   leaf read back), the first 10 ticks' commands within 1e-3 of the CPU
+   port's on the same inputs, and the kernel against its plain version by
+   phase 2's gate on one tick's LQR data (B=1, N=7);
 13. the data-parallel fleet (`parallel.fleet`) over a one-rank NCCL group
    from an in-process store: `make_fleet_solver` on the K=8 cell at B=8192
    bitwise equal to `solve_batch` and its `FleetMetrics` equal to that
@@ -132,13 +143,22 @@ Phases, each a hard failure with a non-zero exit:
    output, in float32 reported (not conditioned for the method); each timed
    beside the kernel, the backward scan apart from the forward recovery,
    and one call's kernels at N=2000 counted by the profiler;
-15. the CLI on the card: `demo --ticks 60`, `map` and `lab --batch 256
-   --ticks 50` on phase 9's synthetic map (written again from its seed),
-   each returning 0; one fleet tick (B=4096) in `utils.profiling.trace`
+15. the CLI on the card: `agent.step`'s program at the demo's
+   configuration under the sync debug mode; `demo --ticks 60` (every tick
+   one replay of `agent.step`'s CUDA graph: one graph captured), `map` and
+   `lab --batch 256 --ticks 50` on phase 9's synthetic map (written again
+   from its seed), each returning 0; one fleet tick (B=4096) in `utils.profiling.trace`
    with an `annotate("fleet_tick")` span, whose trace must name the span
    and the fused kernel; `measure` on `solve_batch` (K=8, B=8192); a
    `FleetCheckpoint` of the fleet's EnvState saved, restored onto the card
-   bitwise, and its next tick bitwise equal to the uninterrupted one.
+   bitwise, and its next tick bitwise equal to the uninterrupted one;
+16. `make_solver` captured (one CUDA graph) against the eager `ipm.solve`
+   on k8_dyn2 (split, N=50, float32, 32 iterations) at B=8192: its program
+   under the sync debug mode, the first call (warm-up and capture) timed,
+   then 5 eager calls and 5 replays in turns, each bitwise equal to the
+   eager result, the first result unchanged by them, p50 of both, and one
+   replay's Riccati kernels by the profiler equal to its launch counter's
+   32.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -225,6 +245,8 @@ PERCEPTION_TOL = 1e-5  # m, centres and track positions
 NODE_TICKS = 50
 NODE_PERIOD_MS = 10.0
 NODE_CHECK_TICKS = 10
+NODE_PROFILED = 3  # replayed ticks traced one by one
+NODE_LEAVES_READ = 8  # states, controls and the six diagnostics, one read each
 NODE_CMD_TOL = 1e-3
 NODE_FIRST_FRAME = 20  # the walker is confirmed and ahead of the robot
 NODE_PLAN = ((1.5, 0.4, 0.0), (3.0, 0.0, 0.0))
@@ -246,6 +268,8 @@ LQR_PT_KKT_REL = {"float32": 1e-3, "float64": 1e-6}
 DEMO_TICKS = 60
 CLI_LAB_BATCH = 256
 CLI_LAB_TICKS = 50
+# Phase 16: make_solver's eager calls and replays, in turns.
+CAPTURED_CALLS = 5
 # The earlier fused kernel (one thread per scenario, iterate in global
 # scratch) at each solve stage, (B, iterations): ms, CUDA events around the
 # wrapper's call, NVIDIA H100 80GB HBM3 at 700 W (recorded in PERF.md).
@@ -1777,31 +1801,95 @@ def phase_perception(tmpdir):
 
 
 @contextlib.contextmanager
-def riccati_events():
-    """Time every Riccati launch the split IPM makes inside the block with
-    CUDA events (the wrapper's packing included); yields the list of
-    (start, end) it appends to."""
+def sync_checked_programs():
+    """Inside the block every program an entry point hands `graph.run` (the
+    region a CUDA graph captures) runs eagerly on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that any host
+    synchronisation in it raises; yields the list of the programs' keys."""
     import torch
 
-    from kissmpc_tpu_torch.solver import ipm
+    from kissmpc_tpu_torch.solver import graph
 
-    real = ipm.solve_lqr_cuda
-    events = []
+    real, ran = graph.run, []
 
-    def timed(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(*args, **kwargs)
-        end.record()
-        events.append((start, end))
-        return out
+    def checked(key, fn, device, *inputs):
+        def strict(*args):
+            before = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(before)
+            ran.append(key[0])
+            return out
 
-    ipm.solve_lqr_cuda = timed
+        return real(key, strict, device, *inputs)
+
+    graph.run = checked
     try:
-        yield events
+        with graph.eager():
+            yield ran
     finally:
-        ipm.solve_lqr_cuda = real
+        graph.run = real
+
+
+def bitwise_equal(a, b):
+    """Equal shapes, dtypes and bits (NaN equal to the same NaN)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    return bool(torch.equal(a, b))
+
+
+def profile_call(fn):
+    """One call of ``fn`` under `torch.profiler`, ended by a synchronise.
+    Returns its wall ms, the card's events (kernels apart from copies and
+    fills), busy ms and idle share, the Riccati kernels and their ms, the
+    host's synchronisations (`cudaStreamSynchronize` and synchronous
+    `cudaMemcpy`; the closing `torch.cuda.synchronize` is not one of them)
+    and every CUDA runtime call by name; and the profiler."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = [e for e in events if e.device_type.name == "CUDA"]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    riccati = [e for e in kernels if "riccati_kernel" in e.name]
+    runtime = collections.Counter(e.name for e in events
+                                  if e.device_type.name == "CPU" and e.name.startswith("cuda"))
+    busy_ms = sum(e.device_time for e in device) / 1e3
+    return {"wall_ms": wall_ms, "device_events": len(device), "kernels": len(kernels),
+            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "riccati_kernels": len(riccati),
+            "riccati_ms": sum(e.device_time for e in riccati) / 1e3,
+            "host_syncs": runtime["cudaStreamSynchronize"] + runtime["cudaMemcpy"],
+            "runtime_calls": dict(runtime)}, prof
+
+
+def launches_by_op(prof, top=30):
+    """The host's kernel launches in a profile, by the operator that made
+    them (the innermost `aten::` op around the launch; a launch outside any,
+    such as the Riccati wrapper's ctypes call, under "(no op)")."""
+    import collections
+
+    count = collections.Counter()
+    for e in prof.events():
+        if e.device_type.name == "CPU" and "LaunchKernel" in e.name:
+            parent = e.cpu_parent
+            count[parent.name if parent is not None else "(no op)"] += 1
+    return dict(count.most_common(top))
 
 
 def node_obstacles(walk_path, device):
@@ -1857,66 +1945,117 @@ def node_loop(device, ticks, obstacles, odoms=None):
 
 
 def phase_node(tmpdir):
-    """The single-robot node tick on the card: NODE_TICKS ticks with their
-    Riccati launches counted and timed; its commands against the CPU port;
-    the kernel against its plain version on one tick's LQR data."""
+    """The single-robot node tick on the card, captured: NODE_TICKS ticks
+    with their Riccati launches counted, one CUDA graph for all of them;
+    the same walk on the eager path on the card, its commands bitwise
+    equal; one eager and NODE_PROFILED replayed ticks under the profiler;
+    the tick's program under the sync debug mode; the commands against the
+    CPU port; the kernel against its plain version on one tick's LQR data."""
     import torch
 
     from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+    from kissmpc_tpu_torch.solver import graph
 
     walk = f"{tmpdir}/walk.npz"
     obstacles = node_obstacles(walk, "cuda")
+    graphs = graph.captured()
     solve_lqr_cuda.launches = 0
-    with riccati_events() as events:
-        commands, poses, lat, (loop, odom) = node_loop("cuda", NODE_TICKS, obstacles)
+    commands, poses, lat, (loop, odom) = node_loop("cuda", NODE_TICKS, obstacles)
     torch.cuda.synchronize()
     model = loop.model
     iters = model.cfg.solver.iterations
-    launches = solve_lqr_cuda.launches
+    launches, new_graphs = solve_lqr_cuda.launches, graph.captured() - graphs
     if launches != iters * NODE_TICKS:
         fail(f"node: {launches} Riccati launches in {NODE_TICKS} ticks, expected "
              f"{iters} per tick")
-    ric_ms = [sum(s.elapsed_time(e) for s, e in events[t * iters:(t + 1) * iters])
-              for t in range(NODE_TICKS)]
-    share = [r / t for r, t in zip(ric_ms, lat)]
+    if new_graphs != 1:
+        fail(f"node: {new_graphs} CUDA graphs captured in {NODE_TICKS} ticks, expected 1")
     if not np.isfinite(commands).all():
         fail("node: non-finite command")
-    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
-    result = {"ticks": NODE_TICKS, "horizon": model.cfg.horizon,
-              "iterations": iters, "tick_p50_ms": p50, "tick_p99_ms": p99,
+
+    # The same walk and odometry on the eager path on the card.
+    solve_lqr_cuda.launches = 0
+    with graph.eager():
+        eager_cmds, _, eager_lat, (eager_loop, eager_odom) = node_loop(
+            "cuda", NODE_TICKS, obstacles, odoms=poses)
+    torch.cuda.synchronize()
+    same = np.array_equal(eager_cmds, commands)
+    eager_gap = float(np.abs(eager_cmds - commands).max())
+    if solve_lqr_cuda.launches != iters * NODE_TICKS:
+        fail(f"node, eager: {solve_lqr_cuda.launches} Riccati launches in {NODE_TICKS} ticks")
+    # Percentiles of the ticks after the first (whose warm-up and capture
+    # are reported apart), on both paths.
+    p50, p99 = float(np.percentile(lat[1:], 50)), float(np.percentile(lat[1:], 99))
+    e50, e99 = (float(np.percentile(eager_lat[1:], 50)),
+                float(np.percentile(eager_lat[1:], 99)))
+    result = {"ticks": NODE_TICKS, "horizon": model.cfg.horizon, "iterations": iters,
+              "graphs_captured": new_graphs, "tick_p50_ms": p50, "tick_p99_ms": p99,
               "first_tick_ms": lat[0], "period_ms": NODE_PERIOD_MS,
               "p50_over_period": p50 / NODE_PERIOD_MS,
+              "eager_tick_p50_ms": e50, "eager_tick_p99_ms": e99,
+              "eager_first_tick_ms": eager_lat[0], "eager_over_captured_p50": e50 / p50,
               "riccati_launches_per_tick": launches // NODE_TICKS,
-              "riccati_ms_per_tick_p50": float(np.percentile(ric_ms, 50)),
-              "riccati_share_mean": float(np.mean(share)),
+              "eager_commands_bitwise_equal": same, "eager_max_command_gap": eager_gap,
               "converged_last": bool(model.last_diagnostics.converged),
               "last_command": commands[-1].tolist()}
-    log(f"[12] node tick (N={model.cfg.horizon}, {iters} iterations, B=1): p50 {p50:.3f} ms, "
-        f"p99 {p99:.3f} ms against the {NODE_PERIOD_MS} ms period of the 100 Hz timer "
-        f"({p50 / NODE_PERIOD_MS:.2f}x); {launches // NODE_TICKS} Riccati launches per tick, "
-        f"their CUDA-event time {result['riccati_ms_per_tick_p50']:.4f} ms per tick, "
-        f"{result['riccati_share_mean']:.5f} of a tick")
+    log(f"[12] node tick (N={model.cfg.horizon}, {iters} iterations, B=1), captured, ticks "
+        f"2-{NODE_TICKS}: p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms against the {NODE_PERIOD_MS} ms period of the 100 Hz "
+        f"timer ({p50 / NODE_PERIOD_MS:.2f}x); first tick (warm-up and capture) {lat[0]:.3f} ms; "
+        f"{new_graphs} graph; {launches // NODE_TICKS} Riccati launches per tick. Eager on the "
+        f"card, same walk: p50 {e50:.3f} ms, p99 {e99:.3f} ms ({e50 / p50:.2f}x the captured "
+        f"p50); commands bitwise equal to the captured ones: {same} (largest gap "
+        f"{eager_gap:.3e})")
+    if not same:
+        fail(f"node: captured commands differ from the eager card path's by {eager_gap:.3e}")
 
-    # One more tick under the profiler: kernels, the card's busy share and
-    # the host's synchronising calls.
-    from torch.profiler import ProfilerActivity, profile
+    # One eager tick and NODE_PROFILED replayed ticks under the profiler.
+    eager_odom.publish(poses[-1])
+    with graph.eager():
+        eager_prof, prof = profile_call(eager_loop.tick)
+    by_op = launches_by_op(prof)
+    replayed = []
+    for k in range(NODE_PROFILED):
+        odom.publish(poses[-1 - k])
+        before = solve_lqr_cuda.launches
+        stats, _ = profile_call(loop.tick)
+        stats["counted_riccati"] = solve_lqr_cuda.launches - before
+        replayed.append(stats)
+        log(f"[12] replayed node tick {k} under the profiler: {json.dumps(stats)}")
+        if not stats["riccati_kernels"] == stats["counted_riccati"] == iters:
+            fail(f"node: a replayed tick ran {stats['riccati_kernels']} Riccati kernels by the "
+                 f"trace and {stats['counted_riccati']} by the counter, expected {iters}")
+        if stats["host_syncs"] > NODE_LEAVES_READ:
+            fail(f"node: a replayed tick synchronised {stats['host_syncs']} times, more than "
+                 f"the {NODE_LEAVES_READ} leaves it reads back")
+    rep = {key: float(np.median([r[key] for r in replayed]))
+           for key in ("wall_ms", "kernels", "busy_ms", "idle_share", "riccati_ms",
+                       "host_syncs")}
+    # Kernels a tick could keep and fit the period, at its mean kernel time.
+    keep = int(rep["kernels"] * NODE_PERIOD_MS / rep["busy_ms"])
+    result.update(eager_profiled=eager_prof, eager_kernels_per_iteration=
+                  eager_prof["kernels"] / iters, eager_launches_by_op=by_op,
+                  replayed_profiled=replayed, replayed_median=rep,
+                  idle_share_at_p50=1.0 - rep["busy_ms"] / p50,
+                  kernels_within_period=keep, kernels_to_remove=rep["kernels"] - keep)
+    log(f"[12] one eager node tick under the profiler: {json.dumps(eager_prof)}; "
+        f"{eager_prof['kernels'] / iters:.1f} kernels per iteration")
+    log(f"[12] the eager tick's kernel launches by op: {json.dumps(by_op)}")
+    log(f"[12] replayed ticks (median of {NODE_PROFILED}): {rep['wall_ms']:.3f} ms, "
+        f"{rep['kernels']:.0f} kernels, card busy {rep['busy_ms']:.3f} ms (idle "
+        f"{rep['idle_share']:.5f}; against the unprofiled p50 "
+        f"{result['idle_share_at_p50']:.5f}), {rep['host_syncs']:.0f} host syncs, Riccati "
+        f"{rep['riccati_ms']:.4f} ms; at the mean kernel time {keep} kernels fit the "
+        f"{NODE_PERIOD_MS} ms period, {rep['kernels'] - keep:.0f} fewer than now")
 
-    odom.publish(poses[-1])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loop.tick()
+    # The tick's program eagerly under the sync debug mode.
+    eager_odom.publish(poses[0])
+    with sync_checked_programs() as ran:
+        eager_loop.tick()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    kernels = [e for e in events if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.device_time for e in kernels) / 1e3
-    runtime = {name: sum(1 for e in events if e.name == name)
-               for name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
-    result.update(profiled_tick_ms=wall_ms, profiled_kernels=len(kernels),
-                  profiled_busy_ms=busy_ms, profiled_runtime_calls=runtime)
-    log(f"[12] one node tick under the profiler: {wall_ms:.3f} ms, {len(kernels)} kernels, "
-        f"card busy {busy_ms:.4f} ms (idle {1 - busy_ms / wall_ms:.5f}); runtime calls "
-        f"{runtime}")
+    if ran != ["io.Model"]:
+        fail(f"node: the sync-checked tick ran the programs {ran}")
+    log("[12] the node tick's program ran on the card under set_sync_debug_mode('error')")
 
     # The same inputs on the CPU port: odometry and humans as the card saw them.
     cpu_cmds, _, cpu_lat, _ = node_loop("cpu", NODE_CHECK_TICKS, node_obstacles(walk, "cpu"),
@@ -2152,15 +2291,28 @@ def phase_utils_cli(tmpdir, cfg, pool):
 
     import torch
 
-    from kissmpc_tpu_torch import cli, environment, solve_batch
+    from kissmpc_tpu_torch import MPCConfig, cli, environment, solve_batch
+    from kissmpc_tpu_torch import agent as agent_mod
     from kissmpc_tpu_torch._tree import leaves
+    from kissmpc_tpu_torch.agent import AgentParams
     from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
     from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+    from kissmpc_tpu_torch.solver import graph
     from kissmpc_tpu_torch.solver.problem import gather
     from kissmpc_tpu_torch.utils import profiling
     from kissmpc_tpu_torch.utils.checkpoint import CheckpointManager, FleetCheckpoint
 
     result = {}
+    # The demo's tick program (`agent.step` at its defaults: N=20, dt 0.1,
+    # no obstacles) eagerly under the sync debug mode.
+    dcfg = MPCConfig(horizon=20, time_step=0.1)
+    start = agent_mod.init_agent(dcfg, [0.0, 0.0, 0.0], [1.2, 0.4, 0.0])
+    with sync_checked_programs() as ran:
+        agent_mod.step(dcfg, AgentParams(radius=0.15), start)
+        torch.cuda.synchronize()
+    if ran != ["agent.step"]:
+        fail(f"the sync-checked agent.step ran the programs {ran}")
+    log("[15] agent.step's program ran on the card under set_sync_debug_mode('error')")
     path = f"{tmpdir}/synthetic_lab.pgm"
     write_synthetic_map(path)  # phase 9's map: the same shape and seed
     for name, argv in (("demo", ["demo", "--ticks", str(DEMO_TICKS)]),
@@ -2168,19 +2320,25 @@ def phase_utils_cli(tmpdir, cfg, pool):
                        ("lab", ["lab", "--map", path, "--batch", str(CLI_LAB_BATCH),
                                 "--ticks", str(CLI_LAB_TICKS)])):
         solve_batch_fused.launches = solve_lqr_cuda.launches = 0
+        graphs = graph.captured()
         t0 = time.perf_counter()
         rc = cli.main(argv)
         result[f"{name}_s"] = time.perf_counter() - t0
         launches = {"fused": solve_batch_fused.launches, "riccati": solve_lqr_cuda.launches}
         result[f"{name}_launches"] = launches
+        result[f"{name}_graphs"] = graph.captured() - graphs
         log(f"[15] cli {' '.join(argv[:1] + argv[2:] if name == 'map' else argv)}: rc {rc} in "
-            f"{result[f'{name}_s']:.3f} s; kernel launches {launches}")
+            f"{result[f'{name}_s']:.3f} s; kernel launches {launches}; CUDA graphs captured "
+            f"{result[f'{name}_graphs']}")
         if rc != 0:
             fail(f"cli {name} returned {rc}")
-        # demo solves split (the agent's make_solver), lab through fleet_step.
+        # demo solves split (agent.step's program, one CUDA graph), lab
+        # through fleet_step (eager).
         kernel = {"demo": "riccati", "lab": "fused"}.get(name)
         if kernel and not launches[kernel]:
             fail(f"cli {name} never launched the {kernel} kernel")
+        if name == "demo" and result["demo_graphs"] != 1:
+            fail(f"cli demo captured {result['demo_graphs']} CUDA graphs, expected 1")
     circles = np.load(f"{tmpdir}/circles.npz")
     if not (len(circles["radii"]) > 0 and np.isfinite(circles["centers"]).all()):
         fail("cli map wrote no circles")
@@ -2227,6 +2385,94 @@ def phase_utils_cli(tmpdir, cfg, pool):
     if not (same_state and same_tick and on_card):
         fail("the checkpoint did not resume the fleet bitwise")
     result.update(checkpoint_save_s=save_s)
+    return result
+
+
+def phase_captured_solver(cfg, pool):
+    """Phase 16: `make_solver` (one CUDA graph) against the eager
+    `ipm.solve` on ``cfg`` (k8_dyn2 on split, N=50, float32) at B=8192:
+    its program under the sync debug mode, the first call (warm-up and
+    capture) timed, every result bitwise equal to the eager one, the first
+    unchanged by later calls, CAPTURED_CALLS eager calls and replays in
+    turns, and one replay's Riccati kernels by the profiler."""
+    import torch
+
+    from kissmpc_tpu_torch import make_solver
+    from kissmpc_tpu_torch._tree import leaves
+    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+    from kissmpc_tpu_torch.solver import graph
+    from kissmpc_tpu_torch.solver.problem import gather
+
+    idx = torch.as_tensor(np.random.default_rng(16).permutation(POOL)[:BATCH], device="cuda")
+    batch = gather(pool, idx)
+    iters = cfg.solver.iterations
+    solve = make_solver(cfg)
+    with sync_checked_programs() as ran:
+        ref = solve(batch)
+        torch.cuda.synchronize()
+    if ran != ["make_solver"]:
+        fail(f"the sync-checked make_solver ran the programs {ran}")
+    log(f"[16] make_solver's program (B={BATCH}) ran on the card under "
+        f"set_sync_debug_mode('error')")
+
+    def timed(eager):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with graph.eager() if eager else contextlib.nullcontext():
+            sol = solve(batch)
+        torch.cuda.synchronize()
+        return sol, (time.perf_counter() - t0) * 1e3
+
+    def same(sol):
+        return all(bitwise_equal(a, b) for a, b in zip(leaves(sol), leaves(ref)))
+
+    graphs = graph.captured()
+    solve_lqr_cuda.launches = 0
+    first, first_ms = timed(False)
+    kept = [x.clone() for x in leaves(first)]
+    eager_ms, replay_ms, equal = [], [], [same(first)]
+    for _ in range(CAPTURED_CALLS):
+        sol, ms = timed(True)
+        eager_ms.append(ms)
+        equal.append(same(sol))
+        sol, ms = timed(False)
+        replay_ms.append(ms)
+        equal.append(same(sol))
+    launches = solve_lqr_cuda.launches
+    expected = iters * (1 + 2 * CAPTURED_CALLS)
+    unchanged = all(bitwise_equal(a, b) for a, b in zip(leaves(first), kept))
+    before = solve_lqr_cuda.launches
+    stats, _ = profile_call(lambda: solve(batch))
+    counted = solve_lqr_cuda.launches - before
+    result = {"batch": BATCH, "horizon": N, "iterations": iters,
+              "graphs_captured": graph.captured() - graphs, "first_call_ms": first_ms,
+              "eager_p50_ms": float(np.percentile(eager_ms, 50)),
+              "replay_p50_ms": float(np.percentile(replay_ms, 50)),
+              "eager_ms": eager_ms, "replay_ms": replay_ms,
+              "bitwise_equal": all(equal), "first_result_unchanged": unchanged,
+              "riccati_launches": launches, "replay_profiled": stats,
+              "replay_riccati_counted": counted,
+              "converged_fraction": float(ref.diagnostics.converged.float().mean())}
+    result["eager_over_replay_p50"] = result["eager_p50_ms"] / result["replay_p50_ms"]
+    log(f"[16] make_solver k8_dyn2 split, N={N}, f32, B={BATCH}, {iters} iterations: first "
+        f"call (warm-up and capture) {first_ms:.3f} ms; p50 eager ipm.solve "
+        f"{result['eager_p50_ms']:.3f} ms, replay {result['replay_p50_ms']:.3f} ms "
+        f"({result['eager_over_replay_p50']:.3f}x); bitwise equal to eager in all "
+        f"{len(equal)} calls: {all(equal)}; first result unchanged: {unchanged}; one replay "
+        f"under the profiler: {stats['riccati_kernels']} Riccati kernels (counter {counted}), "
+        f"{stats['kernels']} kernels, idle {stats['idle_share']:.5f}")
+    if result["graphs_captured"] != 1:
+        fail(f"make_solver captured {result['graphs_captured']} graphs, expected 1")
+    if not all(equal):
+        fail("make_solver's replay differs from the eager ipm.solve")
+    if not unchanged:
+        fail("a later make_solver call changed the first call's result")
+    if launches != expected:
+        fail(f"make_solver: {launches} Riccati launches counted, expected {expected}")
+    if not stats["riccati_kernels"] == counted == iters:
+        fail(f"make_solver: a replay ran {stats['riccati_kernels']} Riccati kernels by the "
+             f"trace and {counted} by the counter, expected {iters}")
+    log("[16] captured solver: " + json.dumps(result))
     return result
 
 
@@ -2295,8 +2541,13 @@ def main():
     with tempfile.TemporaryDirectory() as tmpdir:
         utils_cli = phase_utils_cli(tmpdir, fused_cfgs["k8_dyn2"], pools["k8_dyn2"])
     utils_cli["phase_s"] = time.perf_counter() - t0 - t1 - t2
-    log(f"phases 13-15 took {t1:.3f} / {t2:.3f} / {utils_cli['phase_s']:.3f} s")
-    riccati.update(cli_demo_launches=utils_cli["demo_launches"]["riccati"])
+    t0 = time.perf_counter()
+    captured = phase_captured_solver(split_cfgs["k8_dyn2"], pools["k8_dyn2"])
+    captured["phase_s"] = time.perf_counter() - t0
+    log(f"phases 13-16 took {t1:.3f} / {t2:.3f} / {utils_cli['phase_s']:.3f} / "
+        f"{captured['phase_s']:.3f} s")
+    riccati.update(cli_demo_launches=utils_cli["demo_launches"]["riccati"],
+                   captured_solver_launches=captured["riccati_launches"])
 
     # The fused row is the K=8 cell's, with the elastic branch's numbers
     # beside it; its launches are the fused main path's (all three cells).
@@ -2319,6 +2570,7 @@ def main():
                     "fleet": fleet, "planner": planner, "lab_worlds": lab,
                     "perception_tick": perception, "node_tick": node,
                     "data_parallel": data_parallel, "lqr_pt": lqr_pt, "utils_cli": utils_cli,
+                    "captured_solver": captured,
                     "total_s": time.perf_counter() - t_start}))
     log(smi)
     log(json.dumps({"kernels": [riccati, probe, fused_k8]}))

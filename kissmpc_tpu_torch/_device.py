@@ -21,6 +21,18 @@ def pin_full_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def constant(values, dtype, device) -> torch.Tensor:
+    """A row of Python numbers as a tensor on ``device``, made there by one
+    fill per entry: no host value is copied to the card, so the row can be
+    made inside a CUDA graph's capture.  Each fill rounds its number to
+    ``dtype`` as ``torch.tensor(values, dtype=dtype)`` does; a finite number
+    beyond the dtype's range raises where that gives inf."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; raise when CUDA is asked for but absent."""
     dev = torch.device("cuda" if device is None else device)

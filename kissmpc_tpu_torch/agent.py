@@ -19,7 +19,8 @@ from ._device import resolve_device
 from .config import MPCConfig
 from .obstacles import ObstacleSet, empty
 from .obstacles import to_device as obstacles_to
-from .solver.api import make_solver
+from .solver import graph, ipm
+from .solver.api import _check_lqr_backend
 from .solver.problem import Diagnostics, Problem, Solution, problem_with_obstacles
 
 
@@ -191,12 +192,25 @@ def step(cfg: MPCConfig, params: AgentParams, agent: AgentState,
          obstacles: Optional[ObstacleSet] = None, state_override=False, *,
          device=None) -> Tuple[AgentState, Diagnostics]:
     """One receding-horizon tick (`EgoAgent.step`, `mpc/agent.py:130-155`)
-    for every agent of the batch, solved by `make_solver` (the split IPM) as
-    the reference's `agent.step` uses `ipm.solve`.  Fleets batch the tick
-    through `environment.fleet_step` (the configured backend, with
-    refinement).  ``device=None`` runs on the card; the state is moved
-    there."""
+    for every agent of the batch, solved by the split IPM (`ipm.solve`) as
+    the reference's `agent.step` is.  Fleets batch the tick through
+    `environment.fleet_step` (the configured backend, with refinement).
+    ``device=None`` runs on the card; the state is moved there, and the
+    problem build and the solve run as one CUDA graph per shape
+    (`solver/graph.py`), which the CLI `demo` replays every tick."""
+    _check_lqr_backend(cfg)
     dev = resolve_device(device)
     agent = to_device(agent, dev)
-    problem = build_problem(cfg, params, agent, obstacles_to(obstacles, dev), state_override)
-    return apply_solution(params, agent, make_solver(cfg, device=dev)(problem))
+    obstacles = obstacles_to(obstacles, dev)
+    override = state_override if isinstance(state_override, torch.Tensor) else None
+    n_agent, n_obs = len(AgentState._fields), 0 if obstacles is None else len(obstacles)
+
+    def program(*leaves) -> Solution:
+        obs = ObstacleSet(*leaves[n_agent:n_agent + n_obs]) if n_obs else None
+        problem = build_problem(cfg, params, AgentState(*leaves[:n_agent]), obs,
+                                state_override if override is None else leaves[-1])
+        return ipm.solve(cfg, problem)
+
+    key = ("agent.step", cfg, params, n_obs, bool(state_override) if override is None else None)
+    inputs = (*agent, *(obstacles or ()), *(() if override is None else (override,)))
+    return apply_solution(params, agent, graph.run(key, program, dev, *inputs))

@@ -48,6 +48,8 @@ def _cmd_demo(args) -> int:
     agg = MetricsAggregator()
     for tick in range(args.ticks):
         t0 = time.perf_counter()
+        # On the card the tick's problem build and solve replay one CUDA
+        # graph (`agent.step`), as the reference jits its stepper.
         env, info = env_mod.step(cfg, params, env, obstacles, device=dev)
         block_until_ready(env)
         agg.record_tick(time.perf_counter() - t0, info.diagnostics)

@@ -13,12 +13,16 @@ for plan ingestion (`:171-174`).
 
 This class provides exactly that surface as a thin mutable adapter over the
 functional core: each tick builds the robot's Problem as a batch of one and
-solves it by the port's `make_solver` (the split IPM: one Riccati kernel
-launch per iteration on the card), with odometry and plan updates folded in
-between ticks (single-threaded by construction: the reference's
-odom-callback/timer race, SURVEY.md 5.2, cannot occur because the host loop
-owns all mutation).  The plan and the commands come back to the host as
-numpy every tick: they are the node's output.
+solves it by the split IPM (one Riccati kernel launch per iteration on the
+card), with odometry and plan updates folded in between ticks
+(single-threaded by construction: the reference's odom-callback/timer race,
+SURVEY.md 5.2, cannot occur because the host loop owns all mutation).  On
+the card the problem build and the solve are one CUDA graph, captured at
+the first tick and replayed after it (`solver/graph.py`), as the reference
+jits both (`kissmpc_tpu/io/model.py:97`): the tick's numpy inputs are
+copied into the graph's static inputs, and the plan, the commands and the
+diagnostics come back to the host as numpy, one read per leaf: they are the
+node's output.
 
 Array-layout note: the reference keeps states/controls column-major
 ([3, N+1] / [2, N], `mpc/optimizer.py:62-68`); this surface preserves that
@@ -36,7 +40,7 @@ from .._device import resolve_device
 from ..agent import AgentParams
 from ..config import MPCConfig
 from ..obstacles import ObstacleSet, empty
-from ..solver.api import make_solver
+from ..solver import graph, ipm
 from ..solver.problem import problem_with_obstacles
 
 
@@ -96,8 +100,7 @@ class Model:
         self.linear_velocity = 0.0
         self.angular_velocity = 0.0
         self._obstacles: Optional[ObstacleSet] = None
-
-        self._solver = make_solver(self.cfg, device=self.device)
+        self.set_obstacles(None)
 
     # -- reference `Agent` surface -----------------------------------------
 
@@ -147,11 +150,19 @@ class Model:
 
     def set_obstacles(self, obstacles: Optional[ObstacleSet]) -> None:
         """Install the current obstacle population (e.g. from perception):
-        an `ObstacleSet` of tensors with [K] leaves, moved to the model's
-        device; None clears it."""
-        self._obstacles = (None if obstacles is None else
-                           ObstacleSet(*(torch.as_tensor(x).to(self.device, self.dtype)
-                                         for x in obstacles)))
+        an `ObstacleSet` with [K] leaves, copied into the model's buffer on
+        its device (a new buffer when K changes); None clears it to
+        ``max_obstacles`` empty slots."""
+        if obstacles is None:
+            obstacles = empty(self.cfg.max_obstacles, self.dtype, "cpu")
+        new = [torch.as_tensor(x) for x in obstacles]
+        held = self._obstacles
+        if held is None or any(h.shape != x.shape for h, x in zip(held, new)):
+            self._obstacles = ObstacleSet(
+                *(x.to(self.device, self.dtype, copy=True) for x in new))
+        else:
+            for h, x in zip(held, new):
+                h.copy_(x)
 
     def step(self, state_override: bool = False) -> None:
         """One control tick (`ROS2Interface.run` path, `ros2interface.py:51-61`).
@@ -164,29 +175,11 @@ class Model:
         """
         if not self.use_warm_start:
             self.reset(matrices_only=True, to_initial_state=False)
-        obstacles = (
-            self._obstacles
-            if self._obstacles is not None
-            else empty(self.cfg.max_obstacles, self.dtype, self.device)
-        )
         start = self.initial_state if state_override else self.state
-        params, dev, dtype = self.params, self.device, self.dtype
-        tensor = lambda x: torch.as_tensor(x, dtype=dtype).to(dev)[None]  # noqa: E731
-        problem = problem_with_obstacles(
-            self.cfg,
-            tensor(start),
-            tensor(self.goal_state),
-            ObstacleSet(*(x[None] for x in obstacles)),
-            sensor_radius=params.sensor_radius,
-            control_bounds=params.control_bounds,
-            state_bounds=params.state_bounds,
-            inflation_radius=params.inflation_radius,
-            warm_states=tensor(self._states),
-            warm_controls=tensor(self._controls),
-            dtype=dtype,
-            device=dev,
-        )
-        sol = self._solver(problem)
+        inputs = [torch.as_tensor(x, dtype=self.dtype)[None]
+                  for x in (start, self.goal_state, self._states, self._controls)]
+        problem, sol = graph.run(("io.Model", self.cfg, self.params, self.dtype),
+                                 self._program, self.device, *inputs, *self._obstacles)
         self.last_problem = problem
         self._states = sol.states[0].cpu().numpy().astype(np.float64)
         self._controls = sol.controls[0].cpu().numpy().astype(np.float64)
@@ -198,3 +191,23 @@ class Model:
         if self.at_goal and self.waypoint_index < len(self.waypoints) - 1:
             self.waypoint_index += 1
             self.update_goal(self.current_waypoint())
+
+    def _program(self, start, goal, warm_states, warm_controls, *obstacles):
+        """The tick on the device: the robot's Problem (a batch of one) and
+        its split solve, the reference's jitted `_solve`."""
+        params = self.params
+        problem = problem_with_obstacles(
+            self.cfg,
+            start,
+            goal,
+            ObstacleSet(*(x[None] for x in obstacles)),
+            sensor_radius=params.sensor_radius,
+            control_bounds=params.control_bounds,
+            state_bounds=params.state_bounds,
+            inflation_radius=params.inflation_radius,
+            warm_states=warm_states,
+            warm_controls=warm_controls,
+            dtype=self.dtype,
+            device=start.device,
+        )
+        return problem, ipm.solve(self.cfg, problem)

@@ -7,8 +7,11 @@ reference citations.  Every function takes leading batch axes:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from .._device import constant
 from ..config import CostConfig
 
 
@@ -22,8 +25,15 @@ def _goal_mask(cfg: CostConfig, horizon: int, like: torch.Tensor) -> torch.Tenso
     return mask.to(like.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _weights_on(weights: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The goal weights on ``device``, made once per (weights, dtype,
+    device) and never freed: a captured CUDA graph reads them in place."""
+    return constant(weights, dtype, device)
+
+
 def _weights(cfg: CostConfig, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(cfg.goal_weights, dtype=like.dtype, device=like.device)
+    return _weights_on(tuple(cfg.goal_weights), like.dtype, like.device)
 
 
 def total_cost(

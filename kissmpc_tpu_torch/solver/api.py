@@ -1,9 +1,11 @@
 """Public solve API: batched solve with staged tail refinement (torch).
 
-Port of `kissmpc_tpu/solver/api.py`.  PyTorch runs eagerly, so
-`make_solver` and `make_batch_solver` return plain closures over the config;
-`solve_batch` runs the configured backend and then each refinement stage,
-`make_solver` the split IPM (`ipm.solve`) alone.
+Port of `kissmpc_tpu/solver/api.py`.  `make_solver` runs the split IPM
+(`ipm.solve`) alone, on the card as one CUDA graph per problem shape
+(`graph.py`), the counterpart of the reference's `jax.jit`;
+`make_batch_solver` returns a plain closure over the config, and
+`solve_batch` runs the configured backend and then each refinement stage
+eagerly.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from .._device import resolve_device
 from ..config import MPCConfig
 from ..ops.ipm_fused import solve_batch_fused
-from . import ipm
+from . import graph, ipm
 from .problem import Diagnostics, Problem, Solution, gather, to_device
 
 
@@ -32,13 +34,18 @@ def make_solver(cfg: MPCConfig, *, device=None):
     """Solver closed over the config: Problem -> Solution by the split IPM,
     with no refinement, as the reference's single-scenario `make_solver`
     runs `ipm.solve`.  The port's builders make a single scenario as a batch
-    of one, and any batch works.  ``device=None`` runs on the card; the
-    problems are moved there."""
+    of one, and any batch works.  ``device=None`` runs on the card, where
+    the solve is captured into a CUDA graph at the first call for each
+    shape and replayed after it (`graph.run`); the problems are moved
+    there."""
     _check_lqr_backend(cfg)
     dev = resolve_device(device)
 
+    def program(*leaves) -> Solution:
+        return ipm.solve(cfg, Problem(*leaves))
+
     def solve(problem: Problem) -> Solution:
-        return ipm.solve(cfg, to_device(problem, dev))
+        return graph.run(("make_solver", cfg), program, dev, *problem)
 
     return solve
 

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._device import resolve_device
+from .._device import constant, resolve_device
 from ..config import MPCConfig
 
 
@@ -60,6 +60,12 @@ def to_device(problem: Problem, device) -> Problem:
     return Problem(*(x.to(device) for x in problem))
 
 
+def _one_hot(index: torch.Tensor, K: int, dtype) -> torch.Tensor:
+    """``one_hot(index, K).to(dtype)`` without `one_hot`'s check of the index
+    range, which reads the indices back to the host."""
+    return (index[..., None] == torch.arange(K, device=index.device)).to(dtype)
+
+
 def repair_warm_start(
     warm_states: torch.Tensor,  # [B, N+1, 3]
     obstacle_centers: torch.Tensor,  # [B, K, N, 2]
@@ -79,7 +85,7 @@ def repair_warm_start(
     centers = obstacle_centers.transpose(1, 2)  # [B, N, K, 2]
     active = obstacle_mask[:, None, :] > 0.5
     K = obstacle_radii.shape[1]
-    right = torch.tensor([1.0, 0.0], dtype=dtype, device=states.device)
+    right = constant((1.0, 0.0), dtype, states.device)
 
     for _ in range(passes):
         p = states[:, 1:, :2]  # [B, N, 2]
@@ -88,9 +94,7 @@ def repair_warm_start(
         push = torch.where(
             active, torch.clamp(needed - dist, min=0.0), torch.zeros_like(dist)
         )
-        onehot = torch.nn.functional.one_hot(
-            torch.argmax(push, dim=-1), K
-        ).to(dtype)  # [B, N, K]
+        onehot = _one_hot(torch.argmax(push, dim=-1), K, dtype)  # [B, N, K]
         push_star = torch.sum(push * onehot, dim=-1)
         diff_star = torch.sum(diff * onehot[..., None], dim=-2)
         dist_star = torch.clamp(torch.sum(dist * onehot, dim=-1), min=eps)
@@ -211,7 +215,13 @@ def complete_warm_start(
 
 
 def _batch_of(x, shape, dtype, device) -> torch.Tensor:
-    """``x`` as a tensor of ``shape`` (leading batch axis), broadcasting."""
+    """``x`` as a tensor of ``shape`` (leading batch axis), broadcasting.
+    A Python number, or a tuple or list of them, is made on the device
+    (`_device.constant`), not copied from the host."""
+    if isinstance(x, (int, float)):
+        return torch.full(shape, x, dtype=dtype, device=device)
+    if isinstance(x, (tuple, list)) and all(isinstance(v, (int, float)) for v in x):
+        x = constant(x, dtype, device)
     return torch.as_tensor(x, dtype=dtype, device=device).broadcast_to(shape).contiguous()
 
 
