@@ -47,38 +47,52 @@ Phases, each a hard failure with a non-zero exit:
    stage's (B, iterations)
    of the three cells and of the fleet loop, beside the recorded time of
    the earlier one-thread-per-scenario kernel there;
-5. drive the main path, `solve_batch` with the default ("fused") backend, at
-   the benchmark's configurations (`bench.py`): N=50, B=8192, float32,
-   32 IPM iterations plus staged refinement, obstacle-free and K=8 circles
-   with 2 dynamic tracks, and k8_dyn2_elastic.  One warm-up and 5 timed
-   calls each, on distinct batches drawn from a pool of 16384.  Every call
-   launches the fused kernel once per solve stage and the Riccati kernel
-   never.  Then the same for the "split" backend (free and K=8), whose
-   Riccati launches must equal the IPM iterations run, and one call each of
-   split with mehrotra "pc" and "soc" on the free configuration, whose
-   Riccati launches must equal twice the iterations run;
+5. drive the main path, `make_batch_solver` (the benchmark's entry point,
+   one CUDA graph per configuration: the base solve and every refine
+   stage) with the default ("fused") backend, beside the eager
+   `solve_batch` on the same batches, at the benchmark's configurations
+   (`bench.py`): N=50, B=8192, float32, 32 IPM iterations plus staged
+   refinement, obstacle-free and K=8 circles with 2 dynamic tracks, and
+   k8_dyn2_elastic.  A warm-up batch solved by the program eagerly under
+   `torch.cuda.set_sync_debug_mode("error")` and by the first captured
+   call (warm-up and capture, timed), then 5 distinct batches drawn from a
+   pool of 16384, each solved eagerly and by a replay in turns, timed,
+   bitwise equal; one replay under the profiler (kernels, busy time, idle
+   share; its fused and Riccati kernels equal to the counters').  Every
+   call launches the fused kernel once per solve stage and the Riccati
+   kernel never.  Then the same for the "split" backend (free and K=8),
+   whose Riccati launches must equal the IPM iterations run, and one eager
+   call each of split with mehrotra "pc" and "soc" on the free
+   configuration, whose Riccati launches must equal twice the iterations
+   run;
 6. check 64 scenarios of each configuration against the port's CPU path:
    the fused kernel against its plain version on the CPU in float32, the
    split path in float64 and float32, and in float64 the split path with
    elastic obstacles and with mehrotra "pc" and "soc";
 7. the closed loop: `environment.fleet_step` plus `obstacles.advance` per
-   tick at the configuration of `scripts/bench_fleet_episodes.py` (N=50,
-   K=8, 32 iterations plus two refine stages, B=4096 episode worlds routed
-   by the "grid" router, the batched grid planner on a 96-cell grid with 3
-   route points per leg, 50 ticks), 3 fused launches per tick, each
-   launch timed by CUDA events to give the fused stages' share of a tick;
-   the world build's time and its fraction of reachable legs; one replan
-   from the current poses at the middle tick (as the bench's, timed, and
-   left out of the tick latencies); a short loop on "detour" worlds for
-   that router's tick time beside it; then 64 episodes x 5 ticks on the
-   card and on the CPU port, whose waypoint indices must match on 95% of
-   episode-ticks and whose executed states must agree within 1e-3 on 95%
-   of them;
-8. the planner: `plan_waypoint_chain` and `bottleneck_clearance` timed at
-   the fleet's B=4096 on the card, then 64 episodes on the card and on the
-   CPU port: leg reachability equal, route points within 1e-4 m and
-   clearances within 1e-5 m on at least 63 of 64 episodes (the log names
-   any that differ);
+   tick as one CUDA graph (`fleet_tick`, as scripts/bench_fleet_episodes.py:169
+   jits it; its program first under the sync debug mode) at the
+   configuration of `scripts/bench_fleet_episodes.py` (N=50, K=8, 32
+   iterations plus two refine stages, B=4096 episode worlds routed by the
+   "grid" router, the batched grid planner on a 96-cell grid with 3 route
+   points per leg, 50 ticks: the first a warm-up and capture, reported
+   apart), 3 fused launches per tick; the first 10 ticks also eagerly on a
+   copy of the state, bitwise equal to the replays; one replayed tick under
+   the profiler for the fused stages' share of a tick; the world build's
+   time and its fraction of reachable legs; one replan from the current
+   poses at the middle tick (as the bench's, timed, and left out of the
+   tick latencies); a short loop on "detour" worlds for that router's tick
+   time beside it; then 64 episodes x 5 ticks on the card and on the CPU
+   port, whose waypoint indices must match on 95% of episode-ticks and
+   whose executed states must agree within 1e-3 on 95% of them;
+8. the planner at the fleet's B=4096 on the card, its grid fields one CUDA
+   graph each: the world build, the replan and `bottleneck_clearance`,
+   each eagerly under the sync debug mode, then captured (or replayed) and
+   replayed, timed, bitwise equal to the eager run; one eager and one
+   replayed `plan_waypoint_chain` under the profiler (kernels, idle share);
+   then 64 episodes on the card and on the CPU port: leg reachability
+   equal, route points within 1e-4 m and clearances within 1e-5 m on at
+   least 63 of 64 episodes (the log names any that differ);
 9. `lab_worlds` on a synthetic 820 x 1520 px P5 map written from a seed
    into a temporary directory (rrc_lab's ~41 x 76 m at 0.05 m per pixel):
    B=4096 worlds built on the card and timed, and 64 episodes on the card
@@ -127,12 +141,15 @@ Phases, each a hard failure with a non-zero exit:
    port's on the same inputs, and the kernel against its plain version by
    phase 2's gate on one tick's LQR data (B=1, N=7);
 13. the data-parallel fleet (`parallel.fleet`) over a one-rank NCCL group
-   from an in-process store: `make_fleet_solver` on the K=8 cell at B=8192
-   bitwise equal to `solve_batch` and its `FleetMetrics` equal to that
-   call's diagnostics', its collectives per call, p50 of 5 calls beside
-   `solve_batch`'s; `make_fleet_env_stepper` for 10 ticks at B=4096 (grid
-   worlds) with its EnvState bitwise equal to `fleet_step`'s every tick,
-   both ticks' p50; `multihost.health_check` True within its timeout;
+   from an in-process store, each fleet call one CUDA graph with its two
+   `all_reduce`s (each program first under the sync debug mode):
+   `make_fleet_solver` on the K=8 cell at B=8192 bitwise equal to the
+   captured `make_batch_solver` and its `FleetMetrics` equal to that
+   call's diagnostics', 2 collectives counted per replay, p50 of 5 calls
+   beside `make_batch_solver`'s; `make_fleet_env_stepper` for 10 ticks at
+   B=4096 (grid worlds) with its EnvState and obstacles bitwise equal to
+   phase 7's captured tick's every tick, both ticks' p50;
+   `multihost.health_check` True within its timeout;
 14. the associative-scan LQR (`ops/lqr_pt.py`) against the Riccati kernel
    on phase 2's data (N=50, B=8192, float32 and float64) and phase 10's
    (N=2000, B=1025, float64 and float32): on phase 2's data each
@@ -144,11 +161,13 @@ Phases, each a hard failure with a non-zero exit:
    beside the kernel, the backward scan apart from the forward recovery,
    and one call's kernels at N=2000 counted by the profiler;
 15. the CLI on the card: `agent.step`'s program at the demo's
-   configuration under the sync debug mode; `demo --ticks 60` (every tick
-   one replay of `agent.step`'s CUDA graph: one graph captured), `map` and
-   `lab --batch 256 --ticks 50` on phase 9's synthetic map (written again
-   from its seed), each returning 0; one fleet tick (B=4096) in `utils.profiling.trace`
-   with an `annotate("fleet_tick")` span, whose trace must name the span
+   configuration and `lab --ticks 1`'s programs under the sync debug mode;
+   `demo --ticks 60` (every tick one replay of `agent.step`'s CUDA graph:
+   one graph captured), `map` and `lab --batch 256 --ticks 50` (every tick
+   one replay of its `fleet_step` graph, 3 fused launches per tick) on
+   phase 9's synthetic map (written again from its seed), each returning
+   0; one fleet tick (B=4096) in `utils.profiling.trace` with an
+   `annotate("fleet_tick")` span, whose trace must name the span
    and the fused kernel; `measure` on `solve_batch` (K=8, B=8192); a
    `FleetCheckpoint` of the fleet's EnvState saved, restored onto the card
    bitwise, and its next tick bitwise equal to the uninterrupted one;
@@ -210,6 +229,7 @@ FLEET_CHECK = (64, 5)  # episodes x ticks held against the CPU port
 FLEET_PLANNER_GRID = 96
 FLEET_POINTS_PER_LEG = 3
 DETOUR_TICKS = 10  # the short loop on "detour" worlds, for its tick time
+FLEET_EAGER_TICKS = 10  # eager ticks on a copy of the state, held to the replays
 # Phases 8 and 9: episodes planned on the card and on the CPU port, at
 # least PLANNER_AGREE of them within the tolerances.
 PLANNER_CHECK = 64
@@ -923,13 +943,18 @@ def timed_stages(cfg, batch):
 
 
 def phase_main_path(backend, cfgs, pools, calls):
-    """``calls`` timed solve_batch calls per configuration after a warm-up,
-    with the launch counts of both kernels read around every call; the
-    counts are set to 0 before the first configuration and read after the
-    last."""
+    """`make_batch_solver` (one CUDA graph per configuration) and the eager
+    `solve_batch` on the same batches, in turns: the program once under
+    the sync debug mode with a warm-up batch, then the first captured call
+    (warm-up and capture) on it, then ``calls`` batches, each solved
+    eagerly and by a replay, timed, bitwise equal, with the launch counts of
+    both kernels read around every call; then one replay under the
+    profiler.  The counts are set to 0 before the first configuration and
+    read after the last."""
     import torch
 
-    from kissmpc_tpu_torch import solve_batch
+    from kissmpc_tpu_torch import make_batch_solver, solve_batch
+    from kissmpc_tpu_torch._tree import leaves
     from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
     from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
     from kissmpc_tpu_torch.solver.problem import gather
@@ -946,44 +971,80 @@ def phase_main_path(backend, cfgs, pools, calls):
         else:
             its = cfg.solver.iterations + sum(it for _, it, _ in cfg.solver.refine_stages)
             expected = {"fused": 0, "riccati": its}
-        lat, conv, usable = [], [], []
-        for call in range(1 + calls):
-            idx = torch.as_tensor(rng.permutation(POOL)[:BATCH], device="cuda")
-            batch = gather(pool, idx)
+        solver = make_batch_solver(cfg)
+
+        def call(fn, batch, what):
             torch.cuda.synchronize()
             before = (solve_batch_fused.launches, solve_lqr_cuda.launches)
             t0 = time.perf_counter()
-            sol = solve_batch(cfg, batch)
+            sol = fn(batch)
             torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t0
+            ms = (time.perf_counter() - t0) * 1e3
             launched = {"fused": solve_batch_fused.launches - before[0],
                         "riccati": solve_lqr_cuda.launches - before[1]}
             if launched != expected:
-                fail(f"{backend} {name}: launches {launched}, expected {expected}")
+                fail(f"{backend} {name} {what}: launches {launched}, expected {expected}")
             if sol.controls.shape != (BATCH, N, 2) or sol.states.shape != (BATCH, N + 1, 3):
                 fail(f"{name}: solution shapes {sol.states.shape} {sol.controls.shape}")
             if not (torch.isfinite(sol.controls).all() and torch.isfinite(sol.states).all()):
                 fail(f"{name}: non-finite solution")
+            return sol, ms
+
+        def same(a, b):
+            return all(bitwise_equal(x, y) for x, y in zip(leaves(a), leaves(b), strict=True))
+
+        eager_ms, replay_ms, conv, usable = [], [], [], []
+        for i in range(1 + calls):
+            idx = torch.as_tensor(rng.permutation(POOL)[:BATCH], device="cuda")
+            batch = gather(pool, idx)
+            if i == 0:  # the warm-up batch
+                with sync_checked_programs() as ran:
+                    ref, ms = call(solver, batch, "sync-checked")
+                if ran != ["make_batch_solver"]:
+                    fail(f"the sync-checked make_batch_solver ran the programs {ran}")
+                sol, first_ms = call(solver, batch, "first call")
+                log(f"[5] {backend} {name}: the program (eager, {ms:.3f} ms) ran under "
+                    f"set_sync_debug_mode('error'); first captured call (warm-up and "
+                    f"capture) {first_ms:.3f} ms")
+            else:
+                ref, ms = call(lambda b: solve_batch(cfg, b), batch, "eager")
+                eager_ms.append(ms)
+                sol, ms = call(solver, batch, "replay")
+                replay_ms.append(ms)
+            if not same(sol, ref):
+                fail(f"{backend} {name} call {i}: make_batch_solver differs from the eager "
+                     f"solve_batch")
             frac = float(sol.diagnostics.converged.float().mean())
             use = float((sol.diagnostics.kkt_feasibility <= 1e-2).float().mean())
-            log(f"[5] {backend} {name} call {call}{' (warm-up)' if call == 0 else ''}: "
-                f"{elapsed * 1e3:.3f} ms, converged {frac:.5f}, usable {use:.5f}, "
-                f"launches {launched}")
-            if call:
-                lat.append(elapsed * 1e3)
+            if i:
                 conv.append(frac)
                 usable.append(use)
-        p50 = float(np.percentile(lat, 50))
+                log(f"[5] {backend} {name} call {i}: eager {eager_ms[-1]:.3f} ms, replay "
+                    f"{replay_ms[-1]:.3f} ms, bitwise equal, converged {frac:.5f}, usable "
+                    f"{use:.5f}, launches {expected} each")
+        before = (solve_batch_fused.launches, solve_lqr_cuda.launches)
+        prof, _ = profile_call(lambda: solver(batch))
+        launched = (solve_batch_fused.launches - before[0], solve_lqr_cuda.launches - before[1])
+        if (prof["fused_kernels"], prof["riccati_kernels"]) != launched:
+            fail(f"{backend} {name}: a profiled replay ran {prof['fused_kernels']} fused and "
+                 f"{prof['riccati_kernels']} Riccati kernels, counted {launched}")
+        p50 = float(np.percentile(replay_ms, 50))
         results[name] = {
             "backend": backend,
             "batch": BATCH,
             "calls": calls,
-            "latency_p50_ms": p50,
-            "latency_max_ms": max(lat),
+            "first_call_ms": first_ms,
+            "replay_p50_ms": p50,
+            "replay_max_ms": max(replay_ms),
+            "eager_p50_ms": float(np.percentile(eager_ms, 50)),
+            "eager_max_ms": max(eager_ms),
             "solves_per_s": BATCH / (p50 / 1e3),
             "converged_fraction": float(np.mean(conv)),
             "usable_fraction": float(np.mean(usable)),
             "launches_per_call": expected,
+            "replay_kernels": prof["kernels"],
+            "replay_busy_ms": prof["busy_ms"],
+            "replay_idle_share": prof["idle_share"],
         }
         log(f"[5] {backend} {name}: " + json.dumps(results[name]))
     floors = {"free": 0.95, "k8_dyn2": 0.90, "k8_dyn2_elastic": 0.90}
@@ -1152,12 +1213,23 @@ def replan(env, circles, inflation, device):
 
 
 def fleet_tick(cfg, params, env, obstacles, device):
-    """One closed-loop tick: the fleet's solves, then the world moves."""
+    """One closed-loop tick, the fleet's solves and then the world's move,
+    as one program through `graph.run` (scripts/bench_fleet_episodes.py:169
+    jits it): one CUDA graph per shape on the card, eager on the CPU and
+    inside `graph.eager()`.  Returns (env, obstacles, info)."""
     from kissmpc_tpu_torch import environment
+    from kissmpc_tpu_torch._tree import leaves, unflatten
     from kissmpc_tpu_torch.obstacles import advance
+    from kissmpc_tpu_torch.solver import graph
 
-    env, info = environment.fleet_step(cfg, params, env, obstacles, device=device)
-    return env, advance(obstacles, cfg.time_step), info
+    like = (env, obstacles)
+
+    def program(*tensors):
+        env, obstacles = unflatten(like, tensors)
+        env, info = environment.fleet_step(cfg, params, env, obstacles, device=device)
+        return env, advance(obstacles, cfg.time_step), info
+
+    return graph.run(("fleet_tick", cfg, params), program, device, *leaves(like))
 
 
 def phase_fleet():
@@ -1166,9 +1238,11 @@ def phase_fleet():
     the card against the CPU port."""
     import torch
 
+    from kissmpc_tpu_torch._tree import leaves
     from kissmpc_tpu_torch.obstacles import clearance_to_point
     from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
     from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+    from kissmpc_tpu_torch.solver import graph
 
     cfg, params = fleet_config()
     t0 = time.perf_counter()
@@ -1181,61 +1255,87 @@ def phase_fleet():
         f"with every leg reachable {float(reach.all(axis=1).mean()):.5f}")
     circles = static_circles(obstacles)
     expected = 1 + len(cfg.solver.refine_stages)
+    with sync_checked_programs() as ran:
+        fleet_tick(cfg, params, env, obstacles, "cuda")
+        torch.cuda.synchronize()
+    if ran != ["fleet_tick"]:
+        fail(f"the sync-checked fleet tick ran the programs {ran}")
+    log("[7] the tick's program ran on the card under set_sync_debug_mode('error')")
     solve_batch_fused.launches = 0
     solve_lqr_cuda.launches = 0
-    lat, conv, usable, clear, stage_ms = [], [], [], [], []
+    lat, eager_lat, conv, usable, clear = [], [], [], [], []
     replan_s, replan_reach = None, None
     ever_final = torch.zeros(FLEET_BATCH, dtype=torch.bool, device="cuda")
-    with stage_events() as events:
-        for tick in range(FLEET_TICKS):
-            if tick == FLEET_TICKS // 2:
-                # The bench's replan pause, left out of the tick latencies.
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                env, replan_reach = replan(env, circles, params.inflation_radius, "cuda")
-                torch.cuda.synchronize()
-                replan_s = time.perf_counter() - t0
-                log(f"[7] replan at tick {tick} from the current poses: {replan_s:.3f} s, "
-                    f"reachable {float(replan_reach.mean()):.5f}")
-            before, n_events = solve_batch_fused.launches, len(events)
+    eager = (env, obstacles)  # the eager ticks' own copy of the state
+    graphs = graph.captured("fleet_tick")
+    for tick in range(FLEET_TICKS):
+        if tick == FLEET_TICKS // 2:
+            # The bench's replan pause, left out of the tick latencies.
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            env, obstacles, info = fleet_tick(cfg, params, env, obstacles, "cuda")
+            env, replan_reach = replan(env, circles, params.inflation_radius, "cuda")
             torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-            stage_ms.append([(b, s.elapsed_time(e)) for b, s, e in events[n_events:]])
-            launched = solve_batch_fused.launches - before
-            if launched != expected:
-                fail(f"fleet tick {tick}: {launched} fused launches, expected {expected}")
-            states = env.agent.states_matrix
-            if not bool(torch.isfinite(states).all()):
-                fail(f"fleet tick {tick}: non-finite executed plan")
-            clr = clearance_to_point(obstacles, states[:, 1, :2], params.radius)
-            conv.append(float(info.diagnostics.converged.float().mean()))
-            usable.append(float((info.diagnostics.kkt_feasibility <= params.fallback_feasibility)
-                                .float().mean()))
-            clear.append(float(clr.min()))
-            ever_final |= info.final_goal_reached
-            if tick % 10 == 0 or tick == FLEET_TICKS - 1:
-                log(f"[7] tick {tick}: {lat[-1]:.3f} ms, converged {conv[-1]:.5f}, usable "
-                    f"{usable[-1]:.5f}, min clearance {clear[-1]:.4f} m, final goal reached "
-                    f"{float(ever_final.float().mean()):.5f}")
+            replan_s = time.perf_counter() - t0
+            log(f"[7] replan at tick {tick} from the current poses: {replan_s:.3f} s, "
+                f"reachable {float(replan_reach.mean()):.5f}")
+        before = solve_batch_fused.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env, obstacles, info = fleet_tick(cfg, params, env, obstacles, "cuda")
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        launched = solve_batch_fused.launches - before
+        if launched != expected:
+            fail(f"fleet tick {tick}: {launched} fused launches, expected {expected}")
+        if tick < FLEET_EAGER_TICKS:
+            t0 = time.perf_counter()
+            with graph.eager():
+                out = fleet_tick(cfg, params, *eager, "cuda")
+            torch.cuda.synchronize()
+            eager_lat.append((time.perf_counter() - t0) * 1e3)
+            if not all(bitwise_equal(a, b) for a, b in zip(leaves((env, obstacles, info)),
+                                                          leaves(out), strict=True)):
+                fail(f"fleet tick {tick}: the replay differs from the eager tick")
+            eager = out[:2]
+        states = env.agent.states_matrix
+        if not bool(torch.isfinite(states).all()):
+            fail(f"fleet tick {tick}: non-finite executed plan")
+        clr = clearance_to_point(obstacles, states[:, 1, :2], params.radius)
+        conv.append(float(info.diagnostics.converged.float().mean()))
+        usable.append(float((info.diagnostics.kkt_feasibility <= params.fallback_feasibility)
+                            .float().mean()))
+        clear.append(float(clr.min()))
+        ever_final |= info.final_goal_reached
+        if tick % 10 == 0 or tick == FLEET_TICKS - 1:
+            log(f"[7] tick {tick}: {lat[-1]:.3f} ms, converged {conv[-1]:.5f}, usable "
+                f"{usable[-1]:.5f}, min clearance {clear[-1]:.4f} m, final goal reached "
+                f"{float(ever_final.float().mean()):.5f}")
+    if graph.captured("fleet_tick") != graphs + 1:
+        fail("the fleet loop did not run as one CUDA graph")
+    # One replayed tick under the profiler: the fused stages' share of it
+    # (CUDA events cannot be recorded inside a captured tick).
+    prof, _ = profile_call(lambda: fleet_tick(cfg, params, env, obstacles, "cuda"))
+    if prof["fused_kernels"] != expected:
+        fail(f"a profiled fleet tick ran {prof['fused_kernels']} fused kernels")
     if solve_lqr_cuda.launches:
         fail("the fused fleet loop launched the Riccati kernel")
     fused_launches = solve_batch_fused.launches
-    p50 = float(np.percentile(lat, 50))
-    # Share of each tick's host-clock time spent inside the fused stages
-    # (CUDA events around each launch): the card's busy share, to within
-    # the problem construction's small kernels.
-    share = [sum(ms for _, ms in st) / t for st, t in zip(stage_ms, lat)]
-    log(f"[7] fused stages of the last tick (B, ms): {stage_ms[-1]}; their share of a "
-        f"tick: mean {float(np.mean(share)):.5f}, min {min(share):.5f}")
+    p50 = float(np.percentile(lat[1:], 50))
+    eager_p50 = float(np.percentile(eager_lat, 50))
+    log(f"[7] one replayed tick under the profiler: {prof['kernels']} kernels, busy "
+        f"{prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} ms (idle {prof['idle_share']:.5f}), "
+        f"the 3 fused kernels {prof['fused_ms']:.3f} ms ({prof['fused_ms'] / prof['wall_ms']:.5f}"
+        f" of the tick); tick p50 {p50:.3f} ms replayed (first tick, warm-up and capture, "
+        f"{lat[0]:.3f} ms) against {eager_p50:.3f} ms for the {FLEET_EAGER_TICKS} eager ticks, "
+        f"bitwise equal")
     result = {
         "batch": FLEET_BATCH,
         "ticks": FLEET_TICKS,
         "tick_p50_ms": p50,
-        "tick_max_ms": max(lat),
+        "tick_max_ms": max(lat[1:]),
         "first_tick_ms": lat[0],
+        "eager_ticks": FLEET_EAGER_TICKS,
+        "eager_tick_p50_ms": eager_p50,
         "solves_per_s": FLEET_BATCH / (p50 / 1e3),
         "converged_fraction_mean": float(np.mean(conv)),
         "usable_fraction_mean": float(np.mean(usable)),
@@ -1243,8 +1343,8 @@ def phase_fleet():
         "min_clearance_m": min(clear),
         "fused_launches_per_tick": expected,
         "fused_launches": fused_launches,
-        "fused_stage_share_mean": float(np.mean(share)),
-        "last_tick_stage_ms": stage_ms[-1],
+        "replay_profiled": prof,
+        "fused_stage_share": prof["fused_ms"] / prof["wall_ms"],
         "router": "grid",
         "world_build_s": build_s,
         "leg_reachable_fraction": float(reach.mean()),
@@ -1254,7 +1354,7 @@ def phase_fleet():
     }
 
     # The "detour" router's tick time beside it: a short loop on its worlds
-    # (6 route points per episode instead of 12).
+    # (6 route points per episode instead of 12), its first tick a capture.
     env_d, obs_d, _ = fleet_worlds(cfg, FLEET_BATCH, 0, "cuda", router="detour")
     detour = []
     for _ in range(DETOUR_TICKS):
@@ -1263,7 +1363,7 @@ def phase_fleet():
         env_d, obs_d, _ = fleet_tick(cfg, params, env_d, obs_d, "cuda")
         torch.cuda.synchronize()
         detour.append((time.perf_counter() - t0) * 1e3)
-    result["detour_tick_p50_ms"] = float(np.percentile(detour, 50))
+    result["detour_tick_p50_ms"] = float(np.percentile(detour[1:], 50))
     result["detour_ticks"] = DETOUR_TICKS
     log("[7] fleet: " + json.dumps(result))
 
@@ -1339,32 +1439,67 @@ def compare_routes(label, card, cpu, tol=PLANNER_POINT_TOL):
 
 
 def phase_planner():
-    """The planner at the fleet's size on the card, timed, then
-    PLANNER_CHECK episodes on the card against the CPU port."""
+    """The planner at the fleet's size on the card: the world build, the
+    replan and `bottleneck_clearance`, each through its CUDA graphs and
+    eagerly (under the sync debug mode), timed, bitwise equal; one eager
+    plan and one replayed plan under the profiler; then PLANNER_CHECK
+    episodes on the card against the CPU port."""
     import torch
 
     from kissmpc_tpu_torch.planner import bottleneck_clearance, plan_waypoint_chain
+    from kissmpc_tpu_torch.solver import graph
 
     cfg, params = fleet_config()
     infl = params.inflation_radius
     kw = dict(points_per_leg=FLEET_POINTS_PER_LEG, grid=FLEET_PLANNER_GRID)
     starts, wps, centers, radii, static = planner_inputs(cfg, FLEET_BATCH, 2)
-    plan_s, clear_s = [], []
-    for _ in range(2):  # the first call includes the card's warm-up
+    env, obstacles, _ = fleet_worlds(cfg, FLEET_BATCH, 0, "cuda")
+    circles = static_circles(obstacles)
+
+    def build():
+        return fleet_worlds(cfg, FLEET_BATCH, 0, "cuda")[0].waypoints
+
+    def replanned():
+        return replan(env, circles, infl, "cuda")[0].waypoints
+
+    def clearance():
+        return torch.as_tensor(bottleneck_clearance(starts, wps[:, -1], centers, radii, static,
+                                                    infl, grid=FLEET_PLANNER_GRID))
+
+    def timed(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, reach = plan_waypoint_chain(starts, wps, centers, radii, static, infl, **kw)
-        plan_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        w = bottleneck_clearance(starts, wps[:, -1], centers, radii, static, infl,
-                                 grid=FLEET_PLANNER_GRID)
-        clear_s.append(time.perf_counter() - t0)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    times, graphs = {}, graph.captured()
+    for name, fn in (("world_build", build), ("replan", replanned), ("clearance", clearance)):
+        with sync_checked_programs() as ran:
+            ref, eager_s = timed(fn)
+        first, first_s = timed(fn)  # a capture where phase 7 has not made the shape
+        again, replay_s = timed(fn)
+        if not (ran and bitwise_equal(first, ref) and bitwise_equal(again, ref)):
+            fail(f"the planner's {name}: its replay differs from the eager run, or no program "
+                 f"ran under the sync debug mode ({ran})")
+        times[name] = {"eager_s": eager_s, "first_s": first_s, "replay_s": replay_s}
+        log(f"[8] {name} B={FLEET_BATCH} G={FLEET_PLANNER_GRID}: eager {eager_s:.4f} s (programs "
+            f"{ran} under set_sync_debug_mode('error')), first call {first_s:.4f} s, replay "
+            f"{replay_s:.4f} s, bitwise equal")
+    out, reach = plan_waypoint_chain(starts, wps, centers, radii, static, infl, **kw)
     if not (np.isfinite(out).all() and out.shape == (FLEET_BATCH, 12, 3)):
         fail(f"the planner's chain is {out.shape} or not finite")
-    log(f"[8] plan_waypoint_chain B={FLEET_BATCH} W=3 G={FLEET_PLANNER_GRID} on the card: "
-        f"{plan_s[-1]:.4f} s (first call {plan_s[0]:.4f} s), reachable legs "
-        f"{float(reach.mean()):.5f}; bottleneck_clearance: {clear_s[-1]:.4f} s (first "
-        f"{clear_s[0]:.4f} s), median margin {float(np.median(w)):.4f} m")
+    plan = lambda: plan_waypoint_chain(starts, wps, centers, radii, static, infl, **kw)  # noqa: E731
+    with graph.eager():
+        eager_prof, _ = profile_call(plan)
+    replay_prof, _ = profile_call(plan)
+    log(f"[8] plan_waypoint_chain B={FLEET_BATCH} W=3 under the profiler: eager "
+        f"{eager_prof['kernels']} kernels, busy {eager_prof['busy_ms']:.3f} of "
+        f"{eager_prof['wall_ms']:.3f} ms (idle {eager_prof['idle_share']:.5f}); replayed "
+        f"{replay_prof['kernels']} kernels, busy {replay_prof['busy_ms']:.3f} of "
+        f"{replay_prof['wall_ms']:.3f} ms (idle {replay_prof['idle_share']:.5f}); reachable "
+        f"legs {float(reach.mean()):.5f}; graphs captured in this phase "
+        f"{graph.captured() - graphs}")
 
     n = PLANNER_CHECK
     sub = tuple(x[:n] for x in (starts, wps, centers, radii, static))
@@ -1384,8 +1519,8 @@ def phase_planner():
         f"{bad.tolist()}; the CPU port planned {n} episodes in {cpu_s:.3f} s")
     if n - len(bad) < PLANNER_AGREE:
         fail("bottleneck clearances on the card and on the CPU disagree")
-    return {"batch": FLEET_BATCH, "grid": FLEET_PLANNER_GRID, "plan_s": plan_s[-1],
-            "plan_first_s": plan_s[0], "clearance_s": clear_s[-1],
+    return {"batch": FLEET_BATCH, "grid": FLEET_PLANNER_GRID, "times": times,
+            "eager_plan_profiled": eager_prof, "replayed_plan_profiled": replay_prof,
             "reachable_fraction": float(reach.mean()), "route_max_diff": route_max,
             "clearance_max_diff": float(dw.max())}
 
@@ -1848,8 +1983,8 @@ def bitwise_equal(a, b):
 def profile_call(fn):
     """One call of ``fn`` under `torch.profiler`, ended by a synchronise.
     Returns its wall ms, the card's events (kernels apart from copies and
-    fills), busy ms and idle share, the Riccati kernels and their ms, the
-    host's synchronisations (`cudaStreamSynchronize` and synchronous
+    fills), busy ms and idle share, the Riccati and the fused kernels and
+    their ms, the host's synchronisations (`cudaStreamSynchronize` and synchronous
     `cudaMemcpy`; the closing `torch.cuda.synchronize` is not one of them)
     and every CUDA runtime call by name; and the profiler."""
     import collections
@@ -1867,6 +2002,7 @@ def profile_call(fn):
     device = [e for e in events if e.device_type.name == "CUDA"]
     kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
     riccati = [e for e in kernels if "riccati_kernel" in e.name]
+    fused = [e for e in kernels if "ipm_fused_kernel" in e.name]
     runtime = collections.Counter(e.name for e in events
                                   if e.device_type.name == "CPU" and e.name.startswith("cuda"))
     busy_ms = sum(e.device_time for e in device) / 1e3
@@ -1874,6 +2010,7 @@ def profile_call(fn):
             "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
             "riccati_kernels": len(riccati),
             "riccati_ms": sum(e.device_time for e in riccati) / 1e3,
+            "fused_kernels": len(fused), "fused_ms": sum(e.device_time for e in fused) / 1e3,
             "host_syncs": runtime["cudaStreamSynchronize"] + runtime["cudaMemcpy"],
             "runtime_calls": dict(runtime)}, prof
 
@@ -2076,101 +2213,124 @@ def phase_node(tmpdir):
 
 def phase_data_parallel(cfg, pool):
     """Phase 13: `parallel.fleet` over a one-rank NCCL group (an in-process
-    store, no port): the fleet solver on the K=8 cell at B=8192 bitwise
-    against `solve_batch`, the stepper for DP_TICKS ticks at FLEET_BATCH
-    bitwise against `fleet_step`, and the health check."""
+    store, no port), each fleet call one CUDA graph with its two
+    collectives: the fleet solver on the K=8 cell at B=8192 bitwise against
+    the captured `make_batch_solver`, the stepper for DP_TICKS ticks at
+    FLEET_BATCH bitwise against phase 7's captured tick, both programs
+    under the sync debug mode, and the health check."""
     import datetime
 
     import torch
     import torch.distributed as dist
 
-    from kissmpc_tpu_torch import environment, solve_batch
+    from kissmpc_tpu_torch import make_batch_solver
     from kissmpc_tpu_torch._tree import leaves
     from kissmpc_tpu_torch.obstacles import advance
     from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
     from kissmpc_tpu_torch.parallel import fleet, multihost
+    from kissmpc_tpu_torch.solver import graph
     from kissmpc_tpu_torch.solver.problem import gather
+
+    def same(a, b):
+        return all(bitwise_equal(x, y) for x, y in zip(leaves(a), leaves(b), strict=True))
 
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     try:
         mesh = fleet.make_mesh()
         batch = gather(pool, torch.arange(BATCH, device="cuda"))
-        solver = fleet.make_fleet_solver(cfg, mesh)
-        ref, (sol, metrics) = solve_batch(cfg, batch), solver(batch)
+        solver, batch_solver = fleet.make_fleet_solver(cfg, mesh), make_batch_solver(cfg)
+        with sync_checked_programs() as ran:
+            solver(batch)
+            torch.cuda.synchronize()
+        if ran != ["make_fleet_solver"]:
+            fail(f"the sync-checked fleet solver ran the programs {ran}")
+        graphs = graph.captured()
+        ref, (sol, metrics) = batch_solver(batch), solver(batch)
         torch.cuda.synchronize()
+        if not same(sol, ref):
+            fail("the fleet solver's solution differs from make_batch_solver's")
         d = ref.diagnostics
-        if not all(torch.equal(a, b) for a, b in zip((sol.states, sol.controls, *sol.diagnostics),
-                                                     (ref.states, ref.controls, *d))):
-            fail("the fleet solver's solution differs from solve_batch's")
         own = (d.converged.float().mean(), d.kkt_stationarity.amax(), d.kkt_feasibility.amax(),
                d.final_cost.mean())
         if not all(torch.equal(a, b) for a, b in zip(metrics, own)):
             fail(f"fleet metrics {[float(x) for x in metrics]} differ from the diagnostics' "
                  f"{[float(x) for x in own]}")
-        lat = {"solve_batch": [], "fleet": []}
-        collectives = fleet.fleet_metrics.collectives
+        lat = {"make_batch_solver": [], "fleet": []}
         solve_batch_fused.launches = fleet_launches = 0
         for _ in range(DP_CALLS):
-            for name, call in (("solve_batch", lambda: solve_batch(cfg, batch)),
+            for name, call in (("make_batch_solver", lambda: batch_solver(batch)),
                                ("fleet", lambda: solver(batch))):
-                before = solve_batch_fused.launches
+                before = solve_batch_fused.launches, fleet.fleet_metrics.collectives
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                call()
+                out = call()
                 torch.cuda.synchronize()
                 lat[name].append((time.perf_counter() - t0) * 1e3)
                 if name == "fleet":
-                    fleet_launches += solve_batch_fused.launches - before
-        per_call = (fleet.fleet_metrics.collectives - collectives) / DP_CALLS
+                    fleet_launches += solve_batch_fused.launches - before[0]
+                    if fleet.fleet_metrics.collectives - before[1] != 2:
+                        fail("a fleet solver replay did not count its 2 collectives")
+                    if not same(out[0], ref):
+                        fail("a fleet solver replay differs from make_batch_solver's")
         expected = (1 + len(cfg.solver.refine_stages)) * DP_CALLS
         if fleet_launches != expected:
             fail(f"the fleet solver launched the fused kernel {fleet_launches} times in "
                  f"{DP_CALLS} calls, expected {expected}")
         p50 = {name: float(np.percentile(v, 50)) for name, v in lat.items()}
-        # What the fleet adds to a call, alone: the metric reduction.
+        # What the fleet adds to a call, alone: the metric reduction, eager.
         metrics_ms = cuda_ms(lambda: fleet.fleet_metrics(d, fleet.mesh_group(mesh)), reps=20)
-        log(f"[13] fleet solver, one NCCL rank, k8_dyn2 B={BATCH}: solution bitwise equal to "
-            f"solve_batch's, metrics equal to its diagnostics' (converged "
-            f"{float(metrics.converged_fraction):.5f}); {per_call:g} collectives per call, "
-            f"{fleet_launches} fused launches in its {DP_CALLS} calls; p50 {p50['fleet']:.3f} ms "
-            f"against solve_batch's {p50['solve_batch']:.3f} ms "
-            f"(+{p50['fleet'] - p50['solve_batch']:.3f} ms); the metric reduction alone "
-            f"{metrics_ms:.4f} ms (CUDA events, one call per pair)")
+        log(f"[13] fleet solver, one NCCL rank, k8_dyn2 B={BATCH}, one CUDA graph with its 2 "
+            f"collectives: solution bitwise equal to the captured make_batch_solver's, metrics "
+            f"equal to its diagnostics' (converged {float(metrics.converged_fraction):.5f}); "
+            f"2 collectives per replay, {fleet_launches} fused launches in its {DP_CALLS} calls; "
+            f"p50 {p50['fleet']:.3f} ms against make_batch_solver's "
+            f"{p50['make_batch_solver']:.3f} ms (+{p50['fleet'] - p50['make_batch_solver']:.3f} "
+            f"ms); the metric reduction alone, eager, {metrics_ms:.4f} ms (CUDA events, one call "
+            f"per pair)")
 
         fcfg, params = fleet_config()
         env, obstacles, _ = fleet_worlds(fcfg, FLEET_BATCH, 2, "cuda")
         stepper = fleet.make_fleet_env_stepper(fcfg, params, mesh)
-        chains = {"fleet_step": [env, obstacles], "stepper": [env, obstacles]}
+        with sync_checked_programs() as ran:
+            stepper(env, obstacles)
+            torch.cuda.synchronize()
+        if ran != ["make_fleet_env_stepper"]:
+            fail(f"the sync-checked fleet stepper ran the programs {ran}")
+        chains = {"fleet_tick": [env, obstacles], "stepper": [env, obstacles]}
         tick_ms = {name: [] for name in chains}
         solve_batch_fused.launches = stepper_launches = 0
         for tick in range(DP_TICKS):
             for name, chain in chains.items():
-                before = solve_batch_fused.launches
+                before = solve_batch_fused.launches, fleet.fleet_metrics.collectives
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if name == "stepper":
                     new_env, _, step_metrics = stepper(*chain)
+                    chain[:] = [new_env, advance(chain[1], fcfg.time_step)]
                 else:
-                    new_env, _ = environment.fleet_step(fcfg, params, *chain)
-                chain[:] = [new_env, advance(chain[1], fcfg.time_step)]
+                    chain[:] = fleet_tick(fcfg, params, *chain, "cuda")[:2]
                 torch.cuda.synchronize()
                 tick_ms[name].append((time.perf_counter() - t0) * 1e3)
                 if name == "stepper":
-                    stepper_launches += solve_batch_fused.launches - before
-            a, b = (leaves(chains[n][0]) for n in chains)
-            if not all(torch.equal(x, y) for x, y in zip(a, b)):
-                fail(f"the fleet stepper's EnvState differs from fleet_step's at tick {tick}")
-        tick_p50 = {name: float(np.percentile(v, 50)) for name, v in tick_ms.items()}
+                    stepper_launches += solve_batch_fused.launches - before[0]
+                    if fleet.fleet_metrics.collectives - before[1] != 2:
+                        fail("a fleet stepper replay did not count its 2 collectives")
+            if not same(*chains.values()):
+                fail(f"the fleet stepper's state differs from the captured tick's at {tick}")
+        graphs = graph.captured() - graphs
+        tick_p50 = {name: float(np.percentile(v[1:], 50)) for name, v in tick_ms.items()}
         expected = (1 + len(fcfg.solver.refine_stages)) * DP_TICKS
         if stepper_launches != expected:
             fail(f"the fleet stepper launched the fused kernel {stepper_launches} times in "
                  f"{DP_TICKS} ticks, expected {expected}")
-        log(f"[13] fleet stepper B={FLEET_BATCH}, {DP_TICKS} ticks: EnvState bitwise equal to "
-            f"fleet_step's every tick; tick p50 {tick_p50['stepper']:.3f} ms against "
-            f"fleet_step's {tick_p50['fleet_step']:.3f} ms; {stepper_launches} fused launches in "
-            f"its {DP_TICKS} ticks; last tick converged "
-            f"{float(step_metrics.converged_fraction):.5f}")
+        log(f"[13] fleet stepper B={FLEET_BATCH}, {DP_TICKS} ticks, one CUDA graph with its 2 "
+            f"collectives: EnvState and obstacles bitwise equal to the captured fleet tick's "
+            f"every tick; tick p50 (ticks 2-{DP_TICKS}) {tick_p50['stepper']:.3f} ms against the "
+            f"captured tick's {tick_p50['fleet_tick']:.3f} ms; {stepper_launches} fused launches "
+            f"in its {DP_TICKS} ticks; last tick converged "
+            f"{float(step_metrics.converged_fraction):.5f}; graphs captured in this phase "
+            f"{graphs}")
         t0 = time.perf_counter()
         healthy = multihost.health_check(mesh, timeout_s=GROUP_TIMEOUT_S)
         health_s = time.perf_counter() - t0
@@ -2179,14 +2339,14 @@ def phase_data_parallel(cfg, pool):
             fail("the one-rank health check failed")
     finally:
         dist.destroy_process_group()
-    return {"batch": BATCH, "calls": DP_CALLS, "collectives_per_call": per_call,
+    return {"batch": BATCH, "calls": DP_CALLS, "collectives_per_call": 2,
             "fused_launches": fleet_launches, "stepper_fused_launches": stepper_launches,
-            "fleet_p50_ms": p50["fleet"], "solve_batch_p50_ms": p50["solve_batch"],
-            "fleet_minus_solve_batch_ms": p50["fleet"] - p50["solve_batch"],
-            "metrics_ms": metrics_ms,
+            "fleet_p50_ms": p50["fleet"], "make_batch_solver_p50_ms": p50["make_batch_solver"],
+            "fleet_minus_make_batch_solver_ms": p50["fleet"] - p50["make_batch_solver"],
+            "metrics_ms": metrics_ms, "graphs_captured": graphs,
             "stepper_batch": FLEET_BATCH, "stepper_ticks": DP_TICKS,
             "stepper_tick_p50_ms": tick_p50["stepper"],
-            "fleet_step_tick_p50_ms": tick_p50["fleet_step"], "health_check_s": health_s}
+            "fleet_tick_p50_ms": tick_p50["fleet_tick"], "health_check_s": health_s}
 
 
 def lqr_pt_check(label, data, reg, gates):
@@ -2315,10 +2475,16 @@ def phase_utils_cli(tmpdir, cfg, pool):
     log("[15] agent.step's program ran on the card under set_sync_debug_mode('error')")
     path = f"{tmpdir}/synthetic_lab.pgm"
     write_synthetic_map(path)  # phase 9's map: the same shape and seed
+    lab_argv = ["lab", "--map", path, "--batch", str(CLI_LAB_BATCH)]
+    with sync_checked_programs() as ran:
+        rc = cli.main(lab_argv + ["--ticks", "1"])
+        torch.cuda.synchronize()
+    if rc != 0 or "cli.lab" not in ran:
+        fail(f"the sync-checked lab returned {rc} and ran the programs {ran}")
+    log(f"[15] lab's programs {ran} ran on the card under set_sync_debug_mode('error')")
     for name, argv in (("demo", ["demo", "--ticks", str(DEMO_TICKS)]),
                        ("map", ["map", path, "-o", f"{tmpdir}/circles.npz"]),
-                       ("lab", ["lab", "--map", path, "--batch", str(CLI_LAB_BATCH),
-                                "--ticks", str(CLI_LAB_TICKS)])):
+                       ("lab", lab_argv + ["--ticks", str(CLI_LAB_TICKS)])):
         solve_batch_fused.launches = solve_lqr_cuda.launches = 0
         graphs = graph.captured()
         t0 = time.perf_counter()
@@ -2333,12 +2499,18 @@ def phase_utils_cli(tmpdir, cfg, pool):
         if rc != 0:
             fail(f"cli {name} returned {rc}")
         # demo solves split (agent.step's program, one CUDA graph), lab
-        # through fleet_step (eager).
+        # through fleet_step (one CUDA graph of the tick, 3 fused launches
+        # per replay; its world build's planner fields are graphs too).
         kernel = {"demo": "riccati", "lab": "fused"}.get(name)
         if kernel and not launches[kernel]:
             fail(f"cli {name} never launched the {kernel} kernel")
         if name == "demo" and result["demo_graphs"] != 1:
             fail(f"cli demo captured {result['demo_graphs']} CUDA graphs, expected 1")
+        if name == "lab" and (launches["fused"] != 3 * CLI_LAB_TICKS
+                              or graph.captured("cli.lab") != 1):
+            fail(f"cli lab: {launches['fused']} fused launches in {CLI_LAB_TICKS} ticks, "
+                 f"expected {3 * CLI_LAB_TICKS}, and {graph.captured('cli.lab')} tick graphs, "
+                 f"expected 1")
     circles = np.load(f"{tmpdir}/circles.npz")
     if not (len(circles["radii"]) > 0 and np.isfinite(circles["centers"]).all()):
         fail("cli map wrote no circles")
@@ -2510,10 +2682,13 @@ def main():
     probe = phase_probe()
     fused = phase_fused_kernel(fused_cfgs, pools)
     fused_stages = phase_fused_stages(fused_cfgs, pools)
+    t0 = time.perf_counter()
     fused_results, fused_launches = phase_main_path("fused", fused_cfgs, pools, CALLS)
+    t1 = time.perf_counter()
     hard = ("free", "k8_dyn2")
     split_results, riccati_launches = phase_main_path(
         "split", {name: split_cfgs[name] for name in hard}, pools, CALLS)
+    log(f"phase 5 took {t1 - t0:.3f} s fused, {time.perf_counter() - t1:.3f} s split")
     riccati["launches"] = riccati_launches
     mehrotra = phase_mehrotra(split_cfgs["free"], pools["free"])
     for name, cfg in fused_cfgs.items():
@@ -2522,8 +2697,11 @@ def main():
         fused_results[name]["stage_ms"] = stage_ms
         log(f"[5] fused {name}: CUDA-event time of each stage's launch (B, ms): {stage_ms}")
     phase_cpu_check(fused_cfgs, split_cfgs, pools)
+    t0 = time.perf_counter()
     fleet = phase_fleet()
+    t1 = time.perf_counter()
     planner = phase_planner()
+    log(f"phases 7 and 8 took {t1 - t0:.3f} / {time.perf_counter() - t1:.3f} s")
     with tempfile.TemporaryDirectory() as tmpdir:
         lab = phase_lab(tmpdir)
     ric_edges, fused_edges = phase_horizons(fused_cfgs)

@@ -97,9 +97,11 @@ def _cmd_lab(args) -> int:
 
     from . import environment as env_mod
     from ._device import resolve_device
+    from ._tree import leaves, unflatten
     from .agent import AgentParams
     from .config import MPCConfig
     from .scenarios import lab_worlds
+    from .solver import graph
 
     dev = resolve_device(args.device)
     cfg = MPCConfig(horizon=args.horizon, time_step=args.dt,
@@ -119,8 +121,16 @@ def _cmd_lab(args) -> int:
     )
     print(f"{winfo['n_circles']} circles, {args.batch} episodes, "
           f"extent {winfo['extent'].round(1)} m")
+
+    # On the card every tick replays one CUDA graph of `fleet_step`, as the
+    # reference jits its stepper; the prints read its results outside.
+    like = (env, obstacles)
+
+    def tick(*tensors):
+        return env_mod.fleet_step(cfg, params, *unflatten(like, tensors), device=dev)
+
     for t in range(args.ticks):
-        env, info = env_mod.fleet_step(cfg, params, env, obstacles, device=dev)
+        env, info = graph.run(("cli.lab", cfg, params), tick, dev, *leaves((env, obstacles)))
         if t % 25 == 0 or t == args.ticks - 1:
             done = float(info.final_goal_reached.float().mean())
             conv = float(info.diagnostics.converged.float().mean())

@@ -55,6 +55,7 @@ import torch
 
 from . import _build
 from ..config import MPCConfig
+from ..solver import graph
 from ..solver.ipm import _amax, _sum, elastic_coef, elastic_step
 from ..solver.problem import Diagnostics, Problem, Solution
 
@@ -118,7 +119,10 @@ def pack_inputs(cfg: MPCConfig, problems: Problem, mu_sigma=None,
     safe = lambda b: torch.where(torch.isfinite(b), b, torch.zeros_like(b)).to(dtype)
     cl, cu = problems.control_lower, problems.control_upper
     sig = cfg.solver.mu_sigma if mu_sigma is None else mu_sigma
-    sig = torch.as_tensor(sig, dtype=dtype, device=dev).reshape(-1, 1).expand(B, 1)
+    if isinstance(sig, (int, float)):  # made on the device: nothing to copy from the host
+        sig = torch.full((B, 1), sig, dtype=dtype, device=dev)
+    else:
+        sig = torch.as_tensor(sig, dtype=dtype, device=dev).reshape(-1, 1).expand(B, 1)
     scal = torch.cat(
         [
             problems.initial_state.to(dtype), problems.goal_state.to(dtype),
@@ -810,30 +814,37 @@ def solve_batch_fused(cfg: MPCConfig, problems: Problem, *,
             f"fused kernel: horizon N={N} exceeds N <= {max_horizon(cfg)}, the longest whose "
             f"iterate fits in one block's shared memory at K={cfg.max_obstacles}"
             f"{' (elastic)' if _elastic(cfg) else ''}; use solve_backend=\"split\"")
-    T1 = N + 1
-    B = problems.initial_state.shape[0]
-    iters = cfg.solver.iterations if iterations is None else int(iterations)
-    lib = _library()
     with torch.no_grad(), torch.cuda.device(device):
-        inp = pack_inputs(cfg, problems, mu_sigma, torch.float32)
-        # Scenario-major [B, rows], as packed: a warp reads its scenario's
-        # contiguous rows.
-        rows = [t.contiguous() for t in (inp.scal, inp.warm, inp.tx, inp.ty, inp.obinfo)]
-        trips = torch.tensor([iters], dtype=torch.int32, device=device)
-        f32 = dict(dtype=torch.float32, device=device)
-        outs = [torch.empty((B, n), **f32) for n in (T1, T1, T1, N, N, 6)]
-        params = _params(cfg, B)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.kissmpc_ipm_fused_f32(
-            trips.data_ptr(), *(t.data_ptr() for t in rows),
-            *(t.data_ptr() for t in outs), ctypes.byref(params), stream,
-        )
-        _build.check_launch(lib, err, "fused IPM kernel")
-        solve_batch_fused.launches += 1
-        return _solution(inp, *outs)
+        return _launch(_library(), stream, cfg, problems, iterations, mu_sigma)
 
 
-solve_batch_fused.launches = 0
+def _launch(lib, stream: int, cfg: MPCConfig, problems: Problem,
+            iterations: int | None = None, mu_sigma=None) -> Solution:
+    """Pack, allocate and launch on ``stream`` through ``lib``'s launcher.
+    Every host value reaches the card as a kernel argument or is made there
+    by a fill, so a CUDA graph captures the launch."""
+    iters = cfg.solver.iterations if iterations is None else int(iterations)
+    N, B = cfg.horizon, problems.initial_state.shape[0]
+    device = problems.initial_state.device
+    inp = pack_inputs(cfg, problems, mu_sigma, torch.float32)
+    # Scenario-major [B, rows], as packed: a warp reads its scenario's
+    # contiguous rows.
+    rows = [t.contiguous() for t in (inp.scal, inp.warm, inp.tx, inp.ty, inp.obinfo)]
+    trips = torch.full((1,), iters, dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    outs = [torch.empty((B, n), **f32) for n in (N + 1, N + 1, N + 1, N, N, 6)]
+    params = _params(cfg, B)
+    err = lib.kissmpc_ipm_fused_f32(
+        trips.data_ptr(), *(t.data_ptr() for t in rows),
+        *(t.data_ptr() for t in outs), ctypes.byref(params), stream,
+    )
+    _build.check_launch(lib, err, "fused IPM kernel")
+    solve_batch_fused.launches += 1
+    return _solution(inp, *outs)
+
+
+graph.counter(solve_batch_fused)
 
 
 def occupancy(cfg: MPCConfig) -> dict:

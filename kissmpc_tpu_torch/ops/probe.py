@@ -17,6 +17,7 @@ import functools
 import torch
 
 from . import _build
+from ..solver import graph
 
 SOURCE = _build.CSRC / "probe_dynamic_trip.cu"
 SHAPE = (8, 128)
@@ -65,4 +66,4 @@ def dynamic_trip(x: torch.Tensor, iters: torch.Tensor) -> torch.Tensor:
     return out
 
 
-dynamic_trip.launches = 0
+graph.counter(dynamic_trip)

@@ -21,6 +21,7 @@ from pathlib import Path
 import torch
 
 from . import _build
+from ..solver import graph
 from .lqr import LQRData, LQRSolution, solve_lqr
 
 SOURCE = _build.CSRC / "riccati.cu"
@@ -138,4 +139,4 @@ def solve_lqr_cuda(data: LQRData, reg: float = 0.0) -> LQRSolution:
     )
 
 
-solve_lqr_cuda.launches = 0
+graph.counter(solve_lqr_cuda)

@@ -9,8 +9,12 @@ traffic between ranks is the metric reduction, two `all_reduce`s per call
 (one SUM of the two means, one MAX of the two maxima).  Every collective a
 fleet call issues is counted in ``fleet_metrics.collectives``.
 
-Works the same with NCCL on GPUs and with gloo on the CPU, where the tests
-run it in one process and in two.
+On the card each rank's fleet call, the shard's solve or tick and the two
+`all_reduce`s, is one CUDA graph per input signature (`solver/graph.py`),
+as the reference jits its `shard_map`: ProcessGroupNCCL's collectives are
+captured into the graph with the work around them, and every replay moves
+``fleet_metrics.collectives`` by the 2 it captured.  With gloo on the CPU,
+where the tests run it in one process and in two, the call is eager.
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import environment as env_mod
 from .._device import resolve_device
-from .._tree import tree_map
+from .._tree import leaves, tree_map, unflatten
 from ..config import MPCConfig
+from ..solver import graph
 from ..solver.api import solve_batch
 from ..solver.problem import Diagnostics, Problem
 
@@ -102,7 +107,7 @@ def fleet_metrics(diagnostics: Diagnostics, group=None) -> FleetMetrics:
     )
 
 
-fleet_metrics.collectives = 0
+graph.counter(fleet_metrics, "collectives")
 
 
 def make_fleet_solver(cfg: MPCConfig, mesh: DeviceMesh, axis_name: AxisName = "data"):
@@ -116,9 +121,12 @@ def make_fleet_solver(cfg: MPCConfig, mesh: DeviceMesh, axis_name: AxisName = "d
     group = mesh_group(mesh, axis_name)
     device = mesh_device(mesh)
 
-    def fleet(problems: Problem):
-        sol = solve_batch(cfg, problems, device=device)
+    def program(*tensors):
+        sol = solve_batch(cfg, Problem(*tensors), device=device)
         return sol, fleet_metrics(sol.diagnostics, group)
+
+    def fleet(problems: Problem):
+        return graph.run(("make_fleet_solver", cfg, group), program, device, *problems)
 
     return fleet
 
@@ -135,8 +143,15 @@ def make_fleet_env_stepper(cfg: MPCConfig, params, mesh: DeviceMesh,
     device = mesh_device(mesh)
 
     def step(env, obstacles=None):
-        new_env, info = env_mod.fleet_step(cfg, params, env, obstacles, device=device)
-        return new_env, info, fleet_metrics(info.diagnostics, group)
+        like = (env, obstacles)
+
+        def program(*tensors):
+            new_env, info = env_mod.fleet_step(cfg, params, *unflatten(like, tensors),
+                                               device=device)
+            return new_env, info, fleet_metrics(info.diagnostics, group)
+
+        key = ("make_fleet_env_stepper", cfg, params, group, obstacles is None)
+        return graph.run(key, program, device, *leaves(like))
 
     return step
 

@@ -15,14 +15,18 @@ decimation).
 
 There is no Pallas kernel behind it in the reference (`lax.fori_loop` and
 `lax.scan`), so the port is plain PyTorch, on the device the caller names
-(``device=None`` is the card).  The resampling and the headings stay numpy,
-as in the reference.  What keeps the routes equal to the reference's, where
-one ulp of a distance could change an argmin: the relaxations use only
-exact operations (min, max) and single additions; the clearance penalty is
-summed over the circles one plane at a time in index order; the cell
-indices are int32, rounded half to even and clamped; `sqrt2` and `_BIG` are
-the reference's float32 constants; the backtrack's argmin takes the first
-minimum over the same offset order, (0, 0) first.  And the grid frame and
+(``device=None`` is the card).  On the card each of the two grid-field
+programs, `_plan_fields` and `_bottleneck_fields`, runs as one CUDA graph
+per grid and input shape (`solver/graph.py`), as the reference jits them;
+the numpy preparation before them, and the resampling and the headings
+after them, stay on the host, as in the reference.  What keeps the routes
+equal to the reference's, where one ulp of a distance could change an
+argmin: the relaxations use only exact operations (min, max) and single
+additions; the clearance penalty is summed over the circles one plane at a
+time in index order; the cell indices are int32, rounded half to even and
+clamped; `sqrt2` and `_BIG` are the reference's float32 constants; the
+backtrack's argmin takes the first minimum over the same offset order,
+(0, 0) first.  And the grid frame and
 penalty follow the reference's arithmetic as XLA compiles it: a division by
 a constant is a multiplication by the constant's float32 reciprocal, and a
 multiply-add is one fused operation (`_fma`).
@@ -35,10 +39,13 @@ per leg, so unreachable-by-construction episodes are measurable.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ._device import resolve_device
+from ._device import constant, resolve_device
+from .solver import graph
 
 _BIG = float(np.float32(1e9))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
@@ -99,6 +106,11 @@ def _circle_distance(gx, gy, centers, k):
     return torch.sqrt(dx * dx + dy * dy)
 
 
+def _offsets(dev) -> torch.Tensor:
+    """`_OFFSETS` as int32 [9, 2] made on ``dev`` (no host copy)."""
+    return constant([v for o in _OFFSETS for v in o], torch.int32, dev).reshape(-1, 2)
+
+
 def _cell_of(p, lo, cell, G):
     """Physical [B, 2] -> int32 cell [B, 2], rounded half to even, clamped."""
     return torch.round((p - lo) / cell[:, None]).to(torch.int32).clamp(0, G - 1)
@@ -138,7 +150,12 @@ def _plan_fields(starts, waypoints, centers, need, *, grid: int = 64, iters: int
     pen = _PEN_W * pen
 
     bidx = torch.arange(B, device=dev)
-    offs = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)
+    offs = _offsets(dev)
+    # Tensors, not Python numbers, on the right of the indexed assignments:
+    # on the CPU a number there is lifted from the host (`lift_fresh`),
+    # which the tests of the captured regions count as a host copy.
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    free = torch.zeros((), dtype=torch.bool, device=dev)
     # The value field with a border of _BIG: its interior is d, and the
     # shifted views of the border-padded plane are the neighbours.
     dp = torch.full((B, G + 2, G + 2), _BIG, dtype=torch.float32, device=dev)
@@ -152,12 +169,12 @@ def _plan_fields(starts, waypoints, centers, need, *, grid: int = 64, iters: int
         tc = _cell_of(tgt, lo, cell, G).long()
         sc = _cell_of(prev, lo, cell, G).long()
         d.fill_(_BIG)
-        d[bidx, tc[:, 0], tc[:, 1]] = 0.0
+        d[bidx, tc[:, 0], tc[:, 1]] = zero
         # Force-unblock the source and target cells: the generator clears
         # waypoints to about the same margin, and rounding must not seal a leg.
         ublk = blocked.clone()
-        ublk[bidx, tc[:, 0], tc[:, 1]] = False
-        ublk[bidx, sc[:, 0], sc[:, 1]] = False
+        ublk[bidx, tc[:, 0], tc[:, 1]] = free
+        ublk[bidx, sc[:, 0], sc[:, 1]] = free
         for _ in range(n_iter):
             best.fill_(_BIG)
             for di, dj, c in _NEIGHBOURS:
@@ -191,6 +208,15 @@ def _as_tensor(x, dev):
     return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
 
 
+def _run(fields, dev, *arrays, **static):
+    """``fields`` of the float32 arrays on ``dev`` with its static keyword
+    arguments, through `graph.run` keyed by both."""
+    key = (f"planner.{fields.__name__}", *sorted(static.items()))
+    with torch.no_grad():
+        return graph.run(key, functools.partial(fields, **static), dev,
+                         *(_as_tensor(x, dev) for x in arrays))
+
+
 def plan_waypoint_chain(
     starts: np.ndarray,  # [B, 3]
     waypoints: np.ndarray,  # [B, W, 3]
@@ -215,11 +241,8 @@ def plan_waypoint_chain(
     B, W, _ = waypoints.shape
     P = points_per_leg
     need = np.where(static_mask, radii + inflation, -1.0).astype(np.float32)
-    with torch.no_grad():
-        paths, reach, _, _ = _plan_fields(
-            _as_tensor(starts[:, :2], dev), _as_tensor(waypoints[..., :2], dev),
-            _as_tensor(centers, dev), _as_tensor(need, dev), grid=grid,
-        )
+    paths, reach, _, _ = _run(_plan_fields, dev, starts[:, :2], waypoints[..., :2], centers,
+                              need, grid=grid)
     paths = paths.cpu().numpy()  # [B, W, T, 2]
     reach = reach.cpu().numpy()  # [B, W]
 
@@ -324,9 +347,5 @@ def bottleneck_clearance(
     The grid fields run on ``device`` (None: the card)."""
     dev = resolve_device(device)
     need = np.where(static_mask, radii + inflation, -1.0).astype(np.float32)
-    with torch.no_grad():
-        w = _bottleneck_fields(
-            _as_tensor(starts[:, :2], dev), _as_tensor(goals[:, :2], dev),
-            _as_tensor(centers, dev), _as_tensor(need, dev), grid=grid,
-        )
+    w = _run(_bottleneck_fields, dev, starts[:, :2], goals[:, :2], centers, need, grid=grid)
     return w.cpu().numpy()

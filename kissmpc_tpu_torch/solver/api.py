@@ -1,17 +1,16 @@
 """Public solve API: batched solve with staged tail refinement (torch).
 
 Port of `kissmpc_tpu/solver/api.py`.  `make_solver` runs the split IPM
-(`ipm.solve`) alone, on the card as one CUDA graph per problem shape
-(`graph.py`), the counterpart of the reference's `jax.jit`;
-`make_batch_solver` returns a plain closure over the config, and
-`solve_batch` runs the configured backend and then each refinement stage
-eagerly.
+(`ipm.solve`) alone and `make_batch_solver` runs `solve_batch`, each on the
+card as one CUDA graph per problem shape (`graph.py`), the counterpart of
+the reference's `jax.jit`; `solve_batch` itself runs the configured backend
+and then each refinement stage eagerly, as the reference's does outside
+`jit`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
@@ -158,5 +157,18 @@ def solve_batch(cfg: MPCConfig, problems: Problem, *, device=None) -> Solution:
 
 
 def make_batch_solver(cfg: MPCConfig, *, device=None):
-    """Batched solver closed over the config: Problem [B] -> Solution [B]."""
-    return functools.partial(solve_batch, cfg, device=device)
+    """Batched solver closed over the config: Problem [B] -> Solution [B],
+    `solve_batch` with either backend and its refinement stages.
+    ``device=None`` runs on the card, where the solve is captured into a
+    CUDA graph at the first call for each shape and replayed after it
+    (`graph.run`; the stages' batches follow from B alone); the problems
+    are moved there."""
+    dev = resolve_device(device)
+
+    def program(*leaves) -> Solution:
+        return solve_batch(cfg, Problem(*leaves), device=dev)
+
+    def solve(problems: Problem) -> Solution:
+        return graph.run(("make_batch_solver", cfg), program, dev, *problems)
+
+    return solve

@@ -1,10 +1,13 @@
-"""CUDA graphs: the port's counterpart of `jax.jit` on the single-robot path.
+"""CUDA graphs: the port's counterpart of `jax.jit`.
 
-The reference compiles `make_solver` (`kissmpc_tpu/solver/api.py:26`), the
-node's tick (`kissmpc_tpu/io/model.py:97`) and the CLI `demo` stepper
-(`kissmpc_tpu/cli.py:47`) into one device program each.  Here each of them
-calls `run(key, fn, device, *inputs)`, which returns ``fn`` of the inputs
-moved to ``device``:
+The reference compiles its entry points into one device program each:
+`make_solver` and `make_batch_solver` (`kissmpc_tpu/solver/api.py:26,151`),
+the node's tick (`kissmpc_tpu/io/model.py:97`), the CLI `demo` and `lab`
+steppers (`kissmpc_tpu/cli.py:47,128`), the data-parallel fleet solver and
+stepper (`kissmpc_tpu/parallel/fleet.py:78,116`) and the planner's two
+fields (`kissmpc_tpu/planner.py:77,300`).  Here each of them calls
+`run(key, fn, device, *inputs)`, which returns ``fn`` of the inputs moved
+to ``device``:
 
 - on the CPU, and inside `eager()`, by calling ``fn``;
 - on the card, the first call for a key and input signature (every input's
@@ -22,15 +25,18 @@ tree of tensors (`_tree.py`), and must not synchronise with the host: a
 capture that meets a synchronisation raises, and nothing falls back to the
 eager path.  The graphs live for the process, one cache for every caller
 (`agent.step` makes a new solver every tick), like `jax.jit`'s cache of
-compiled shapes.  The graphs of one device share one memory pool: a graph
-may write its intermediates where another keeps its static outputs, which
-is safe because every replay runs on the caller's stream and its outputs
-are cloned before anything else is enqueued.  Not thread-safe: one thread
+compiled shapes.  The graphs of one device share one memory pool (a new
+one after a capture that raised, `_recover`): a graph may write its
+intermediates where another keeps its static outputs, which is safe
+because every replay runs on the caller's stream and its outputs are
+cloned before anything else is enqueued.  Not thread-safe: one thread
 drives the card.
 
-The kernels' wrappers count their launches in Python (``.launches``),
-which a replay does not run: `run` records how far each counter moved
-while ``fn`` was being captured, puts it back (a capture launches
+Some host code inside a region counts what it enqueues: the kernels'
+wrappers their launches (``.launches``), the fleet's metric reduction its
+collectives (``.collectives``).  A replay runs no Python, so each such
+counter registers itself with `counter`, and `run` records how far each
+moved while ``fn`` was being captured, puts it back (a capture launches
 nothing), and adds that amount on every replay.
 """
 
@@ -42,18 +48,23 @@ from typing import Any, Callable, Hashable, NamedTuple
 import torch
 
 from .._tree import leaves, tree_map
-from ..ops.ipm_fused import solve_batch_fused
-from ..ops.riccati import solve_lqr_cuda
 
-# The solver kernels' wrappers, which count their launches.
-COUNTED = (solve_lqr_cuda, solve_batch_fused)
+# (holder, attribute) of every registered counter, in registration order.
+COUNTERS: list = []
+
+
+def counter(holder, attr: str = "launches") -> None:
+    """Register ``holder.<attr>``, set to 0, as a count that host code inside
+    a captured region moves: every replay adds what the capture counted."""
+    setattr(holder, attr, 0)
+    COUNTERS.append((holder, attr))
 
 
 class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     inputs: list  # the static inputs the replay reads
     outputs: Any  # the tree of static outputs it writes
-    launches: tuple  # per COUNTED wrapper, its launches in one replay
+    counts: tuple  # per registered counter, how far one replay moves it
 
 
 _GRAPHS: dict = {}
@@ -74,9 +85,9 @@ def eager():
         _EAGER = before
 
 
-def captured() -> int:
-    """How many graphs the process holds."""
-    return len(_GRAPHS)
+def captured(name: str | None = None) -> int:
+    """How many graphs the process holds (whose key starts with ``name``)."""
+    return sum(1 for sig in _GRAPHS if name is None or sig[0][0] == name)
 
 
 def run(key: Hashable, fn: Callable, device: torch.device, *inputs: torch.Tensor):
@@ -95,8 +106,8 @@ def run(key: Hashable, fn: Callable, device: torch.device, *inputs: torch.Tensor
     for dst, src in zip(entry.inputs, inputs):
         dst.copy_(src, non_blocking=True)
     entry.graph.replay()
-    for wrapper, n in zip(COUNTED, entry.launches):
-        wrapper.launches += n
+    for (holder, attr), n in zip(COUNTERS, entry.counts):
+        setattr(holder, attr, getattr(holder, attr) + n)
     return tree_map(torch.clone, entry.outputs)
 
 
@@ -113,15 +124,34 @@ def _capture(fn: Callable, device: torch.device, inputs) -> tuple:
     side.wait_stream(caller)
     with torch.cuda.stream(side):
         result = tree_map(torch.clone, fn(*static))
-    before = [w.launches for w in COUNTED]
+    before = [getattr(holder, attr) for holder, attr in COUNTERS]
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=_POOLS[device], stream=side):
-        outputs = fn(*static)
-    launches = tuple(w.launches - b for w, b in zip(COUNTED, before))
-    for wrapper, b in zip(COUNTED, before):
-        wrapper.launches = b
+    try:
+        with torch.cuda.graph(graph, pool=_POOLS[device], stream=side):
+            outputs = fn(*static)
+        counts = tuple(getattr(holder, attr) - b for (holder, attr), b in zip(COUNTERS, before))
+    except BaseException:
+        _recover(device, caller)
+        raise
+    finally:
+        for (holder, attr), b in zip(COUNTERS, before):
+            setattr(holder, attr, b)
     caller.wait_stream(side)
     for x in leaves(result):
         x.record_stream(caller)
-    return result, _Graph(graph, static, outputs, launches)
+    return result, _Graph(graph, static, outputs, counts)
 
+
+def _recover(device: torch.device, caller: torch.cuda.Stream) -> None:
+    """Leave the device ready for the next capture after one that raised:
+    when the region breaks a capture, `CUDAGraph.capture_end` raises before
+    it ends the pool's allocation to the graph, and `torch.cuda.graph`
+    before it restores the caller's stream.  This ends the allocation and
+    restores the stream, and later graphs take a new pool: the failed
+    capture leaves its pool refusing every later capture."""
+    torch.cuda.set_stream(caller)
+    try:
+        torch._C._cuda_endAllocateToPool(device.index, _POOLS[device])
+    except RuntimeError:  # capture_end had ended it: the region raised alone
+        pass
+    _POOLS[device] = torch.cuda.graph_pool_handle()
