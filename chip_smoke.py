@@ -13,6 +13,13 @@ Phases, each a hard failure with a non-zero exit:
    the Riccati kernel in float32 and float64 at B=8192 and 164 (its two
    chunk lengths), with its lanes and scenarios per block
    (`ops/riccati.py::occupancy`);
+Before phase 2 the benchmark's pools of 16384 (seed 0) are built on the card,
+free eagerly and K=8 by `scenarios.obstacle_problems`, one CUDA graph (as
+the reference jits its builder): its program under the sync debug mode, the
+first call (warm-up and capture) timed, then a second K=8 pool (seed 1) by a
+replay and eagerly, timed, bitwise equal, with the graph's static output
+bytes.
+
 2. hold the Riccati kernel against its plain PyTorch version (`ops/lqr.py`)
    on the card, dx, du and the gains K, k, on LQR data from a real IPM
    iterate of the K=8 benchmark batch (N=50): float32 at B=8192 and at the
@@ -110,16 +117,25 @@ Phases, each a hard failure with a non-zero exit:
    plus two refine stages; 2048 perception pipelines (projection, DBSCAN,
    tracker of 4 slots) fed one frame of the port's synthetic walk per tick
    (61 frames at 0.1 s, P=128, M=1, 48x64), their tracked humans offset
-   to each episode's start and joined to its static circles; the
-   solver-only and perception variants alternate in chunks of 8 ticks
-   (56 timed ticks each after one at frame 0), 3 fused launches per tick;
-   tick p50 and p99 of each and their difference, converged fraction and
-   tracked total; the perception step's CUDA-event time and DBSCAN's share
-   of it, and its kernels by the profiler; gates: at the last tick exactly
-   B confirmed tracks, each within 0.25 m of the walk's ground truth,
-   converged >= 0.90 in both variants; then 64 pipelines x 10 frames on the
-   card and on the CPU port: found flags, DBSCAN labels and track ids
-   equal, centres and track positions within 1e-5 m on at least 63;
+   to each episode's start and joined to its static circles; each variant
+   (solver-only, with perception) one CUDA graph (`perception_tick`, as the
+   bench jits it; the frame index a device tensor, the frames, geometry,
+   offsets and static circles inputs), both programs first under the sync
+   debug mode; the variants alternate in chunks of 8 ticks (56 replays each
+   after the first call, the capture, at frame 0), 3 fused launches per
+   tick; the first call and the first 10 replays of each also eagerly on a
+   copy of the state, bitwise equal (env, perception state, step info,
+   tracked set) at 10 distinct frames; replay p50 and p99, eager p50, and
+   `perception_added_ms` replayed and eager; one profiled replay of each
+   (kernels, busy, idle share against the p50, 3 fused kernels) and
+   DBSCAN's kernels and device time inside the perception replay (its
+   eager kernels found back to back in the replay's trace); the eager
+   perception step's CUDA-event time and DBSCAN's share of it, and its
+   kernels by the profiler; gates: at the last tick exactly B confirmed
+   tracks, each within 0.25 m of the walk's ground truth, converged >= 0.90
+   in both variants; then 64 pipelines x 10 frames on the card and on the
+   CPU port: found flags, DBSCAN labels and track ids equal, centres and
+   track positions within 1e-5 m on at least 63;
 12. the single-robot node: `io.Model` at the node's defaults (N=7,
    planning dt 0.8, 40 iterations) with 4 obstacle slots, driven by
    `io.pubsub.ControlLoop` for 50 ticks (odometry every tick, the walk's
@@ -200,6 +216,7 @@ N = 50
 BATCH = 8192
 POOL = 16384
 CALLS = 5
+SECOND_POOL_SEED = 1  # the K=8 pool built again, by a replay of the builder's graph
 # Staged tail refinement of the benchmark (bench.py:36-37).
 STAGES_FREE = ((0.05, 64, 0.2),)
 STAGES_OBST = ((0.125, 64, 0.2), (0.04, 96, 0.7), (0.02, 128, 0.5))
@@ -251,6 +268,10 @@ EDGE_ITERATIONS = 3
 PERCEPTION_BATCH = 2048
 PERCEPTION_TICKS = 60
 PERCEPTION_CHUNK = 8
+PERCEPTION_VARIANTS = ("solver_only", "with_perception")
+PERCEPTION_EAGER_TICKS = 10  # replays also run eagerly on a copy of the state
+PERCEPTION_COMPARED_FRAMES = 5  # distinct frames among the compared ticks, at least
+MARKER_LEAD_CYCLES = 10_000_000  # a few ms of spin before a marked profile's calls
 PERCEPTION_STAGES = ((0.125, 64, 0.2), (0.02, 96, 0.7))
 PERCEPTION_OFFSET = (1.2, 0.0)  # the walk crosses ~1.5 m ahead of each robot
 TRACK_CAPACITY = 4
@@ -1232,6 +1253,58 @@ def fleet_tick(cfg, params, env, obstacles, device):
     return graph.run(("fleet_tick", cfg, params), program, device, *leaves(like))
 
 
+def perception_tick(variant, cfg, params, tcfg, geom, frames, offsets, static, env, pstate,
+                    frame, device):
+    """One tick of scripts/bench_perception_tick.py:88-114 as one program
+    through `graph.run`, as the bench jits it (`:123`): one CUDA graph per
+    variant and shape on the card, eager on the CPU and inside
+    `graph.eager()`.  ``"with_perception"`` steps the B pipelines on frame
+    ``frame`` of the stacked ``frames`` (points, point masks, instance
+    masks, instance valid), offsets their tracked humans to each episode,
+    joins them to the ``static`` circles and runs `environment.fleet_step`;
+    ``"solver_only"`` runs `fleet_step` on the static circles.  ``frame``
+    is a [1] int64 tensor on ``device``, selected on the device: a Python
+    index would be baked into the graph, and every replay would perceive
+    the capture's frame.  The geometry's tensors, the frames, the offsets
+    and the static set are inputs; the geometry's image size is in the
+    key.  Returns (env, pstate, info, tracked): for "solver_only" the
+    pstate it was given and tracked None."""
+    import torch
+
+    from kissmpc_tpu_torch import environment
+    from kissmpc_tpu_torch._tree import leaves, unflatten
+    from kissmpc_tpu_torch.obstacles import ObstacleSet
+    from kissmpc_tpu_torch.perception import pipeline
+    from kissmpc_tpu_torch.solver import graph
+
+    if variant == "solver_only":
+        like = (env, static)
+
+        def solver_only(*tensors):
+            return environment.fleet_step(cfg, params, *unflatten(like, tensors), device=device)
+
+        env, info = graph.run(("perception_tick", variant, cfg, params), solver_only, device,
+                              *leaves(like))
+        return env, pstate, info, None
+    if variant != "with_perception":
+        raise ValueError(f"unknown perception tick variant {variant!r}")
+    tensors_of_geom = tuple(geom[:3])  # intrinsics, lidar->camera, lidar->map
+    like = (env, pstate, frame, frames, tensors_of_geom, offsets, static)
+
+    def with_perception(*tensors):
+        env, pstate, frame, frames, g, offsets, static = unflatten(like, tensors)
+        current = [torch.index_select(x, 0, frame)[0] for x in frames]
+        pstate, tracked = pipeline.step(tcfg, pstate, pipeline.FrameGeometry(*g, *geom[3:]),
+                                        *current, FRAMES_DT, device=device)
+        tracked = tracked._replace(position=tracked.position + offsets[:, None, :])
+        obstacles = ObstacleSet(*(torch.cat([a, b], dim=1) for a, b in zip(static, tracked)))
+        env, info = environment.fleet_step(cfg, params, env, obstacles, device=device)
+        return env, pstate, info, tracked
+
+    key = ("perception_tick", variant, cfg, params, tcfg, geom.image_width, geom.image_height)
+    return graph.run(key, with_perception, device, *leaves(like))
+
+
 def phase_fleet():
     """`fleet_step` + `obstacles.advance` for FLEET_TICKS ticks of
     FLEET_BATCH episodes on the card, then FLEET_CHECK episodes x ticks on
@@ -1794,23 +1867,66 @@ def compare_pipelines(card, cpu, tol=PERCEPTION_TOL):
     return int(ok.sum()), torch.nonzero(~ok).flatten().tolist(), worst
 
 
-def phase_perception(tmpdir):
-    """The perception-in-the-loop fleet tick (scripts/bench_perception_tick.py
-    at its default size) on the card, the two variants interleaved; the
-    perception step's CUDA-event time and DBSCAN's share of it; then
-    PERCEPTION_CHECK pipelines x frames on the card against the CPU port."""
+def trace_kernels(prof):
+    """The card's kernels in a profile (copies and fills apart), in the
+    order they ran."""
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return sorted(kernels, key=lambda e: e.time_range.start)
+
+
+def find_run(kernels, run):
+    """The indices at which the names of ``run`` occur in ``kernels`` back
+    to back: where a program's kernels ran inside a replay that ran them in
+    the order of their eager launches."""
+    names, want = [e.name for e in kernels], [e.name for e in run]
+    return [i for i in range(len(names) - len(want) + 1) if names[i:i + len(want)] == want]
+
+
+def marked_runs(fn, runs):
+    """The card's kernels of ``runs`` calls of ``fn`` under one profile, a
+    list for each call whose kernels lie between two recorded marker
+    kernels (`torch.cuda._sleep`'s `spin_kernel`).  The profiler can lose
+    the first kernels of a trace, so a long spin leads, and a call that
+    begins before the first recorded marker is left out."""
     import torch
 
-    from kissmpc_tpu_torch import environment
-    from kissmpc_tpu_torch.obstacles import ObstacleSet
+    def marked():
+        torch.cuda._sleep(MARKER_LEAD_CYCLES)
+        for _ in range(runs):
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+
+    _, prof = profile_call(marked)
+    kernels = trace_kernels(prof)
+    cuts = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
+    return [kernels[a + 1:b] for a, b in zip(cuts, cuts[1:]) if b > a + 1]
+
+
+def phase_perception(tmpdir):
+    """The perception-in-the-loop fleet tick (scripts/bench_perception_tick.py
+    at its default size) on the card, each variant one CUDA graph
+    (`perception_tick`, its program first under the sync debug mode), the
+    two interleaved in chunks as the bench runs them; the first call and
+    the first PERCEPTION_EAGER_TICKS replays of each also eagerly on a copy
+    of the state, bitwise equal; one profiled replay of each, and DBSCAN's
+    kernels inside the perception replay; the eager perception step's
+    CUDA-event time and DBSCAN's share of it; then PERCEPTION_CHECK
+    pipelines x frames on the card against the CPU port."""
+    import torch
+
+    from kissmpc_tpu_torch._tree import leaves
     from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
     from kissmpc_tpu_torch.perception import clustering, pipeline, tracker
     from kissmpc_tpu_torch.scenarios import episode_worlds
+    from kissmpc_tpu_torch.solver import graph
 
     B, ticks = PERCEPTION_BATCH, PERCEPTION_TICKS
     frames, truth = walk_frames(f"{tmpdir}/walk.npz", ticks + 1)
     F = len(frames)
-    geom, pts, pm, im, iv = stacked_frames(frames, "cuda")
+    geom, *stack = stacked_frames(frames, "cuda")
+    stack = tuple(stack)
     cfg, params = perception_config()
     t0 = time.perf_counter()
     env, static = episode_worlds(cfg, B, n_waypoints=2, seed=0, n_dynamic=0,
@@ -1823,60 +1939,107 @@ def phase_perception(tmpdir):
     tcfg = tracker.TrackerConfig()
     expected = 1 + len(cfg.solver.refine_stages)
 
+    def tick(variant, env, pstate, f):
+        frame = torch.full((1,), f, dtype=torch.int64, device="cuda")
+        return perception_tick(variant, cfg, params, tcfg, geom, stack, offsets, static, env,
+                               pstate, frame, "cuda")
+
     def perceive(pstate, f):
-        return pipeline.step(tcfg, pstate, geom, pts[f], pm[f], im[f], iv[f], FRAMES_DT,
+        return pipeline.step(tcfg, pstate, geom, *(x[f] for x in stack), FRAMES_DT,
                              device="cuda")
 
-    def tick_perception(env, pstate, f):
-        pstate, tracked = perceive(pstate, f)
-        tracked = tracked._replace(position=tracked.position + offsets[:, None, :])
-        obstacles = ObstacleSet(*(torch.cat([a, b], dim=1) for a, b in zip(static, tracked)))
-        env, info = environment.fleet_step(cfg, params, env, obstacles, device="cuda")
-        return env, pstate, info, tracked
-
-    def tick_solver_only(env, pstate, f):
-        env, info = environment.fleet_step(cfg, params, env, static, device="cuda")
-        return env, pstate, info, None
-
     pstate0 = pipeline.init_perception(TRACK_CAPACITY, batch=B, device="cuda")
-    variants = {"solver_only": tick_solver_only, "with_perception": tick_perception}
-    solve_batch_fused.launches = 0
-    st = {}
-    for name, fn in variants.items():  # the bench's first call, at frame 0
-        e, p, info, tracked = fn(env, pstate0, 0)
+    with sync_checked_programs() as ran:
+        for name in PERCEPTION_VARIANTS:
+            tick(name, env, pstate0, 1)
         torch.cuda.synchronize()
-        st[name] = {"fn": fn, "e": e, "p": p, "lat": [], "launches": [], "info": info,
-                    "tracked": tracked, "f": 0}
+    if ran != ["perception_tick"] * len(PERCEPTION_VARIANTS):
+        fail(f"the sync-checked perception ticks ran the programs {ran}")
+    log("[11] both variants' programs ran on the card under set_sync_debug_mode('error')")
+
+    solve_batch_fused.launches = 0
+    graphs = graph.captured("perception_tick")
+    st = {name: {"e": env, "p": pstate0, "eager": (env, pstate0), "calls": 0, "lat": [],
+                 "eager_lat": [], "launches": [], "compared": []}
+          for name in PERCEPTION_VARIANTS}
+
+    def run_tick(name, f):
+        """One tick of ``name`` at frame ``f``, timed to its converged
+        fraction on the host as the bench reads its scalars; the first call
+        and the next PERCEPTION_EAGER_TICKS also eagerly from the eager
+        copy of the state, held bitwise to the replay."""
+        s = st[name]
+        before = solve_batch_fused.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s["e"], s["p"], s["info"], s["tracked"] = tick(name, s["e"], s["p"], f)
+        s["conv"] = float(s["info"].diagnostics.converged.float().mean())
+        ms = (time.perf_counter() - t0) * 1e3
+        s["launches"].append(solve_batch_fused.launches - before)
+        if s["calls"]:
+            s["lat"].append(ms)
+        else:
+            s["first_ms"] = ms
+        if s["calls"] <= PERCEPTION_EAGER_TICKS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with graph.eager():
+                out = tick(name, *s["eager"], f)
+            float(out[2].diagnostics.converged.float().mean())
+            if s["calls"]:
+                s["eager_lat"].append((time.perf_counter() - t0) * 1e3)
+            got = leaves((s["e"], s["p"], s["info"], s["tracked"]))
+            if not all(bitwise_equal(a, b) for a, b in zip(got, leaves(out), strict=True)):
+                fail(f"perception tick {name}, call {s['calls']} (frame {f}): the replay "
+                     f"differs from the eager tick")
+            s["eager"] = out[:2]
+            s["compared"].append(f)
+        s["calls"] += 1
+        s["f"] = f
+
+    for name in PERCEPTION_VARIANTS:  # the bench's first call, at frame 0
+        run_tick(name, 0)
     rounds = max(1, (ticks - 1) // PERCEPTION_CHUNK)
     for r in range(rounds):
-        for name, s in st.items():
+        for name in PERCEPTION_VARIANTS:
             for j in range(PERCEPTION_CHUNK):
-                f = (r * PERCEPTION_CHUNK + j) % F
-                before = solve_batch_fused.launches
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                s["e"], s["p"], s["info"], s["tracked"] = s["fn"](s["e"], s["p"], f)
-                conv = float(s["info"].diagnostics.converged.float().mean())
-                s["lat"].append((time.perf_counter() - t0) * 1e3)
-                s["launches"].append(solve_batch_fused.launches - before)
-                s["conv"], s["f"] = conv, f
-    if solve_batch_fused.launches == 0:
-        fail("the perception tick never launched the fused kernel")
-    results = {}
+                run_tick(name, (r * PERCEPTION_CHUNK + j) % F)
+    if graph.captured("perception_tick") != graphs + len(PERCEPTION_VARIANTS):
+        fail("the perception tick did not run as one CUDA graph per variant")
+    results, traces = {}, {}
     for name, s in st.items():
-        lat = np.asarray(s["lat"])
         if set(s["launches"]) != {expected}:
             fail(f"{name}: fused launches per tick {sorted(set(s['launches']))}, "
                  f"expected {expected}")
-        tracked_total = (float(s["tracked"].active.sum()) if s["tracked"] is not None else 0.0)
-        results[name] = {"tick_p50_ms": float(np.percentile(lat, 50)),
-                         "tick_p99_ms": float(np.percentile(lat, 99)),
-                         "ticks": len(lat), "converged": s["conv"],
-                         "tracked_total": tracked_total,
-                         "fused_launches_per_tick": expected}
+        if len(set(s["compared"])) < PERCEPTION_COMPARED_FRAMES:
+            fail(f"{name}: replays held to the eager tick at frames {s['compared']} only")
+        prof, traces[name] = profile_call(lambda: tick(name, s["e"], s["p"], s["f"]))
+        if prof["fused_kernels"] != expected:
+            fail(f"{name}: a profiled replay ran {prof['fused_kernels']} fused kernels")
+        lat = np.asarray(s["lat"])
+        p50 = float(np.percentile(lat, 50))
+        results[name] = {
+            "tick_p50_ms": p50, "tick_p99_ms": float(np.percentile(lat, 99)),
+            "ticks": s["calls"], "first_call_ms": s["first_ms"],
+            "eager_p50_ms": float(np.percentile(s["eager_lat"], 50)),
+            "eager_ticks": len(s["eager_lat"]), "ticks_bitwise_equal_to_eager":
+            len(s["compared"]), "frames_compared": sorted(set(s["compared"])),
+            "converged": s["conv"],
+            "tracked_total": (float(s["tracked"].active.sum()) if s["tracked"] is not None
+                              else 0.0),
+            "fused_launches_per_tick": expected,
+            "replay_kernels": prof["kernels"], "replay_fused_kernels": prof["fused_kernels"],
+            "replay_busy_ms": prof["busy_ms"], "replay_fused_ms": prof["fused_ms"],
+            "replay_idle_share": 1.0 - prof["busy_ms"] / p50}
         log(f"[11] {name}: " + json.dumps(results[name]))
-    results["perception_added_ms"] = (results["with_perception"]["tick_p50_ms"]
-                                      - results["solver_only"]["tick_p50_ms"])
+    # The replays, the eager ticks held against them and the profiled replays.
+    results["fused_launches"] = solve_batch_fused.launches
+    added = {key: results["with_perception"][key] - results["solver_only"][key]
+             for key in ("tick_p50_ms", "eager_p50_ms")}
+    results.update(perception_added_ms=added["tick_p50_ms"],
+                   perception_added_eager_ms=added["eager_p50_ms"])
+    log(f"[11] perception_added_ms {added['tick_p50_ms']:.4f} replayed, "
+        f"{added['eager_p50_ms']:.4f} eager")
 
     # Gates: every episode tracks the walker near the ground truth, and the
     # episodes keep converging (tests/test_perception.py:449-455).
@@ -1890,35 +2053,65 @@ def phase_perception(tmpdir):
         f"largest error to the walk's ground truth {err:.4f} m")
     if n_active != B or err > TRACK_TRUTH_TOL:
         fail(f"perception tick: {n_active} tracks for {B} episodes, error {err:.4f} m")
-    for name in variants:
+    for name in PERCEPTION_VARIANTS:
         if results[name]["converged"] < 0.90:
             fail(f"perception tick {name}: converged {results[name]['converged']:.5f} < 0.90")
 
-    # The perception step alone, one call per event pair, and DBSCAN on the
-    # selection it clusters; launches of one step by the profiler's trace.
-    p = st["with_perception"]["p"]
+    # The perception step alone, eagerly, one call per event pair, and
+    # DBSCAN on the selection it clusters; launches of one step by the
+    # profiler's trace.
+    p = s["p"]
     step_ms = cuda_ms(lambda: perceive(p, 5), reps=20)
     with perception_trace() as calls:
         perceive(p, 5)
     c = calls[-1]
-    dbscan_ms = cuda_ms(lambda: clustering.dbscan(c["points"], c["mask"], pipeline.DBSCAN_EPS,
-                                                  pipeline.DBSCAN_MIN_SAMPLES), reps=20)
+
+    def run_dbscan():
+        return clustering.dbscan(c["points"], c["mask"], pipeline.DBSCAN_EPS,
+                                 pipeline.DBSCAN_MIN_SAMPLES)
+
+    dbscan_ms = cuda_ms(run_dbscan, reps=20)
     results.update(perception_step_ms=step_ms, dbscan_ms=dbscan_ms,
                    dbscan_share=dbscan_ms / step_ms)
-    log(f"[11] perception step alone (B={B}, one call per event pair): {step_ms:.4f} ms; "
-        f"DBSCAN on its selection {dbscan_ms:.4f} ms, {dbscan_ms / step_ms:.5f} of it")
-    from torch.profiler import ProfilerActivity, profile
+    log(f"[11] perception step alone, eager (B={B}, one call per event pair): {step_ms:.4f} "
+        f"ms; DBSCAN on its selection {dbscan_ms:.4f} ms, {dbscan_ms / step_ms:.5f} of it")
+    step_prof, _ = profile_call(lambda: perceive(p, 5))
+    results.update(perception_launches_per_step=step_prof["kernels"],
+                   perception_step_device_busy_ms=step_prof["busy_ms"])
+    log(f"[11] one eager perception step by the profiler: {step_prof['kernels']} kernels on "
+        f"the card, busy {step_prof['busy_ms']:.4f} ms")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        perceive(p, 5)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.device_time for e in kernels) / 1e3 if kernels else None
-    results.update(perception_launches_per_step=len(kernels) if kernels else None,
-                   perception_step_device_busy_ms=busy_ms)
-    log(f"[11] one perception step by the profiler: {len(kernels)} kernels on the card, "
-        f"busy {busy_ms} ms" if kernels else
-        "[11] the profiler recorded no kernel of the perception step: not measured")
+    # DBSCAN inside the perception replay: its eager kernels, found back to
+    # back in a replay's (a graph runs its kernels in the order of their
+    # launches at the capture), each from the last complete marked run.
+    last = st["with_perception"]
+    dbscan_runs = marked_runs(run_dbscan, 2)
+    replays = marked_runs(lambda: tick("with_perception", last["e"], last["p"], last["f"]), 2)
+    run = dbscan_runs[-1] if dbscan_runs else []
+    replay = replays[-1] if replays else []
+    at = find_run(replay, run) if run else []
+    if len(at) == 1:
+        window = replay[at[0]:at[0] + len(run)]
+        by_name = {}
+        for e in window:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.device_time / 1e3)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        window_ms = sum(e.device_time for e in window) / 1e3
+        replay_ms = sum(e.device_time for e in replay) / 1e3
+        results["dbscan_in_replay"] = {
+            "kernels": len(window), "device_ms": window_ms, "replay_kernels": len(replay),
+            "replay_kernel_ms": replay_ms, "share_of_replay_kernel_ms": window_ms / replay_ms,
+            # each sweep writes and reads one [B, M, P, P] int32 tensor
+            "sweep_tensor_bytes": 4 * c["mask"].numel() * c["mask"].shape[-1],
+            "top_kernels": [{"name": n[:120], "count": k, "ms": ms} for n, (k, ms) in top]}
+        log("[11] DBSCAN inside the profiled perception replay: "
+            + json.dumps(results["dbscan_in_replay"]))
+    else:
+        results["dbscan_in_replay"] = None
+        log(f"[11] DBSCAN inside the replay: not measured ({len(dbscan_runs)} and "
+            f"{len(replays)} complete marked runs; its {len(run)} eager kernels are found "
+            f"{len(at)} times among the replay's {len(replay)})")
 
     # Card against the CPU port on the same frames.
     n_pipe, n_frames = PERCEPTION_CHECK
@@ -2560,6 +2753,62 @@ def phase_utils_cli(tmpdir, cfg, pool):
     return result
 
 
+def build_pools(fused_cfgs):
+    """The benchmark's pools of POOL scenarios (seed 0), free and K=8; the
+    K=8 build is one CUDA graph (`scenarios.obstacle_problems`, as the
+    reference jits it): its program first under the sync debug mode, then
+    the first call (warm-up and capture), then a second K=8 pool from
+    SECOND_POOL_SEED built by a replay and eagerly (`graph.eager()`),
+    bitwise equal, and different from the first.  Returns (pools, what was
+    measured)."""
+    import torch
+
+    from kissmpc_tpu_torch._tree import leaves
+    from kissmpc_tpu_torch.scenarios import free_problems, obstacle_problems
+    from kissmpc_tpu_torch.solver import graph
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cfg = fused_cfgs["k8_dyn2"]
+    k8 = lambda seed: obstacle_problems(cfg, POOL, seed=seed, n_dynamic=2)  # noqa: E731
+    free, free_s = timed(lambda: free_problems(fused_cfgs["free"], POOL, seed=0))
+    with sync_checked_programs() as ran:
+        k8(0)
+        torch.cuda.synchronize()
+    if ran != ["scenarios.obstacle_problems"]:
+        fail(f"the sync-checked pool build ran the programs {ran}")
+    graphs = graph.captured("scenarios.obstacle_problems")
+    first, first_s = timed(lambda: k8(0))
+    second, replay_s = timed(lambda: k8(SECOND_POOL_SEED))
+    with graph.eager():
+        eager, eager_s = timed(lambda: k8(SECOND_POOL_SEED))
+    equal = all(bitwise_equal(a, b) for a, b in zip(leaves(second), leaves(eager), strict=True))
+    moved = not bitwise_equal(first.initial_state, second.initial_state)
+    record = {"free_build_s": free_s, "k8_first_call_s": first_s, "k8_replay_s": replay_s,
+              "k8_eager_s": eager_s, "replay_bitwise_equal_to_eager": equal,
+              "graphs": graph.captured("scenarios.obstacle_problems") - graphs,
+              "static_output_bytes": sum(x.numel() * x.element_size() for x in leaves(first))}
+    log(f"pools of {POOL} on the card: free {free_s:.3f} s (eager); K=8 one CUDA graph, "
+        f"its program under set_sync_debug_mode('error'), first call (warm-up and capture) "
+        f"{first_s:.3f} s, a second pool (seed {SECOND_POOL_SEED}) by a replay {replay_s:.3f} s "
+        f"and eagerly {eager_s:.3f} s, bitwise equal: {equal}; the graph keeps "
+        f"{record['static_output_bytes']} bytes of static outputs")
+    if record["graphs"] != 1:
+        fail(f"the pool build captured {record['graphs']} graphs, expected 1")
+    if not equal:
+        fail("the replayed pool build differs from the eager one")
+    if not moved:
+        fail("the replayed pool build returned the first pool's scenarios")
+    pools = {"free": free, "k8_dyn2": first}
+    pools["k8_dyn2_elastic"] = first  # the same scenarios, elastic constraints
+    return pools, record
+
+
 def phase_captured_solver(cfg, pool):
     """Phase 16: `make_solver` (one CUDA graph) against the eager
     `ipm.solve` on ``cfg`` (k8_dyn2 on split, N=50, float32) at B=8192:
@@ -2656,7 +2905,6 @@ def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
 
-    from kissmpc_tpu_torch.scenarios import free_problems, obstacle_problems
     from kissmpc_tpu_torch.solver.problem import gather
 
     t_start = time.perf_counter()
@@ -2669,14 +2917,7 @@ def main():
 
     build_s, occupancy = phase_build()
     fused_cfgs, split_cfgs = configs("fused"), configs("split")
-    t0 = time.perf_counter()
-    pools = {
-        "free": free_problems(fused_cfgs["free"], POOL, seed=0),
-        "k8_dyn2": obstacle_problems(fused_cfgs["k8_dyn2"], POOL, seed=0, n_dynamic=2),
-    }
-    pools["k8_dyn2_elastic"] = pools["k8_dyn2"]  # the same scenarios, elastic constraints
-    torch.cuda.synchronize()
-    log(f"pools of {POOL} built on the card in {time.perf_counter() - t0:.3f} s")
+    pools, pool_build = build_pools(fused_cfgs)
 
     riccati = phase_kernel(split_cfgs["k8_dyn2"], pools["k8_dyn2"])
     probe = phase_probe()
@@ -2738,6 +2979,7 @@ def main():
                     longest_horizon=fused_edges, fleet_launches=fleet["fused_launches"],
                     perception_launches_per_tick=perception["with_perception"][
                         "fused_launches_per_tick"],
+                    perception_launches=perception["fused_launches"],
                     data_parallel_launches=data_parallel["fused_launches"],
                     data_parallel_stepper_launches=data_parallel["stepper_fused_launches"],
                     cli_lab_launches=utils_cli["lab_launches"]["fused"])
@@ -2745,7 +2987,7 @@ def main():
                     "fused_free_kernel": fused["free"],
                     "main_path": {"fused": fused_results, "split": split_results,
                                   "split_mehrotra": mehrotra},
-                    "fleet": fleet, "planner": planner, "lab_worlds": lab,
+                    "pool_build": pool_build, "fleet": fleet, "planner": planner, "lab_worlds": lab,
                     "perception_tick": perception, "node_tick": node,
                     "data_parallel": data_parallel, "lqr_pt": lqr_pt, "utils_cli": utils_cli,
                     "captured_solver": captured,

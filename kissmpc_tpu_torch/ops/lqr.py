@@ -96,6 +96,11 @@ def solve_lqr(data: LQRData, reg: float = 0.0) -> LQRSolution:
     )
 
 
+# The reference's `jax.vmap(solve_lqr, in_axes=(0, None))`
+# (`kissmpc_tpu/ops/lqr.py:119`): this `solve_lqr` is batched already.
+solve_lqr_batched = solve_lqr
+
+
 def kkt_residual(data: LQRData, sol: LQRSolution) -> torch.Tensor:
     """Per-scenario inf-norm KKT residual of an LQR solution ([B]).
 

@@ -143,8 +143,13 @@ def obstacle_problems(
 ):
     """Batched obstacle-laden Problems through the production build path:
     sensor top-K selection, constant-velocity tracks at the plan's own dt,
-    warm-start repair and feasible completion."""
+    warm-start repair and feasible completion.  The sampling runs in numpy
+    on the host; the build is one program through `graph.run` (the
+    reference jits it, `kissmpc_tpu/scenarios.py:182`): one CUDA graph per
+    (config, inflation, dtype and batch) on the card, replayed for a second
+    pool of that shape."""
     from .obstacles.obstacles import ObstacleSet
+    from .solver import graph
     from .solver.problem import problem_with_obstacles
 
     dev = resolve_device(device)
@@ -165,14 +170,19 @@ def obstacle_problems(
         angular_velocity=torch.zeros((batch, K), dtype=dtype, device=dev),
         active=torch.ones((batch, K), dtype=dtype, device=dev),
     )
-    return problem_with_obstacles(
-        cfg, t(starts), t(goals), obs,
-        sensor_radius=5.0,
-        prediction_dt=cfg.time_step,
-        inflation_radius=inflation,
-        dtype=dtype,
-        device=dev,
-    )
+
+    def build(s, g, *o):
+        return problem_with_obstacles(
+            cfg, s, g, ObstacleSet(*o),
+            sensor_radius=5.0,
+            prediction_dt=cfg.time_step,
+            inflation_radius=inflation,
+            dtype=dtype,
+            device=dev,
+        )
+
+    return graph.run(("scenarios.obstacle_problems", cfg, inflation, dtype), build, dev,
+                     t(starts), t(goals), *obs)
 
 
 def route_waypoints(

@@ -4,12 +4,14 @@ The reference compiles its entry points into one device program each:
 `make_solver` and `make_batch_solver` (`kissmpc_tpu/solver/api.py:26,151`),
 the node's tick (`kissmpc_tpu/io/model.py:97`), the CLI `demo` and `lab`
 steppers (`kissmpc_tpu/cli.py:47,128`), the data-parallel fleet solver and
-stepper (`kissmpc_tpu/parallel/fleet.py:78,116`) and the planner's two
-fields (`kissmpc_tpu/planner.py:77,300`).  Here each of them calls
+stepper (`kissmpc_tpu/parallel/fleet.py:78,116`), the planner's two
+fields (`kissmpc_tpu/planner.py:77,300`) and the pool builder
+(`kissmpc_tpu/scenarios.py:182`).  Here each of them calls
 `run(key, fn, device, *inputs)`, which returns ``fn`` of the inputs moved
 to ``device``:
 
-- on the CPU, and inside `eager()`, by calling ``fn``;
+- on the CPU, and inside `eager()`, by calling ``fn`` (after freezing and
+  hashing the key, as the card's path does);
 - on the card, the first call for a key and input signature (every input's
   shape and dtype) runs ``fn`` once on a side stream (the warm-up: it loads
   the kernels' libraries, sets their launch attributes and creates the
@@ -20,7 +22,8 @@ to ``device``:
   its static outputs, so a result the caller keeps never changes.
 
 ``fn`` must be a function of its tensor inputs alone for a given key (the
-key names whatever else it closes over: a config, a dtype), must return a
+key names whatever else it closes over: a config, a dtype; `freeze` makes
+lists in it tuples, and a key that stays unhashable raises), must return a
 tree of tensors (`_tree.py`), and must not synchronise with the host: a
 capture that meets a synchronisation raises, and nothing falls back to the
 eager path.  The graphs live for the process, one cache for every caller
@@ -43,6 +46,7 @@ nothing), and adds that amount on every replay.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Callable, Hashable, NamedTuple
 
 import torch
@@ -90,10 +94,28 @@ def captured(name: str | None = None) -> int:
     return sum(1 for sig in _GRAPHS if name is None or sig[0][0] == name)
 
 
+def freeze(key: Any) -> Hashable:
+    """``key`` with every list and tuple made a tuple, recursively, the
+    fields of a dataclass (a config, `AgentParams`) included: keys equal in
+    value freeze equal, so a config given lists shares its graph with its
+    twin given tuples.  The configs themselves keep what they were given,
+    as the reference's do."""
+    if isinstance(key, (list, tuple)):
+        return tuple(freeze(x) for x in key)
+    if dataclasses.is_dataclass(key) and not isinstance(key, type):
+        return (type(key), *((f.name, freeze(getattr(key, f.name)))
+                             for f in dataclasses.fields(key)))
+    return key
+
+
 def run(key: Hashable, fn: Callable, device: torch.device, *inputs: torch.Tensor):
     """``fn(*inputs)`` with the inputs moved to ``device``: captured once per
-    (key, device, input shapes and dtypes) and replayed on the card."""
+    (key, device, input shapes and dtypes) and replayed on the card.  The
+    key is frozen (`freeze`) and hashed on every path, the CPU's and
+    `eager()`'s too, so a key the card cannot look up raises everywhere."""
     device = torch.device(device)
+    key = freeze(key)
+    hash(key)
     if device.type != "cuda" or _EAGER:
         return fn(*(x.to(device) for x in inputs))
     if device.index is None:

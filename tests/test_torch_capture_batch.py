@@ -151,12 +151,14 @@ def _never_synced(regions, keys, min_ops=400):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_split_make_batch_solver_never_syncs(regions, dtype):
     """Split `make_batch_solver` at B=8 with two refine stages: the base
-    solve, the stages' sort, gathers and merges, inside one region."""
+    solve, the stages' sort, gathers and merges, inside one region (after
+    the pool builder's own region)."""
     cfg = _cfg()
     p = obstacle_problems(cfg, 8, seed=4, dtype=dtype, device=CPU)
     sol = make_batch_solver(cfg, device=CPU)(p)
     assert not bool(sol.diagnostics.converged.all())  # the stages had work
-    _never_synced(regions, ["make_batch_solver"], min_ops=10_000)
+    _never_synced(regions, ["scenarios.obstacle_problems", "make_batch_solver"])
+    assert regions[-1][1].ops > 10_000
 
 
 @pytest.mark.parametrize("mu_sigma", [None, 0.35, "per-scenario"])
@@ -182,10 +184,10 @@ def test_fused_wrapper_never_syncs_up_to_the_launch(card_launch, mu_sigma):
 def test_fused_make_batch_solver_never_syncs(regions, card_launch):
     """Fused `make_batch_solver` at B=16 with two refine stages through the
     wrapper's card path: one launch per stage, each with its trip count and
-    sigma, in one region."""
+    sigma, in one region (after the pool builder's own region)."""
     cfg = _cfg(K=3, backend="fused", fused_affine_tracks=True, mu_sigma_max=0.7)
     make_batch_solver(cfg, device=CPU)(obstacle_problems(cfg, 16, seed=2, device=CPU))
-    _never_synced(regions, ["make_batch_solver"])
+    _never_synced(regions, ["scenarios.obstacle_problems", "make_batch_solver"])
     assert card_launch.trips == [6, 16, 24]
     assert [len(s) for s in card_launch.sigma] == [16, 8, 4]
     assert [s[0] for s in card_launch.sigma[1:]] == [float(np.float32(0.2)),
@@ -207,14 +209,15 @@ def test_fleet_tick_never_syncs(regions, card_launch):
 def test_data_parallel_programs_never_sync(regions, card_launch, one_rank):
     """The fleet solver and stepper on a one-process gloo group: the
     shard's work and `fleet_metrics`' two collectives in one region each
-    (on the CPU `graph.run` runs them eagerly), the counter moved by 2 per
-    call."""
+    (on the CPU `graph.run` runs them eagerly; the pool builder's region
+    comes first), the counter moved by 2 per call."""
     cfg, params, env, obstacles = _fleet()
     count = fleet.fleet_metrics.collectives
     solver = fleet.make_fleet_solver(cfg, one_rank)
     sol, metrics = solver(obstacle_problems(cfg, 16, seed=5, device=CPU))
     _, _, step_metrics = fleet.make_fleet_env_stepper(cfg, params, one_rank)(env, obstacles)
-    _never_synced(regions, ["make_fleet_solver", "make_fleet_env_stepper"])
+    _never_synced(regions, ["scenarios.obstacle_problems", "make_fleet_solver",
+                            "make_fleet_env_stepper"])
     assert fleet.fleet_metrics.collectives == count + 4
     assert metrics.converged_fraction.shape == step_metrics.mean_cost.shape == ()
 
