@@ -5,9 +5,10 @@
 
 Phases, each a hard failure with a non-zero exit:
 
-1. build the three CUDA libraries from `kissmpc_tpu_torch/csrc/` (one nvcc
-   per source, all started together) and print each ptxas register/spill
-   line; for the fused kernel's instance of each configuration, its
+1. build the four CUDA libraries from `kissmpc_tpu_torch/csrc/` (one nvcc
+   per source, all started together: the Riccati kernel, the probe, the
+   fused IPM kernel and the split iteration's two kernels) and print each
+   ptxas register/spill line; for the fused kernel's instance of each configuration, its
    registers, local bytes, dynamic shared memory per block and the
    scenarios resident per SM (`ops/ipm_fused.py::occupancy`); the same for
    the Riccati kernel in float32 and float64 at B=8192 and 164 (its two
@@ -31,6 +32,7 @@ bytes.
    each by `kernel_ms` (20 launches captured in a CUDA graph between one
    event pair) beside its bound, and once at B=8192 as before, one call
    per event pair with the wrapper's host work inside;
+   then phase 17 (below) runs;
 3. the trip-count probe: counts 0, 7 and then 31 read from device memory
    by one loaded library; the results must be exactly those counts; timed
    at 31 trips and at 0 (its launch floor) by `kernel_ms`, beside
@@ -65,13 +67,14 @@ bytes.
    call (warm-up and capture, timed), then 5 distinct batches drawn from a
    pool of 16384, each solved eagerly and by a replay in turns, timed,
    bitwise equal; one replay under the profiler (kernels, busy time, idle
-   share; its fused and Riccati kernels equal to the counters').  Every
-   call launches the fused kernel once per solve stage and the Riccati
-   kernel never.  Then the same for the "split" backend (free and K=8),
-   whose Riccati launches must equal the IPM iterations run, and one eager
-   call each of split with mehrotra "pc" and "soc" on the free
-   configuration, whose Riccati launches must equal twice the iterations
-   run;
+   share; its fused, Riccati, split condensation and split step kernels
+   equal to the counters').  Every call launches the fused kernel once per
+   solve stage and no other.  Then the same for the "split" backend (free
+   and K=8), whose every IPM iteration is one condensation, one Riccati and
+   one step launch (by the counters around every call, and by the
+   profiled replay's trace), and one eager call each of split with
+   mehrotra "pc" and "soc" on the free configuration: two condensations,
+   two Riccati solves and one step per iteration;
 6. check 64 scenarios of each configuration against the port's CPU path:
    the fused kernel against its plain version on the CPU in float32, the
    split path in float64 and float32, and in float64 the split path with
@@ -147,15 +150,18 @@ bytes.
    odometry on the eager path on the card (`graph.eager()`), its p50 and
    p99; one eager tick under the profiler (kernels, idle share, kernel
    launches by op) and 3 replayed ticks, each traced alone (kernels, idle
-   share, host syncs, Riccati kernels and their time); the tick's program
-   eagerly under `torch.cuda.set_sync_debug_mode("error")`; gates: one
-   graph for the 50 ticks, Riccati launches per tick equal to the
-   iterations run on both paths, the captured commands bitwise equal to
-   the eager ones, each replayed tick's trace showing exactly 40 Riccati
-   kernels, as its launch counter does, and at most 8 host syncs (one per
-   leaf read back), the first 10 ticks' commands within 1e-3 of the CPU
-   port's on the same inputs, and the kernel against its plain version by
-   phase 2's gate on one tick's LQR data (B=1, N=7);
+   share, host syncs, the IPM loop's kernels and their time); the replayed
+   tick's p50 and p99 against the 10 ms period; the tick's program eagerly
+   under `torch.cuda.set_sync_debug_mode("error")`; gates: one graph for
+   the 50 ticks, condensation, Riccati and step launches per tick each
+   equal to the iterations run on both paths, the captured commands
+   bitwise equal to the eager ones, each replayed tick's trace showing
+   exactly 40 of each of the three kernels (120 for the IPM loop), as the
+   launch counters do, and at most 8 host syncs (one per leaf read back),
+   the first 10 ticks' commands within 1e-3 of the CPU port's on the same
+   inputs, the Riccati kernel against its plain version by phase 2's gate
+   and the split kernels against their plain halves by phase 17's gates
+   on the last tick's problem (B=1, N=7);
 13. the data-parallel fleet (`parallel.fleet`) over a one-rank NCCL group
    from an in-process store, each fleet call one CUDA graph with its two
    `all_reduce`s (each program first under the sync debug mode):
@@ -192,8 +198,22 @@ bytes.
    under the sync debug mode, the first call (warm-up and capture) timed,
    then 5 eager calls and 5 replays in turns, each bitwise equal to the
    eager result, the first result unchanged by them, p50 of both, and one
-   replay's Riccati kernels by the profiler equal to its launch counter's
-   32.
+   replay's condensation, Riccati and step kernels by the profiler equal
+   to its launch counters' 32 each;
+17. (run right after phase 2) the split iteration's two kernels
+   (`csrc/ipm_split.cu`) against their plain halves on the card
+   (`split_kernels_check`), on the iterate after 8 plain iterations:
+   k8_dyn2 at B=8192 and at the last refine stage's 164 in float32 and
+   float64, k8_dyn2_elastic and free at B=8192, mehrotra "pc" at 164, and
+   the node (N=7, B=1, 4 obstacle slots).  Condensation: each LQRData
+   field of each scenario within 1e-4 of its scale plus twice the plain
+   version's own f32-vs-f64 gap (f64: 1e-9 of its scale).  Step (given the
+   plain condensation and Riccati solve): the accepted line-search
+   candidate differs on at most max(1, twice the plain version's own
+   f32-vs-f64 flips) scenarios, and elsewhere the new iterate, the next mu
+   and the step length meet the same gate.  Each kernel timed by
+   `kernel_ms` (20 launches in a CUDA graph) beside its bound
+   (`split_bound`) and its plain half.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -311,6 +331,8 @@ CLI_LAB_BATCH = 256
 CLI_LAB_TICKS = 50
 # Phase 16: make_solver's eager calls and replays, in turns.
 CAPTURED_CALLS = 5
+# Phase 17: plain iterations before the iterate the split kernels are held on.
+SPLIT_CHECK_ITERATIONS = 8
 # The earlier fused kernel (one thread per scenario, iterate in global
 # scratch) at each solve stage, (B, iterations): ms, CUDA events around the
 # wrapper's call, NVIDIA H100 80GB HBM3 at 700 W (recorded in PERF.md).
@@ -470,18 +492,19 @@ def configs(backend):
 def phase_build():
     import torch
 
-    from kissmpc_tpu_torch.ops import _build, ipm_fused, probe, riccati
+    from kissmpc_tpu_torch.ops import _build, ipm_fused, ipm_split, probe, riccati
 
     sources = {
         "kissmpc_riccati": riccati.SOURCE,
         "kissmpc_probe": probe.SOURCE,
         "kissmpc_ipm_fused": ipm_fused.SOURCE,
+        "kissmpc_ipm_split": ipm_split.SOURCE,
     }
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         futures = {name: pool.submit(_build.build, src, name) for name, src in sources.items()}
         libs = {name: f.result() for name, f in futures.items()}
-    for module in (riccati, probe, ipm_fused):
+    for module in (riccati, probe, ipm_fused, ipm_split):
         module._library()
     build_s = time.perf_counter() - t0
     for lib in libs.values():
@@ -514,18 +537,28 @@ def phase_build():
     return build_s, occupancy
 
 
-def lqr_from_iterate(cfg, problems, iterations=8):
-    """LQR data of the IPM's Newton system after a few iterations."""
+def split_iterate(cfg, problems, iterations):
+    """The split IPM's iterate after ``iterations`` plain iterations from
+    the warm start (`ipm.condense_plain`, `ops/lqr.py`, `ipm.step_plain`),
+    and its next mu."""
     import torch
 
     from kissmpc_tpu_torch.solver import ipm
 
     with torch.no_grad():
         it = ipm._init_state(cfg, problems)
-        masks = ipm._constraint_masks(cfg, problems, it.states.dtype)
+        mu = ipm._next_mu(cfg, it, ipm._constraint_masks(cfg, problems, it.states.dtype))
         for _ in range(iterations):
-            it = ipm._iteration(cfg, problems, it, ipm._adaptive_mu(cfg, it, masks))
-        return ipm._build_lqr(cfg, problems, it, ipm._adaptive_mu(cfg, it, masks))
+            it, mu, _ = ipm._iteration(cfg, problems, it, mu)
+    return it, mu
+
+
+def lqr_from_iterate(cfg, problems, iterations=8):
+    """LQR data of the IPM's Newton system after a few iterations."""
+    from kissmpc_tpu_torch.solver import ipm
+
+    it, mu = split_iterate(cfg, problems, iterations)
+    return ipm.condense_plain(cfg, problems, it, mu)
 
 
 def riccati_bound(batch, dtype, n=N):
@@ -637,6 +670,135 @@ def check_riccati(data, reg, phase=2):
     return g
 
 
+SPLIT_FLIP_RTOL = 1e-3  # alphas of one candidate agree far closer; two differ by ls_backtrack
+
+
+def _cast(tree, dtype):
+    """Every floating tensor of a tuple (or NamedTuple) tree in ``dtype``."""
+    import torch
+
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.dtype.is_floating_point else tree
+    return type(tree)(*(_cast(x, dtype) for x in tree)) if hasattr(tree, "_fields") \
+        else type(tree)(_cast(x, dtype) for x in tree)
+
+
+def split_field_gate(fields, f32, skip=None):
+    """Each of ``fields`` ((name, got, ref, other) with a leading batch
+    axis; ``other`` the plain version in the other precision) held per
+    scenario: within 1e-4 of that scenario's scale of the field (its
+    largest magnitude in ``ref``, at least 1) plus twice the plain
+    version's own f32-vs-f64 gap there in float32, within 1e-9 of the
+    scale in float64; equal non-finite entries agree, others do not.
+    Scenarios in the boolean mask ``skip`` are left out.  Returns {"ok",
+    "err", "fields": {name: {"err", "scenario", "ratio"}}}."""
+    import torch
+
+    out, ok = {}, True
+    for name, got, ref, other in fields:
+        B = ref.shape[0]
+        g = got.reshape(B, -1).double()
+        r = ref.reshape(B, -1).double().to(g.device)
+        o = other.reshape(B, -1).double().to(g.device)
+        same = (g == r) | (torch.isnan(g) & torch.isnan(r))
+        diff = torch.where(same, torch.zeros_like(g), (g - r).abs()).nan_to_num(nan=float("inf"))
+        err = diff.amax(1) if g.shape[1] else torch.zeros(B, dtype=g.dtype, device=g.device)
+        rf = torch.where(torch.isfinite(r), r, torch.zeros_like(r))
+        scale = (rf.abs().amax(1) if g.shape[1] else torch.zeros_like(err)).clamp(min=1.0)
+        if f32:
+            og = torch.where(torch.isfinite(o) & torch.isfinite(r), (r - o).abs(),
+                             torch.zeros_like(r))
+            tol = 1e-4 * scale + 2.0 * (og.amax(1) if g.shape[1] else torch.zeros_like(err))
+        else:
+            tol = 1e-9 * scale
+        ratio = err / tol
+        if skip is not None:
+            ratio = torch.where(skip.to(ratio.device), torch.zeros_like(ratio), ratio)
+            err = torch.where(skip.to(err.device), torch.zeros_like(err), err)
+        worst = int(ratio.argmax())
+        out[name] = {"err": float(err.max()), "scenario": worst, "ratio": float(ratio[worst])}
+        ok = ok and out[name]["ratio"] <= 1.0
+    worst = max(out, key=lambda k: out[k]["ratio"])
+    return {"ok": ok, "err": max(o["err"] for o in out.values()), "worst": worst, "fields": out}
+
+
+def _flips(a, b):
+    """Scenarios whose accepted step lengths name different candidates."""
+    a, b = a.double(), b.double().to(a.device)
+    return ~((a - b).abs() <= SPLIT_FLIP_RTOL * b.abs())
+
+
+def split_kernels_check(cfg, problems, iterations, lib, stream):
+    """The split iteration's two kernels, launched through ``lib`` on
+    ``stream`` by the wrapper's card path (`ops/ipm_split.py::_condense`,
+    `_step`; a CPU build of the source runs them on CPU tensors), against
+    their plain halves on the iterate after ``iterations`` plain
+    iterations, with the plain predictor's correction rows under Mehrotra:
+
+    - condensation: each LQRData field of each scenario by
+      `split_field_gate` (float32: 1e-4 of its scale plus twice the plain
+      version's own f32-vs-f64 gap; float64: 1e-9 of its scale);
+    - step, given the plain condensation and its plain Riccati solve: the
+      accepted candidate differs on at most max(1, twice the plain
+      version's own f32-vs-f64 flips) scenarios, and elsewhere the new
+      iterate, the next mu and the step length meet the same gate.
+
+    Returns {"ok", "condense", "step", "flips", "plain_flips", "allowed",
+    "B", "dtype"} and the inputs, outputs of the kernels ("launched")."""
+    import torch
+
+    from kissmpc_tpu_torch.ops import ipm_split
+    from kissmpc_tpu_torch.ops.lqr import solve_lqr
+    from kissmpc_tpu_torch.solver import ipm
+
+    problems = ipm._contiguous(problems)
+    dtype = problems.initial_state.dtype
+    f32 = dtype == torch.float32
+    other = torch.float64 if f32 else torch.float32
+    with torch.no_grad():
+        it, mu = split_iterate(cfg, problems, iterations)
+        corr = None
+        if cfg.solver.mehrotra != "off":
+            mu, corr = ipm._predictor(cfg, problems, it, mu, ipm.condense_plain, solve_lqr)
+        args_o = [_cast(x, other) for x in (problems, it, mu, corr)]
+        got_c = ipm_split._condense(lib, stream, cfg, problems, it, mu, corr)
+        ref_c = ipm.condense_plain(cfg, problems, it, mu, corr)
+        oth_c = ipm.condense_plain(cfg, *args_o)
+        cgate = split_field_gate([(f, getattr(got_c, f), getattr(ref_c, f), getattr(oth_c, f))
+                                  for f in ref_c._fields], f32)
+        sol = solve_lqr(ref_c, cfg.solver.reg)
+        got_s = ipm_split._step(lib, stream, cfg, problems, it, mu, ref_c, sol, corr)
+        ref_s = ipm.step_plain(cfg, problems, it, mu, ref_c, sol, corr)
+        oth_s = ipm.step_plain(cfg, *args_o[:3], _cast(ref_c, other), _cast(sol, other),
+                               args_o[3])
+    flips = _flips(got_s.alpha, ref_s.alpha)
+    plain_flips = int(_flips(oth_s.alpha, ref_s.alpha).sum())
+    allowed = max(1, 2 * plain_flips)
+    fields = [(f, getattr(got_s.it, f), getattr(ref_s.it, f), getattr(oth_s.it, f))
+              for f in ref_s.it._fields]
+    fields += [("mu", got_s.mu, ref_s.mu, oth_s.mu), ("alpha", got_s.alpha, ref_s.alpha,
+                                                      oth_s.alpha)]
+    sgate = split_field_gate(fields, f32, skip=flips)
+    n_flips = int(flips.sum())
+    return {"ok": cgate["ok"] and sgate["ok"] and n_flips <= allowed, "condense": cgate,
+            "step": sgate, "flips": n_flips, "plain_flips": plain_flips, "allowed": allowed,
+            "B": int(problems.initial_state.shape[0]), "dtype": str(dtype)[6:],
+            "launched": (problems, it, mu, corr, ref_c, sol)}
+
+
+def describe_split_check(res):
+    c, s = res["condense"], res["step"]
+    return (f"condensation max|kernel-plain| {c['err']:.3e}, nearest its limit {c['worst']} "
+            f"at {c['fields'][c['worst']]['ratio']:.3f} of it; step: accepted candidate differs "
+            f"on {res['flips']} of {res['B']} (allowed {res['allowed']}: the plain version's "
+            f"own f32-vs-f64 flips {res['plain_flips']}), elsewhere max|kernel-plain| "
+            f"{s['err']:.3e}, nearest its limit {s['worst']} at "
+            f"{s['fields'][s['worst']]['ratio']:.3f} of it; "
+            f"{'passes' if res['ok'] else 'FAILS'}")
+
+
 def phase_kernel(cfg, pool):
     """The Riccati kernel against its plain version on LQR data of a real
     IPM iterate (K=8, B=8192; the smaller batches are its first B
@@ -693,6 +855,163 @@ def phase_kernel(cfg, pool):
         "single_call_ms": single_ms,
         "batch_ms": rows,
     }
+
+
+def split_bytes(cfg, batch, dtype, kernel):
+    """Bytes the split ``kernel`` ("condense" or "step") must move for
+    ``batch`` scenarios of ``cfg``: every input it reads once, every output
+    written once.  The condensation reads the problem, the iterate's
+    trajectory, slacks, duals (and e in elastic mode), reg, mu and the
+    correction rows, and writes the eight LQRData tensors; the step reads
+    the problem, the whole iterate, mu, the condensed qx and A, dx, du and
+    the correction rows, and writes the new iterate, the next mu and the
+    step length."""
+    import torch
+
+    N, K = cfg.horizon, cfg.max_obstacles
+    elastic = cfg.solver.elastic_obstacles and K > 0
+    size = 4 if dtype == torch.float32 else 8
+    t1 = N + 1
+    problem = 16 + 2 * K * N + 2 * K + 1
+    rows = 4 * N + 6 * t1 + N * K  # one slack (or dual) of every element
+    iterate = 3 * t1 + 2 * N + 2 * rows + N * K + 2  # with e, reg, sigma
+    corr = rows if cfg.solver.mehrotra != "off" else 0
+    lqr = 24 * N + 3 + 12 * t1
+    if kernel == "condense":
+        reads = problem + iterate - 1 - (0 if elastic else N * K) + 1 + corr
+        writes = lqr
+    else:
+        reads = problem + iterate + 1 + 6 * t1 + 11 * N + corr
+        writes = iterate + 2
+    return size * batch * (reads + writes)
+
+
+def split_ops(cfg, batch, kernel):
+    """Operations of the split ``kernel`` for ``batch`` scenarios of
+    ``cfg``, counted from csrc/ipm_split.cu as written, roughly: each add,
+    multiply, compare-and-select, min, max, abs, division, sqrt, sin, cos
+    and log one, an FMA two.  Condensation per stage: 96 (state row: cost,
+    two box families, Hessian diagonal), 80 (control row: cost, two box
+    families, linearisation with sin and cos, defect), 60 per obstacle (its
+    geometry, gradient coefficient, Gauss-Newton and curvature terms; +15
+    elastic).  Step: three passes that recompute each element's step (12
+    per box element, 25 per obstacle element, +30 elastic), the fractions
+    to the boundary (10 per element), per candidate 10 per box element, 38
+    per obstacle element and 45 per stage (trial point, cost, defect with
+    sin and cos), the update and complementarity (17 per element), and the
+    adjoint sweep (21 per stage)."""
+    N, K = cfg.horizon, cfg.max_obstacles
+    elastic = cfg.solver.elastic_obstacles and K > 0
+    box, obst = 4 * N + 6 * (N + 1), N * K
+    if kernel == "condense":
+        per = 96 * (N + 1) + 80 * N + (60 + (15 if elastic else 0)) * obst
+    else:
+        cand = 1 + cfg.solver.ls_iters
+        step = 12 * box + (25 + (30 if elastic else 0)) * obst
+        per = (3 * step + 10 * (box + obst) + cand * (10 * box + 38 * obst + 45 * (N + 1))
+               + 17 * (box + obst) + 21 * N)
+    return per * batch
+
+
+def split_bound(cfg, batch, dtype, kernel):
+    """(bound ms, "bytes" or "operations", bytes, operations).  Both
+    instances do their arithmetic in double (csrc/ipm_split.cu's Compute),
+    so the operations go at the float64 peak."""
+    n_bytes, ops = split_bytes(cfg, batch, dtype, kernel), split_ops(cfg, batch, kernel)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F64_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, ops
+
+
+def node_config():
+    """The node's configuration: `io.Model`'s defaults with 4 obstacle slots."""
+    from kissmpc_tpu_torch import MPCConfig
+
+    return MPCConfig(horizon=7, time_step=0.8, max_obstacles=4)
+
+
+def phase_split_kernels(split_cfgs, pools):
+    """Phase 17: the split iteration's two kernels against their plain
+    halves on the card (`split_kernels_check`), on the iterate after
+    SPLIT_CHECK_ITERATIONS plain iterations: k8_dyn2 at B=8192 and at the
+    last refine stage's 164 in float32 and float64, k8_dyn2_elastic and
+    free at B=8192, Mehrotra "pc" at 164, and the node (N=7, B=1); each
+    kernel timed by `kernel_ms` (launches captured in a CUDA graph) beside
+    its bound and its plain half.  Returns the two kernels' rows of the
+    ``kernels`` line (k8_dyn2, f32, B=8192), launches filled in later."""
+    import torch
+
+    from kissmpc_tpu_torch.ops import ipm_split
+    from kissmpc_tpu_torch.scenarios import obstacle_problems
+    from kissmpc_tpu_torch.solver import ipm
+    from kissmpc_tpu_torch.solver.problem import Problem, gather
+
+    lib = ipm_split._library()
+    k8 = split_cfgs["k8_dyn2"]
+    node = node_config()
+    pc = k8.replace(solver=dataclasses.replace(k8.solver, mehrotra="pc"))
+    cases = [("k8_dyn2", k8, "k8_dyn2", BATCH, torch.float32),
+             ("k8_dyn2", k8, "k8_dyn2", REFINE_CHECK_BATCH, torch.float32),
+             ("k8_dyn2", k8, "k8_dyn2", BATCH, torch.float64),
+             ("k8_dyn2", k8, "k8_dyn2", REFINE_CHECK_BATCH, torch.float64),
+             ("k8_dyn2_elastic", split_cfgs["k8_dyn2_elastic"], "k8_dyn2", BATCH, torch.float32),
+             ("free", split_cfgs["free"], "free", BATCH, torch.float32),
+             ("k8_dyn2 pc", pc, "k8_dyn2", REFINE_CHECK_BATCH, torch.float32),
+             ("node", node, None, 1, torch.float32)]
+    rows = []
+    for label, cfg, pool, B, dtype in cases:
+        if pool is None:
+            problems = obstacle_problems(cfg, B, seed=12, n_dynamic=2)
+        else:
+            problems = gather(pools[pool], torch.arange(B, device="cuda"))
+        problems = Problem(*(x.to(dtype) for x in problems))
+        res = split_kernels_check(cfg, problems, SPLIT_CHECK_ITERATIONS, lib,
+                                  torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        log(f"[17] split kernels, {label} {res['dtype']} B={B} N={cfg.horizon}: "
+            f"{describe_split_check(res)}")
+        if not res["ok"]:
+            fail(f"the split kernels disagree with their plain halves ({label}, {res['dtype']}, "
+                 f"B={B})")
+        pr, it, mu, corr, data, sol = res["launched"]
+        row = {"case": label, "dtype": res["dtype"], "B": B, "N": cfg.horizon,
+               "flips": res["flips"], "allowed_flips": res["allowed"]}
+        # The stream is read at each call: kernel_ms captures the calls on
+        # a stream of its own.
+        stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+        for kernel, fn, plain in (
+                ("condense", lambda: ipm_split._condense(lib, stream(), cfg, pr, it, mu, corr),
+                 lambda: ipm.condense_plain(cfg, pr, it, mu, corr)),
+                ("step", lambda: ipm_split._step(lib, stream(), cfg, pr, it, mu, data, sol, corr),
+                 lambda: ipm.step_plain(cfg, pr, it, mu, data, sol, corr))):
+            ms = kernel_ms(fn, reps=20, graph=True)
+            plain_ms = kernel_ms(plain, reps=3, warmup=1)
+            bound_ms, bound_by, n_bytes, ops = split_bound(cfg, B, dtype, kernel)
+            row[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "bytes": n_bytes, "ops": ops,
+                           "max_abs_err": res["condense" if kernel == "condense" else "step"]["err"]}
+            log(f"[17] {kernel} kernel, {label} {res['dtype']} B={B}: {ms:.5f} ms, "
+                f"{ms / bound_ms:.2f}x its bound {bound_ms:.5f} ms ({n_bytes} bytes, {ops} "
+                f"operations; {bound_by}); plain half {plain_ms:.4f} ms")
+        rows.append(row)
+    main = rows[0]
+
+    def entry(kernel, name, replaces, what):
+        m = main[kernel]
+        return {"name": name, "route": "cuda", "source": "kissmpc_tpu_torch/csrc/ipm_split.cu",
+                "replaces": replaces, "tpu_kernel": None,
+                "replaces_note": f"no TPU kernel: XLA's fusion of {what} under the reference's "
+                                 f"jax.jit",
+                "launches": None, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None,
+                "cases": [{k: r[k] for k in ("case", "dtype", "B", "N", "flips")} | r[kernel]
+                          for r in rows]}
+
+    return [entry("condense", "ipm_split_condense", "kissmpc_tpu/solver/ipm.py:328",
+                  "_build_lqr"),
+            entry("step", "ipm_split_step", "kissmpc_tpu/solver/ipm.py:407",
+                  "the rest of _iteration")]
 
 
 def phase_probe():
@@ -969,40 +1288,37 @@ def phase_main_path(backend, cfgs, pools, calls):
     the sync debug mode with a warm-up batch, then the first captured call
     (warm-up and capture) on it, then ``calls`` batches, each solved
     eagerly and by a replay, timed, bitwise equal, with the launch counts of
-    both kernels read around every call; then one replay under the
-    profiler.  The counts are set to 0 before the first configuration and
-    read after the last."""
+    four kernels (fused; Riccati, split condensation and split step) read
+    around every call; then one replay under the profiler, whose trace
+    shows the counted kernels.  The counts are set to 0 before the first
+    configuration and read after the last."""
     import torch
 
     from kissmpc_tpu_torch import make_batch_solver, solve_batch
     from kissmpc_tpu_torch._tree import leaves
-    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
-    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
     from kissmpc_tpu_torch.solver.problem import gather
 
     rng = np.random.default_rng(0)
     results = {}
-    solve_lqr_cuda.launches = 0
-    solve_batch_fused.launches = 0
+    zero_counts()
     for name, cfg in cfgs.items():
         pool = pools[name]
         stages = len(cfg.solver.refine_stages)
         if backend == "fused":
-            expected = {"fused": 1 + stages, "riccati": 0}
+            expected = {"fused": 1 + stages, "riccati": 0, "condense": 0, "step": 0}
         else:
             its = cfg.solver.iterations + sum(it for _, it, _ in cfg.solver.refine_stages)
-            expected = {"fused": 0, "riccati": its}
+            expected = {"fused": 0, "riccati": its, "condense": its, "step": its}
         solver = make_batch_solver(cfg)
 
         def call(fn, batch, what):
             torch.cuda.synchronize()
-            before = (solve_batch_fused.launches, solve_lqr_cuda.launches)
+            before = counts()
             t0 = time.perf_counter()
             sol = fn(batch)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            launched = {"fused": solve_batch_fused.launches - before[0],
-                        "riccati": solve_lqr_cuda.launches - before[1]}
+            launched = moved(before)
             if launched != expected:
                 fail(f"{backend} {name} {what}: launches {launched}, expected {expected}")
             if sol.controls.shape != (BATCH, N, 2) or sol.states.shape != (BATCH, N + 1, 3):
@@ -1043,12 +1359,13 @@ def phase_main_path(backend, cfgs, pools, calls):
                 log(f"[5] {backend} {name} call {i}: eager {eager_ms[-1]:.3f} ms, replay "
                     f"{replay_ms[-1]:.3f} ms, bitwise equal, converged {frac:.5f}, usable "
                     f"{use:.5f}, launches {expected} each")
-        before = (solve_batch_fused.launches, solve_lqr_cuda.launches)
+        before = counts()
         prof, _ = profile_call(lambda: solver(batch))
-        launched = (solve_batch_fused.launches - before[0], solve_lqr_cuda.launches - before[1])
-        if (prof["fused_kernels"], prof["riccati_kernels"]) != launched:
-            fail(f"{backend} {name}: a profiled replay ran {prof['fused_kernels']} fused and "
-                 f"{prof['riccati_kernels']} Riccati kernels, counted {launched}")
+        launched = moved(before)
+        traced = {k: prof[f"{k}_kernels"] for k in launched}
+        if traced != launched or launched != expected:
+            fail(f"{backend} {name}: a profiled replay ran {traced} kernels by the trace, "
+                 f"counted {launched}, expected {expected}")
         p50 = float(np.percentile(replay_ms, 50))
         results[name] = {
             "backend": backend,
@@ -1066,6 +1383,7 @@ def phase_main_path(backend, cfgs, pools, calls):
             "replay_kernels": prof["kernels"],
             "replay_busy_ms": prof["busy_ms"],
             "replay_idle_share": prof["idle_share"],
+            "replay_kernels_by_trace": traced,
         }
         log(f"[5] {backend} {name}: " + json.dumps(results[name]))
     floors = {"free": 0.95, "k8_dyn2": 0.90, "k8_dyn2_elastic": 0.90}
@@ -1074,47 +1392,48 @@ def phase_main_path(backend, cfgs, pools, calls):
         if results[name]["converged_fraction"] < floor:
             fail(f"{backend} {name}: converged fraction "
                  f"{results[name]['converged_fraction']} < {floor}")
-    launches = {"fused": solve_batch_fused.launches, "riccati": solve_lqr_cuda.launches}
-    key = "fused" if backend == "fused" else "riccati"
-    if launches[key] == 0:
-        fail(f"the {backend} main path never launched its kernel")
-    return results, launches[key]
+    launches = counts()
+    keys = ("fused",) if backend == "fused" else ("riccati", "condense", "step")
+    if not all(launches[k] for k in keys):
+        fail(f"the {backend} main path never launched one of its kernels: {launches}")
+    return results, launches
 
 
 def phase_mehrotra(cfg, pool):
     """One timed `solve_batch` call each of split with mehrotra "pc" and
-    "soc" on ``cfg`` at B=8192: two Riccati launches per IPM iteration."""
+    "soc" on ``cfg`` at B=8192: two condensation and two Riccati launches
+    and one step launch per IPM iteration."""
     import torch
 
     from kissmpc_tpu_torch import solve_batch
-    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
     from kissmpc_tpu_torch.solver.problem import gather
 
     results = {}
     its = cfg.solver.iterations + sum(it for _, it, _ in cfg.solver.refine_stages)
+    expected = {"fused": 0, "riccati": 2 * its, "condense": 2 * its, "step": its}
     for mode in ("pc", "soc"):
         mcfg = cfg.replace(solver=dataclasses.replace(cfg.solver, mehrotra=mode))
         idx = torch.as_tensor(np.random.default_rng(2).permutation(POOL)[:BATCH], device="cuda")
         batch = gather(pool, idx)
         torch.cuda.synchronize()
-        solve_lqr_cuda.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         sol = solve_batch(mcfg, batch)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = solve_lqr_cuda.launches
+        launches = counts()
         finite = bool(torch.isfinite(sol.controls).all() and torch.isfinite(sol.states).all())
         results[mode] = {
             "latency_ms": elapsed * 1e3,
             "solves_per_s": BATCH / elapsed,
             "converged_fraction": float(sol.diagnostics.converged.float().mean()),
             "usable_fraction": float((sol.diagnostics.kkt_feasibility <= 1e-2).float().mean()),
-            "riccati_launches": launches,
+            "launches": launches,
             "iterations": its,
         }
         log(f"[5] split free mehrotra={mode}: " + json.dumps(results[mode]))
-        if launches != 2 * its:
-            fail(f"mehrotra={mode}: {launches} Riccati launches, expected {2 * its}")
+        if launches != expected:
+            fail(f"mehrotra={mode}: launches {launches}, expected {expected}")
         if not finite:
             fail(f"mehrotra={mode}: non-finite solution")
     return results
@@ -2176,8 +2495,8 @@ def bitwise_equal(a, b):
 def profile_call(fn):
     """One call of ``fn`` under `torch.profiler`, ended by a synchronise.
     Returns its wall ms, the card's events (kernels apart from copies and
-    fills), busy ms and idle share, the Riccati and the fused kernels and
-    their ms, the host's synchronisations (`cudaStreamSynchronize` and synchronous
+    fills), busy ms and idle share, the Riccati, fused, split condensation
+    and split step kernels and their ms, the host's synchronisations (`cudaStreamSynchronize` and synchronous
     `cudaMemcpy`; the closing `torch.cuda.synchronize` is not one of them)
     and every CUDA runtime call by name; and the profiler."""
     import collections
@@ -2196,6 +2515,8 @@ def profile_call(fn):
     kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
     riccati = [e for e in kernels if "riccati_kernel" in e.name]
     fused = [e for e in kernels if "ipm_fused_kernel" in e.name]
+    condense = [e for e in kernels if "condense_kernel" in e.name]
+    step = [e for e in kernels if "step_kernel" in e.name]
     runtime = collections.Counter(e.name for e in events
                                   if e.device_type.name == "CPU" and e.name.startswith("cuda"))
     busy_ms = sum(e.device_time for e in device) / 1e3
@@ -2204,8 +2525,34 @@ def profile_call(fn):
             "riccati_kernels": len(riccati),
             "riccati_ms": sum(e.device_time for e in riccati) / 1e3,
             "fused_kernels": len(fused), "fused_ms": sum(e.device_time for e in fused) / 1e3,
+            "condense_kernels": len(condense),
+            "condense_ms": sum(e.device_time for e in condense) / 1e3,
+            "step_kernels": len(step), "step_ms": sum(e.device_time for e in step) / 1e3,
             "host_syncs": runtime["cudaStreamSynchronize"] + runtime["cudaMemcpy"],
             "runtime_calls": dict(runtime)}, prof
+
+
+def _counters():
+    """The launch counters of the card's kernels on the solve paths."""
+    from kissmpc_tpu_torch.ops import ipm_split
+    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
+    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+
+    return {"fused": solve_batch_fused, "riccati": solve_lqr_cuda,
+            "condense": ipm_split.condense_cuda, "step": ipm_split.step_cuda}
+
+
+def zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def counts():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def moved(before):
+    return {k: n - before[k] for k, n in counts().items()}
 
 
 def launches_by_op(prof, top=30):
@@ -2283,36 +2630,38 @@ def phase_node(tmpdir):
     CPU port; the kernel against its plain version on one tick's LQR data."""
     import torch
 
-    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
+    from kissmpc_tpu_torch.ops import ipm_split
     from kissmpc_tpu_torch.solver import graph
 
     walk = f"{tmpdir}/walk.npz"
     obstacles = node_obstacles(walk, "cuda")
     graphs = graph.captured()
-    solve_lqr_cuda.launches = 0
+    zero_counts()
     commands, poses, lat, (loop, odom) = node_loop("cuda", NODE_TICKS, obstacles)
     torch.cuda.synchronize()
     model = loop.model
     iters = model.cfg.solver.iterations
-    launches, new_graphs = solve_lqr_cuda.launches, graph.captured() - graphs
-    if launches != iters * NODE_TICKS:
-        fail(f"node: {launches} Riccati launches in {NODE_TICKS} ticks, expected "
-             f"{iters} per tick")
+    per_tick = {"fused": 0, "riccati": iters, "condense": iters, "step": iters}
+    tick_counts, new_graphs = counts(), graph.captured() - graphs
+    launches = tick_counts["riccati"]
+    if tick_counts != {k: n * NODE_TICKS for k, n in per_tick.items()}:
+        fail(f"node: launches {tick_counts} in {NODE_TICKS} ticks, expected {per_tick} per "
+             f"tick")
     if new_graphs != 1:
         fail(f"node: {new_graphs} CUDA graphs captured in {NODE_TICKS} ticks, expected 1")
     if not np.isfinite(commands).all():
         fail("node: non-finite command")
 
     # The same walk and odometry on the eager path on the card.
-    solve_lqr_cuda.launches = 0
+    zero_counts()
     with graph.eager():
         eager_cmds, _, eager_lat, (eager_loop, eager_odom) = node_loop(
             "cuda", NODE_TICKS, obstacles, odoms=poses)
     torch.cuda.synchronize()
     same = np.array_equal(eager_cmds, commands)
     eager_gap = float(np.abs(eager_cmds - commands).max())
-    if solve_lqr_cuda.launches != iters * NODE_TICKS:
-        fail(f"node, eager: {solve_lqr_cuda.launches} Riccati launches in {NODE_TICKS} ticks")
+    if counts() != tick_counts:
+        fail(f"node, eager: launches {counts()} in {NODE_TICKS} ticks, expected {tick_counts}")
     # Percentiles of the ticks after the first (whose warm-up and capture
     # are reported apart), on both paths.
     p50, p99 = float(np.percentile(lat[1:], 50)), float(np.percentile(lat[1:], 99))
@@ -2325,6 +2674,7 @@ def phase_node(tmpdir):
               "eager_tick_p50_ms": e50, "eager_tick_p99_ms": e99,
               "eager_first_tick_ms": eager_lat[0], "eager_over_captured_p50": e50 / p50,
               "riccati_launches_per_tick": launches // NODE_TICKS,
+              "launches_per_tick": per_tick,
               "eager_commands_bitwise_equal": same, "eager_max_command_gap": eager_gap,
               "converged_last": bool(model.last_diagnostics.converged),
               "last_command": commands[-1].tolist()}
@@ -2332,7 +2682,7 @@ def phase_node(tmpdir):
         f"2-{NODE_TICKS}: p50 "
         f"{p50:.3f} ms, p99 {p99:.3f} ms against the {NODE_PERIOD_MS} ms period of the 100 Hz "
         f"timer ({p50 / NODE_PERIOD_MS:.2f}x); first tick (warm-up and capture) {lat[0]:.3f} ms; "
-        f"{new_graphs} graph; {launches // NODE_TICKS} Riccati launches per tick. Eager on the "
+        f"{new_graphs} graph; launches per tick {per_tick}. Eager on the "
         f"card, same walk: p50 {e50:.3f} ms, p99 {e99:.3f} ms ({e50 / p50:.2f}x the captured "
         f"p50); commands bitwise equal to the captured ones: {same} (largest gap "
         f"{eager_gap:.3e})")
@@ -2347,20 +2697,23 @@ def phase_node(tmpdir):
     replayed = []
     for k in range(NODE_PROFILED):
         odom.publish(poses[-1 - k])
-        before = solve_lqr_cuda.launches
+        before = counts()
         stats, _ = profile_call(loop.tick)
-        stats["counted_riccati"] = solve_lqr_cuda.launches - before
+        stats["counted"] = counted = moved(before)
+        stats["ipm_loop_kernels"] = sum(stats[f"{k}_kernels"] for k in ("condense", "riccati",
+                                                                        "step"))
         replayed.append(stats)
         log(f"[12] replayed node tick {k} under the profiler: {json.dumps(stats)}")
-        if not stats["riccati_kernels"] == stats["counted_riccati"] == iters:
-            fail(f"node: a replayed tick ran {stats['riccati_kernels']} Riccati kernels by the "
-                 f"trace and {stats['counted_riccati']} by the counter, expected {iters}")
+        traced = {k: stats[f"{k}_kernels"] for k in per_tick}
+        if not traced == counted == per_tick:
+            fail(f"node: a replayed tick ran {traced} kernels by the trace and {counted} by "
+                 f"the counter, expected {per_tick}")
         if stats["host_syncs"] > NODE_LEAVES_READ:
             fail(f"node: a replayed tick synchronised {stats['host_syncs']} times, more than "
                  f"the {NODE_LEAVES_READ} leaves it reads back")
     rep = {key: float(np.median([r[key] for r in replayed]))
            for key in ("wall_ms", "kernels", "busy_ms", "idle_share", "riccati_ms",
-                       "host_syncs")}
+                       "condense_ms", "step_ms", "ipm_loop_kernels", "host_syncs")}
     # Kernels a tick could keep and fit the period, at its mean kernel time.
     keep = int(rep["kernels"] * NODE_PERIOD_MS / rep["busy_ms"])
     result.update(eager_profiled=eager_prof, eager_kernels_per_iteration=
@@ -2374,9 +2727,11 @@ def phase_node(tmpdir):
     log(f"[12] replayed ticks (median of {NODE_PROFILED}): {rep['wall_ms']:.3f} ms, "
         f"{rep['kernels']:.0f} kernels, card busy {rep['busy_ms']:.3f} ms (idle "
         f"{rep['idle_share']:.5f}; against the unprofiled p50 "
-        f"{result['idle_share_at_p50']:.5f}), {rep['host_syncs']:.0f} host syncs, Riccati "
-        f"{rep['riccati_ms']:.4f} ms; at the mean kernel time {keep} kernels fit the "
-        f"{NODE_PERIOD_MS} ms period, {rep['kernels'] - keep:.0f} fewer than now")
+        f"{result['idle_share_at_p50']:.5f}), {rep['host_syncs']:.0f} host syncs; the IPM "
+        f"loop {rep['ipm_loop_kernels']:.0f} kernels: condensation {rep['condense_ms']:.4f} "
+        f"ms, Riccati {rep['riccati_ms']:.4f} ms, step {rep['step_ms']:.4f} ms; at the mean "
+        f"kernel time {keep} kernels fit the {NODE_PERIOD_MS} ms period; replayed tick p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms against it")
 
     # The tick's program eagerly under the sync debug mode.
     eager_odom.publish(poses[0])
@@ -2399,7 +2754,15 @@ def phase_node(tmpdir):
         fail(f"node commands on the card differ from the CPU port's by {gap:.3e}")
     data = lqr_from_iterate(model.cfg, model.last_problem)
     gate = check_riccati(data, model.cfg.solver.reg, phase=12)
-    result.update(cpu_check_max_gap=gap, riccati_gate_err=gate["err"])
+    split = split_kernels_check(model.cfg, model.last_problem, 8, ipm_split._library(),
+                                torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    log(f"[12] the split kernels on the last tick's problem (B=1, N={model.cfg.horizon}): "
+        f"{describe_split_check(split)}")
+    if not split["ok"]:
+        fail("node: the split kernels disagree with their plain halves on the tick's problem")
+    result.update(cpu_check_max_gap=gap, riccati_gate_err=gate["err"],
+                  split_condense_err=split["condense"]["err"], split_step_err=split["step"]["err"])
     log("[12] node: " + json.dumps(result))
     return result
 
@@ -2648,8 +3011,6 @@ def phase_utils_cli(tmpdir, cfg, pool):
     from kissmpc_tpu_torch import agent as agent_mod
     from kissmpc_tpu_torch._tree import leaves
     from kissmpc_tpu_torch.agent import AgentParams
-    from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
-    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
     from kissmpc_tpu_torch.solver import graph
     from kissmpc_tpu_torch.solver.problem import gather
     from kissmpc_tpu_torch.utils import profiling
@@ -2678,12 +3039,12 @@ def phase_utils_cli(tmpdir, cfg, pool):
     for name, argv in (("demo", ["demo", "--ticks", str(DEMO_TICKS)]),
                        ("map", ["map", path, "-o", f"{tmpdir}/circles.npz"]),
                        ("lab", lab_argv + ["--ticks", str(CLI_LAB_TICKS)])):
-        solve_batch_fused.launches = solve_lqr_cuda.launches = 0
+        zero_counts()
         graphs = graph.captured()
         t0 = time.perf_counter()
         rc = cli.main(argv)
         result[f"{name}_s"] = time.perf_counter() - t0
-        launches = {"fused": solve_batch_fused.launches, "riccati": solve_lqr_cuda.launches}
+        launches = counts()
         result[f"{name}_launches"] = launches
         result[f"{name}_graphs"] = graph.captured() - graphs
         log(f"[15] cli {' '.join(argv[:1] + argv[2:] if name == 'map' else argv)}: rc {rc} in "
@@ -2694,9 +3055,9 @@ def phase_utils_cli(tmpdir, cfg, pool):
         # demo solves split (agent.step's program, one CUDA graph), lab
         # through fleet_step (one CUDA graph of the tick, 3 fused launches
         # per replay; its world build's planner fields are graphs too).
-        kernel = {"demo": "riccati", "lab": "fused"}.get(name)
-        if kernel and not launches[kernel]:
-            fail(f"cli {name} never launched the {kernel} kernel")
+        kernels = {"demo": ("riccati", "condense", "step"), "lab": ("fused",)}.get(name, ())
+        if not all(launches[k] for k in kernels):
+            fail(f"cli {name} never launched one of the kernels {kernels}: {launches}")
         if name == "demo" and result["demo_graphs"] != 1:
             fail(f"cli demo captured {result['demo_graphs']} CUDA graphs, expected 1")
         if name == "lab" and (launches["fused"] != 3 * CLI_LAB_TICKS
@@ -2815,12 +3176,12 @@ def phase_captured_solver(cfg, pool):
     its program under the sync debug mode, the first call (warm-up and
     capture) timed, every result bitwise equal to the eager one, the first
     unchanged by later calls, CAPTURED_CALLS eager calls and replays in
-    turns, and one replay's Riccati kernels by the profiler."""
+    turns, and one replay's condensation, Riccati and step kernels by the
+    profiler."""
     import torch
 
     from kissmpc_tpu_torch import make_solver
     from kissmpc_tpu_torch._tree import leaves
-    from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
     from kissmpc_tpu_torch.solver import graph
     from kissmpc_tpu_torch.solver.problem import gather
 
@@ -2848,7 +3209,7 @@ def phase_captured_solver(cfg, pool):
         return all(bitwise_equal(a, b) for a, b in zip(leaves(sol), leaves(ref)))
 
     graphs = graph.captured()
-    solve_lqr_cuda.launches = 0
+    zero_counts()
     first, first_ms = timed(False)
     kept = [x.clone() for x in leaves(first)]
     eager_ms, replay_ms, equal = [], [], [same(first)]
@@ -2859,20 +3220,22 @@ def phase_captured_solver(cfg, pool):
         sol, ms = timed(False)
         replay_ms.append(ms)
         equal.append(same(sol))
-    launches = solve_lqr_cuda.launches
-    expected = iters * (1 + 2 * CAPTURED_CALLS)
+    launches = counts()
+    per_call = {"fused": 0, "riccati": iters, "condense": iters, "step": iters}
+    expected = {k: n * (1 + 2 * CAPTURED_CALLS) for k, n in per_call.items()}
     unchanged = all(bitwise_equal(a, b) for a, b in zip(leaves(first), kept))
-    before = solve_lqr_cuda.launches
+    before = counts()
     stats, _ = profile_call(lambda: solve(batch))
-    counted = solve_lqr_cuda.launches - before
+    counted = moved(before)
+    traced = {k: stats[f"{k}_kernels"] for k in per_call}
     result = {"batch": BATCH, "horizon": N, "iterations": iters,
               "graphs_captured": graph.captured() - graphs, "first_call_ms": first_ms,
               "eager_p50_ms": float(np.percentile(eager_ms, 50)),
               "replay_p50_ms": float(np.percentile(replay_ms, 50)),
               "eager_ms": eager_ms, "replay_ms": replay_ms,
               "bitwise_equal": all(equal), "first_result_unchanged": unchanged,
-              "riccati_launches": launches, "replay_profiled": stats,
-              "replay_riccati_counted": counted,
+              "riccati_launches": launches["riccati"], "launches": launches,
+              "replay_profiled": stats, "replay_counted": counted,
               "converged_fraction": float(ref.diagnostics.converged.float().mean())}
     result["eager_over_replay_p50"] = result["eager_p50_ms"] / result["replay_p50_ms"]
     log(f"[16] make_solver k8_dyn2 split, N={N}, f32, B={BATCH}, {iters} iterations: first "
@@ -2880,8 +3243,8 @@ def phase_captured_solver(cfg, pool):
         f"{result['eager_p50_ms']:.3f} ms, replay {result['replay_p50_ms']:.3f} ms "
         f"({result['eager_over_replay_p50']:.3f}x); bitwise equal to eager in all "
         f"{len(equal)} calls: {all(equal)}; first result unchanged: {unchanged}; one replay "
-        f"under the profiler: {stats['riccati_kernels']} Riccati kernels (counter {counted}), "
-        f"{stats['kernels']} kernels, idle {stats['idle_share']:.5f}")
+        f"under the profiler: kernels {traced} by the trace, {counted} by the counters, "
+        f"{stats['kernels']} kernels in all, idle {stats['idle_share']:.5f}")
     if result["graphs_captured"] != 1:
         fail(f"make_solver captured {result['graphs_captured']} graphs, expected 1")
     if not all(equal):
@@ -2889,10 +3252,10 @@ def phase_captured_solver(cfg, pool):
     if not unchanged:
         fail("a later make_solver call changed the first call's result")
     if launches != expected:
-        fail(f"make_solver: {launches} Riccati launches counted, expected {expected}")
-    if not stats["riccati_kernels"] == counted == iters:
-        fail(f"make_solver: a replay ran {stats['riccati_kernels']} Riccati kernels by the "
-             f"trace and {counted} by the counter, expected {iters}")
+        fail(f"make_solver: launches {launches} counted, expected {expected}")
+    if not traced == counted == per_call:
+        fail(f"make_solver: a replay ran {traced} kernels by the trace and {counted} by the "
+             f"counters, expected {per_call}")
     log("[16] captured solver: " + json.dumps(result))
     return result
 
@@ -2920,6 +3283,9 @@ def main():
     pools, pool_build = build_pools(fused_cfgs)
 
     riccati = phase_kernel(split_cfgs["k8_dyn2"], pools["k8_dyn2"])
+    t0 = time.perf_counter()
+    split_condense, split_step = phase_split_kernels(split_cfgs, pools)
+    log(f"phase 17 took {time.perf_counter() - t0:.3f} s")
     probe = phase_probe()
     fused = phase_fused_kernel(fused_cfgs, pools)
     fused_stages = phase_fused_stages(fused_cfgs, pools)
@@ -2927,10 +3293,12 @@ def main():
     fused_results, fused_launches = phase_main_path("fused", fused_cfgs, pools, CALLS)
     t1 = time.perf_counter()
     hard = ("free", "k8_dyn2")
-    split_results, riccati_launches = phase_main_path(
+    split_results, split_launches = phase_main_path(
         "split", {name: split_cfgs[name] for name in hard}, pools, CALLS)
     log(f"phase 5 took {t1 - t0:.3f} s fused, {time.perf_counter() - t1:.3f} s split")
-    riccati["launches"] = riccati_launches
+    riccati["launches"] = split_launches["riccati"]
+    split_condense["launches"] = split_launches["condense"]
+    split_step["launches"] = split_launches["step"]
     mehrotra = phase_mehrotra(split_cfgs["free"], pools["free"])
     for name, cfg in fused_cfgs.items():
         idx = torch.as_tensor(np.random.default_rng(1).permutation(POOL)[:BATCH], device="cuda")
@@ -2952,6 +3320,10 @@ def main():
         node = phase_node(tmpdir)
     riccati.update(node_launches_per_tick=node["riccati_launches_per_tick"],
                    node_launches=node["riccati_launches_per_tick"] * node["ticks"])
+    for entry, key in ((split_condense, "condense"), (split_step, "step")):
+        entry.update(node_launches_per_tick=node["launches_per_tick"][key],
+                     node_launches=node["launches_per_tick"][key] * node["ticks"],
+                     mehrotra_launches={m: r["launches"][key] for m, r in mehrotra.items()})
     t0 = time.perf_counter()
     data_parallel = phase_data_parallel(fused_cfgs["k8_dyn2"], pools["k8_dyn2"])
     data_parallel["phase_s"] = t1 = time.perf_counter() - t0
@@ -2967,12 +3339,15 @@ def main():
         f"{captured['phase_s']:.3f} s")
     riccati.update(cli_demo_launches=utils_cli["demo_launches"]["riccati"],
                    captured_solver_launches=captured["riccati_launches"])
+    for entry, key in ((split_condense, "condense"), (split_step, "step")):
+        entry.update(cli_demo_launches=utils_cli["demo_launches"][key],
+                     captured_solver_launches=captured["launches"][key])
 
     # The fused row is the K=8 cell's, with the elastic branch's numbers
     # beside it; its launches are the fused main path's (all three cells).
     fused_k8, elastic = fused["k8_dyn2"], fused["k8_dyn2_elastic"]
     for entry in fused.values():
-        entry["launches"] = fused_launches
+        entry["launches"] = fused_launches["fused"]
     fused_k8.update(elastic_ms=elastic["ms"], elastic_plain_ms=elastic["plain_ms"],
                     elastic_bound_ms=elastic["bound_ms"],
                     elastic_max_abs_err=elastic["max_abs_err"], stage_ms=fused_stages,
@@ -2992,8 +3367,16 @@ def main():
                     "data_parallel": data_parallel, "lqr_pt": lqr_pt, "utils_cli": utils_cli,
                     "captured_solver": captured,
                     "total_s": time.perf_counter() - t_start}))
+    kernels = [riccati, probe, fused_k8, split_condense, split_step]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    for entry in kernels:
+        missing = [k for k in keys if k not in entry]
+        if missing or not isinstance(entry["launches"], int):
+            fail(f"the kernels line's {entry.get('name')} entry lacks {missing} or an integer "
+                 f"count of launches ({entry.get('launches')!r})")
     log(smi)
-    log(json.dumps({"kernels": [riccati, probe, fused_k8]}))
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ neither `jax` nor `kissmpc_tpu`.
 
 Ported so far: config, models, obstacles (with `advance`), problem
 builders, the plain and CUDA Riccati solves, the batched IPM (Mehrotra
-"pc"/"soc" and elastic obstacles included), the fused IPM kernel (with its
+"pc"/"soc" and elastic obstacles included; on the card each iteration is
+the condensation and step kernels around the Riccati kernel), the fused
+IPM kernel (with its
 elastic branch), the trip-count probe, `solve_batch` with both backends
 ("fused", the default, and "split"), `make_solver`, the receding-horizon
 agent and the episode loop (`environment.step`, `fleet_step`,

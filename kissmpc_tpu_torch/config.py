@@ -18,7 +18,9 @@ Fields the port reads differently from the JAX package:
 * ``solve_backend``: ``"fused"`` (the default) runs the whole IPM as one
   hand-written CUDA kernel per solve stage (`ops/ipm_fused.py`,
   `csrc/ipm_fused.cu`) for float32 problems; float64 problems take
-  ``"split"``, the torch IPM loop around the CUDA Riccati kernel.
+  ``"split"``, the IPM loop whose every iteration on the card is three
+  kernels: condensation and step (`ops/ipm_split.py`) around the Riccati
+  kernel.
 * ``lqr_backend``: the port picks the Riccati engine from the tensors'
   device (CUDA kernel on the card, plain torch on the CPU) and accepts only
   ``"auto"``.
@@ -93,7 +95,7 @@ class SolverConfig:
     # Newton-KKT engine selection; the port accepts "auto" only.
     lqr_backend: str = "auto"
     # Batched-solve strategy: "fused" (one CUDA kernel per solve stage) or
-    # "split" (torch IPM loop around the Riccati kernel).
+    # "split" (the IPM loop: condensation, Riccati and step kernels).
     solve_backend: str = "fused"
     fused_block: int = 0
     fused_affine_tracks: bool = False

@@ -13,9 +13,9 @@ for plan ingestion (`:171-174`).
 
 This class provides exactly that surface as a thin mutable adapter over the
 functional core: each tick builds the robot's Problem as a batch of one and
-solves it by the split IPM (one Riccati kernel launch per iteration on the
-card), with odometry and plan updates folded in between ticks
-(single-threaded by construction: the reference's odom-callback/timer race,
+solves it by the split IPM (on the card three kernel launches per
+iteration: condensation, Riccati, step), with odometry and plan updates
+folded in between ticks (single-threaded by construction: the reference's odom-callback/timer race,
 SURVEY.md 5.2, cannot occur because the host loop owns all mutation).  On
 the card the problem build and the solve are one CUDA graph, captured at
 the first tick and replayed after it (`solver/graph.py`), as the reference

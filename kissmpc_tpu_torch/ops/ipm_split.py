@@ -1,0 +1,253 @@
+"""The split IPM iteration's two CUDA kernels (`csrc/ipm_split.cu`).
+
+On the card every split iteration is three launches: `condense_cuda` (the
+condensed LQR model of the iterate), the Riccati kernel
+(`ops/riccati.py::solve_lqr_cuda`) and `step_cuda` (steps, fraction to the
+boundary, penalty weight, merit line search, update, next mu).  They are
+the port's counterpart of what XLA fuses of the reference's split
+iteration under `jax.jit` (`kissmpc_tpu/solver/ipm.py:407-714`); there is
+no TPU kernel behind them.  Their plain versions are
+`solver/ipm.py::condense_plain` and `step_plain`.
+
+For tensors on the CPU each wrapper runs its plain version; for CUDA
+tensors it launches its kernel or raises, and counts each launch in
+``condense_cuda.launches`` / ``step_cuda.launches`` (registered with
+`graph.counter`, so a replay moves them by the captured count).  The card
+path is `_condense(lib, stream, ...)` / `_step(lib, stream, ...)`: every
+host value reaches the kernel as a launch argument made from ``cfg`` and
+the shapes alone, so a CUDA graph captures it, and a CPU test can drive
+it through a stand-in launcher or the g++ build of
+`scripts/ipm_split_cpu_shim.py`.
+
+The library is built from the package's own source with ``nvcc`` at first
+use (`ops/_build.py`), as a shared library with a plain C interface loaded
+through ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from ..config import MPCConfig
+from ..solver import graph, ipm
+from ..solver.problem import Problem
+from .lqr import LQRData, LQRSolution
+
+SOURCE = _build.CSRC / "ipm_split.cu"
+# Line-search candidates the step kernel keeps in registers (kMaxLs).
+MAX_LS_ITERS = 8
+CORR_FIELDS = ("cl", "cu", "xl", "xu", "ob")
+# `ipm.IPMState`'s fields, in order (`solver/ipm.py` imports this module
+# before it defines the class).
+ITERATE_FIELDS = ("states", "controls", "s_cl", "s_cu", "s_xl", "s_xu", "s_ob", "nu_cl",
+                  "nu_cu", "nu_xl", "nu_xu", "nu_ob", "e_ob", "reg", "sigma")
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``struct SplitParams`` in `csrc/ipm_split.cu`."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "B", "N", "K", "ls_iters", "exclude_terminal", "reverse_squared", "curvature",
+        "elastic", "adaptive_sigma", "raw_mu",
+    )] + [(name, ctypes.c_double) for name in (
+        "dt", "tau", "ls_backtrack", "merit_penalty", "reg", "rho_e", "w0", "w1", "w2",
+        "w_neg", "w_pos", "w_ang", "mu_init", "mu_floor", "mu_sigma", "sigma_cap",
+    )]
+
+
+def _pointers(name: str, fields) -> type:
+    return type(name, (ctypes.Structure,), {"_fields_": [(f, ctypes.c_void_p) for f in fields]})
+
+
+_ProblemPtrs = _pointers("_ProblemPtrs", Problem._fields[:10])
+_IteratePtrs = _pointers("_IteratePtrs", ITERATE_FIELDS)
+_LqrPtrs = _pointers("_LqrPtrs", LQRData._fields)
+_CorrPtrs = _pointers("_CorrPtrs", CORR_FIELDS)
+
+
+def build():
+    """Compile `csrc/ipm_split.cu` (once per source content); return the .so."""
+    return _build.build(SOURCE, "kissmpc_ipm_split")
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launchers' signatures on a loaded build of ``SOURCE``
+    (this package's, or the CPU shim's)."""
+    ptr = ctypes.POINTER
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"kissmpc_split_condense_{dt}")
+        fn.argtypes = [ptr(_Params), ptr(_ProblemPtrs), ptr(_IteratePtrs), ctypes.c_void_p,
+                       ptr(_CorrPtrs), ptr(_LqrPtrs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"kissmpc_split_step_{dt}")
+        fn.argtypes = ([ptr(_Params), ptr(_ProblemPtrs), ptr(_IteratePtrs)]
+                       + [ctypes.c_void_p] * 5
+                       + [ptr(_CorrPtrs), ptr(_IteratePtrs), ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return bind(_build.load(SOURCE, "kissmpc_ipm_split"))
+
+
+def _params(cfg: MPCConfig, B: int, dtype: torch.dtype) -> _Params:
+    """The kernels' runtime parameters: ``cfg`` and the batch alone."""
+    sc, cc = cfg.solver, cfg.cost
+    w0, w1, w2 = cc.goal_weights
+    return _Params(
+        B=B, N=cfg.horizon, K=cfg.max_obstacles, ls_iters=sc.ls_iters,
+        exclude_terminal=int(cc.goal_cost_mode == "exclude_terminal"),
+        reverse_squared=int(cc.reverse_penalty_mode == "squared"),
+        curvature=int(sc.obstacle_curvature),
+        elastic=int(sc.elastic_obstacles and cfg.max_obstacles > 0),
+        adaptive_sigma=int(sc.mu_sigma_max > 0.0),
+        raw_mu=int(sc.mehrotra == "pc"),
+        dt=cfg.time_step, tau=sc.tau, ls_backtrack=sc.ls_backtrack,
+        merit_penalty=sc.merit_penalty, reg=sc.reg, rho_e=sc.elastic_penalty,
+        w0=w0, w1=w1, w2=w2, w_neg=cc.negative_velocity_weight,
+        w_pos=cc.positive_velocity_weight, w_ang=cc.angular_velocity_weight,
+        mu_init=sc.mu_init, mu_floor=ipm._mu_floor(cfg, dtype), mu_sigma=sc.mu_sigma,
+        sigma_cap=max(sc.mu_sigma_max, sc.mu_sigma),
+    )
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple, dtype, device) -> None:
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if x.dtype != dtype or x.device != device:
+        raise TypeError(f"{name} is {x.dtype} on {x.device}; expected {dtype} on {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_inputs(cfg: MPCConfig, problem: Problem, it, mu, corr) -> tuple:
+    """Validate what both kernels read; return (B, dtype, device)."""
+    N, K = cfg.horizon, cfg.max_obstacles
+    B = it.states.shape[0]
+    dtype, device = it.states.dtype, it.states.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the split kernels run on CUDA or CPU tensors, got {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the split kernels take float32 or float64, got {dtype}")
+    if not 1 <= cfg.solver.ls_iters <= MAX_LS_ITERS:
+        raise ValueError(f"the step kernel takes 1 to {MAX_LS_ITERS} line-search candidates, "
+                         f"got ls_iters={cfg.solver.ls_iters}")
+    row = {"cl": (B, N, 2), "cu": (B, N, 2), "xl": (B, N + 1, 3), "xu": (B, N + 1, 3),
+           "ob": (B, N, K)}
+    problem_shapes = {
+        "initial_state": (B, 3), "goal_state": (B, 3), "control_lower": (B, 2),
+        "control_upper": (B, 2), "state_lower": (B, 3), "state_upper": (B, 3),
+        "obstacle_centers": (B, K, N, 2), "obstacle_radii": (B, K), "obstacle_mask": (B, K),
+        "inflation_radius": (B,),
+    }
+    for name, shape in problem_shapes.items():
+        _check(f"Problem.{name}", getattr(problem, name), shape, dtype, device)
+    state_shapes = {"states": (B, N + 1, 3), "controls": (B, N, 2), "e_ob": (B, N, K),
+                    "reg": (B,), "sigma": (B,),
+                    **{f"s_{f}": row[f] for f in CORR_FIELDS},
+                    **{f"nu_{f}": row[f] for f in CORR_FIELDS}}
+    for name, shape in state_shapes.items():
+        _check(f"IPMState.{name}", getattr(it, name), shape, dtype, device)
+    _check("mu", mu, (B,), dtype, device)
+    if corr is not None:
+        for f in CORR_FIELDS:
+            _check(f"corr.{f}", getattr(corr, f), row[f], dtype, device)
+    return B, dtype, device
+
+
+def _structs(problem: Problem, it, corr):
+    return (_ProblemPtrs(*(x.data_ptr() for x in problem[:10])),
+            _IteratePtrs(*(x.data_ptr() for x in it)),
+            _CorrPtrs(*((getattr(corr, f).data_ptr() for f in CORR_FIELDS)
+                        if corr is not None else [None] * 5)))
+
+
+def condense_cuda(cfg: MPCConfig, problem: Problem, it, mu: torch.Tensor,
+                  corr=None) -> LQRData:
+    """The condensed LQR model of the iterate ``it`` at the barrier ``mu``
+    ([B]), with the Mehrotra correction rows ``corr`` if given: the
+    condensation kernel for CUDA tensors, `ipm.condense_plain` on the CPU.
+    The eight tensors come out contiguous, as the Riccati kernel reads
+    them."""
+    _, _, device = _check_inputs(cfg, problem, it, mu, corr)
+    if device.type == "cpu":
+        return ipm.condense_plain(cfg, problem, it, mu, corr)
+    with torch.cuda.device(device):
+        return _condense(_library(), torch.cuda.current_stream(device).cuda_stream,
+                         cfg, problem, it, mu, corr)
+
+
+def _condense(lib, stream: int, cfg: MPCConfig, problem: Problem, it, mu, corr=None) -> LQRData:
+    """Allocate the LQRData and launch the condensation on ``stream``
+    through ``lib``."""
+    N, B = cfg.horizon, it.states.shape[0]
+    dtype = it.states.dtype
+    kw = dict(dtype=dtype, device=it.states.device)
+    out = LQRData(
+        A=torch.empty((B, N, 3, 3), **kw), B=torch.empty((B, N, 3, 2), **kw),
+        d=torch.empty((B, N, 3), **kw), d0=torch.empty((B, 3), **kw),
+        Qxx=torch.empty((B, N + 1, 3, 3), **kw), qx=torch.empty((B, N + 1, 3), **kw),
+        Quu=torch.empty((B, N, 2, 2), **kw), qu=torch.empty((B, N, 2), **kw),
+    )
+    pr, ip, cp = _structs(problem, it, corr)
+    fn = lib.kissmpc_split_condense_f32 if dtype == torch.float32 else lib.kissmpc_split_condense_f64
+    err = fn(ctypes.byref(_params(cfg, B, dtype)), ctypes.byref(pr), ctypes.byref(ip),
+             mu.data_ptr(), ctypes.byref(cp), ctypes.byref(_LqrPtrs(*(x.data_ptr() for x in out))),
+             stream)
+    _build.check_launch(lib, err, "split condensation kernel")
+    condense_cuda.launches += 1
+    return out
+
+
+def _check_solution(cfg: MPCConfig, data: LQRData, sol: LQRSolution, B, dtype, device) -> None:
+    N = cfg.horizon
+    _check("LQRData.qx", data.qx, (B, N + 1, 3), dtype, device)
+    _check("LQRData.A", data.A, (B, N, 3, 3), dtype, device)
+    _check("LQRSolution.dx", sol.dx, (B, N + 1, 3), dtype, device)
+    _check("LQRSolution.du", sol.du, (B, N, 2), dtype, device)
+
+
+def step_cuda(cfg: MPCConfig, problem: Problem, it, mu: torch.Tensor, data: LQRData,
+              sol: LQRSolution, corr=None):
+    """The iteration after the Newton-KKT solve ``sol`` of ``data``: the
+    step kernel for CUDA tensors, `ipm.step_plain` on the CPU.  Returns an
+    `ipm.Step` (the new iterate, the next iteration's mu, the accepted step
+    length)."""
+    B, dtype, device = _check_inputs(cfg, problem, it, mu, corr)
+    _check_solution(cfg, data, sol, B, dtype, device)
+    if device.type == "cpu":
+        return ipm.step_plain(cfg, problem, it, mu, data, sol, corr)
+    with torch.cuda.device(device):
+        return _step(_library(), torch.cuda.current_stream(device).cuda_stream,
+                     cfg, problem, it, mu, data, sol, corr)
+
+
+def _step(lib, stream: int, cfg: MPCConfig, problem: Problem, it, mu, data: LQRData,
+          sol: LQRSolution, corr=None):
+    """Allocate the new iterate and launch the step on ``stream`` through
+    ``lib``."""
+    B, dtype = it.states.shape[0], it.states.dtype
+    new = ipm.IPMState(*(torch.empty_like(x) for x in it))
+    mu_next = torch.empty_like(mu)
+    alpha = torch.empty_like(mu)
+    pr, ip, cp = _structs(problem, it, corr)
+    fn = lib.kissmpc_split_step_f32 if dtype == torch.float32 else lib.kissmpc_split_step_f64
+    err = fn(ctypes.byref(_params(cfg, B, dtype)), ctypes.byref(pr), ctypes.byref(ip),
+             mu.data_ptr(), data.qx.data_ptr(), data.A.data_ptr(), sol.dx.data_ptr(),
+             sol.du.data_ptr(), ctypes.byref(cp),
+             ctypes.byref(_IteratePtrs(*(x.data_ptr() for x in new))),
+             mu_next.data_ptr(), alpha.data_ptr(), stream)
+    _build.check_launch(lib, err, "split step kernel")
+    step_cuda.launches += 1
+    return ipm.Step(new, mu_next, alpha)
+
+
+graph.counter(condense_cuda)
+graph.counter(step_cuda)

@@ -59,8 +59,9 @@ def _dispatch(cfg: MPCConfig, problems: Problem, *,
     (`ops/ipm_fused.solve_batch_fused`, which runs its plain version for
     CPU tensors), taking both as runtime inputs; ``mu_sigma`` may be a
     per-scenario [B] tensor there.  float64 problems take the split path, as
-    the reference sends f64 to its jnp path.  "split" is the torch IPM loop
-    around the Riccati kernel, with the overrides folded into the config.
+    the reference sends f64 to its jnp path.  "split" is `ipm.solve` (on
+    the card the condensation, Riccati and step kernels per iteration),
+    with the overrides folded into the config.
     """
     sc = cfg.solver
     if sc.elastic_obstacles and sc.mehrotra != "off":

@@ -8,11 +8,21 @@ reformulation, stage-local condensation into a Riccati Newton-KKT solve,
 fraction-to-boundary, an l1-merit line search over ``ls_iters`` candidates
 with the finite-merit fallback, dual clamp, adaptive reg and centering.
 
-The Newton-KKT solve goes to the CUDA Riccati kernel for CUDA tensors and to
-the plain `ops/lqr.py` for CPU tensors (`ops/riccati.solve_lqr_cuda`
-decides by device).  ``mehrotra`` "pc" (affine probe, then the corrected
-solve at sigma = (mu_aff / mu)^3) and "soc" (the centred solve, then one
-corrected re-solve at the same mu) make two Riccati solves per iteration.
+An iteration is three parts: the condensation (`condense_plain`: the
+stage-wise LQR model of the iterate), the Newton-KKT solve, and the step
+(`step_plain`: steps, fraction to the boundary, the penalty weight, the
+merit line search, the update and the next mu).  `solve` hands each part
+to a wrapper that decides by device: on CUDA tensors the condensation and
+step kernels of `ops/ipm_split.py` around the Riccati kernel
+(`ops/riccati.solve_lqr_cuda`), three launches and no host work between
+them, the counterpart of what XLA fuses of the reference's iteration under
+`jax.jit`; on CPU tensors the plain halves and `ops/lqr.py`.
+`solve_plain` runs the plain halves on any device.  Init and diagnostics,
+once per solve, are plain PyTorch.  ``mehrotra`` "pc" (affine probe, then
+the corrected solve at sigma = (mu_aff / mu)^3) and "soc" (the centred
+solve, then one corrected re-solve at the same mu) add one condensation
+and one Riccati solve per iteration (`_predictor`, whose glue is plain
+PyTorch).
 ``elastic_obstacles`` softens each obstacle constraint to c + e - s = 0,
 e >= 0, with the linear penalty ``elastic_penalty * e``; (ds, de, dnu) are
 eliminated, so the Riccati system keeps its shape.  Mehrotra with elastic,
@@ -35,7 +45,8 @@ import torch
 from .._device import pin_full_f32
 from ..config import MPCConfig
 from ..models import costs, unicycle
-from ..ops.lqr import LQRData
+from ..ops import ipm_split
+from ..ops.lqr import LQRData, solve_lqr
 from ..ops.riccati import solve_lqr_cuda
 from .problem import Diagnostics, Problem, Solution
 
@@ -299,9 +310,10 @@ class _Corr(NamedTuple):
     ob: torch.Tensor
 
 
-def _build_lqr(cfg: MPCConfig, problem: Problem, it: IPMState, mu,
-               corr: _Corr | None = None) -> LQRData:
-    """Assemble the condensed stage-wise quadratic model ([B] ``mu``).
+def condense_plain(cfg: MPCConfig, problem: Problem, it: IPMState, mu,
+                   corr: _Corr | None = None) -> LQRData:
+    """Assemble the condensed stage-wise quadratic model ([B] ``mu``): the
+    plain version of the condensation kernel (`ops/ipm_split.py`).
     ``corr`` (Mehrotra) changes only the gradient coefficients."""
     sc = cfg.solver
     dtype = it.states.dtype
@@ -368,82 +380,65 @@ def _ftb(v, dv, tau):
     return torch.clamp(_amin(ratio), max=1.0)
 
 
-def _iteration(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> IPMState:
-    """One Newton step with line search.  ``mu`` is the barrier parameter,
-    or for mehrotra="pc" the raw mean complementarity that the affine probe
-    rescales."""
+def _ftb_all(pairs, tau, like):
+    """The smallest fraction-to-boundary limit over (value, step) pairs of
+    nonempty families, at most 1 ([B], ``like``'s dtype and device)."""
+    alpha = torch.ones_like(like)
+    for v, dv in pairs:
+        if v.numel():
+            alpha = torch.minimum(alpha, _ftb(v, dv, tau))
+    return alpha
+
+
+def _all_steps(vals, normals, masks, it: IPMState, dx, du, mu_b, floor,
+               corr: _Corr | None = None):
+    """Slack and dual steps ds = J dz + (c - s),
+    dnu = (mu - corr)/s - nu - sigma ds, per family; and J dz of the
+    obstacle family."""
+    jdz = (du, -du, dx, -dx, torch.einsum("btkd,btd->btk", normals, dx[:, 1:, :2]))
+    out = []
+    for i, (c, s, nu, mask, j) in enumerate(zip(vals, _slacks(it), _duals(it), masks, jdz)):
+        ds = mask * (j + c - s)
+        num = mu_b - corr[i] if corr is not None else mu_b
+        dnu = mask * (num / torch.clamp(s, min=floor) - nu - _sigma(nu, s, mask) * ds)
+        out.append((ds, dnu))
+    return out, jdz[4]
+
+
+class Step(NamedTuple):
+    """One iteration's outcome."""
+
+    it: IPMState  # the new iterate
+    mu: torch.Tensor  # [B] the next iteration's mu (the raw mean complementarity for "pc")
+    alpha: torch.Tensor  # [B] the accepted primal step length
+
+
+def step_plain(cfg: MPCConfig, problem: Problem, it: IPMState, mu, data: LQRData,
+               sol, corr: _Corr | None = None) -> Step:
+    """Everything after the Newton-KKT solve ``sol`` of the condensed system
+    ``data``: slack, dual (and elastic) steps, fraction to the boundary,
+    the l1 penalty weight, the merit line search with the finite-merit
+    fallback, the dual clamp, the reg and sigma updates, and the next
+    iteration's mu.  The plain version of the step kernel
+    (`ops/ipm_split.py`)."""
     sc = cfg.solver
     dtype = it.states.dtype
     floor = _floor(dtype)
     vals, normals, _, m = _constraint_values(cfg, problem, it.states, it.controls)
     elastic = sc.elastic_obstacles and it.s_ob.numel() > 0
-
-    def all_steps(dx, du, mu_b, corr: _Corr | None = None):
-        """Slack and dual steps ds = J dz + (c - s),
-        dnu = (mu - corr)/s - nu - sigma ds, per family."""
-        jdz = (du, -du, dx, -dx, torch.einsum("btkd,btd->btk", normals, dx[:, 1:, :2]))
-        out = []
-        for i, (c, s, nu, mask, j) in enumerate(zip(vals, _slacks(it), _duals(it), m, jdz)):
-            ds = mask * (j + c - s)
-            num = mu_b - corr[i] if corr is not None else mu_b
-            dnu = mask * (num / torch.clamp(s, min=floor) - nu - _sigma(nu, s, mask) * ds)
-            out.append((ds, dnu))
-        return out, jdz[4]
-
-    def ftb_all(pairs):
-        alpha = torch.ones_like(mu)
-        for v, dv in pairs:
-            if v.numel():
-                alpha = torch.minimum(alpha, _ftb(v, dv, sc.tau))
-        return alpha
-
-    if sc.mehrotra == "pc":
-        # Affine-scaling predictor (mu = 0): how far pure Newton pushes the
-        # complementarity.  It shares the Hessian with the corrector; only
-        # the right-hand side differs.
-        zero = torch.zeros_like(mu)
-        sol_aff = solve_lqr_cuda(_build_lqr(cfg, problem, it, zero), sc.reg)
-        aff, _ = all_steps(sol_aff.dx, sol_aff.du, zero[:, None, None])
-        a_aff = torch.minimum(
-            ftb_all([(s, d[0]) for s, d in zip(_slacks(it), aff)]),
-            ftb_all([(nu, d[1]) for nu, d in zip(_duals(it), aff)]),
-        )
-        a3 = a_aff[:, None, None]
-        tot = torch.zeros_like(mu)
-        cnt = torch.zeros_like(mu)
-        for s, nu, mask, (ds, dnu) in zip(_slacks(it), _duals(it), m, aff):
-            if s.numel():
-                tot = tot + _sum(mask * (s + a3 * ds) * (nu + a3 * dnu))
-                cnt = cnt + _sum(mask)
-        mu_aff = tot / torch.clamp(cnt, min=1.0)
-        # Mehrotra's centring sigma = (mu_aff / mu)^3: near 0 when the
-        # affine step is unblocked, near 1 when blocked.
-        sigma_m = torch.clamp((mu_aff / torch.clamp(mu, min=floor)) ** 3, 0.0, 1.0)
-        mu_floor = max(sc.mu_min, 50.0 * torch.finfo(dtype).eps)
-        mu = torch.clamp(sigma_m * mu, mu_floor, sc.mu_init)
-        corr = _Corr(*(ds * dnu for ds, dnu in aff))
-    elif sc.mehrotra == "soc":
-        # The centred solve plays predictor; its ds * dnu products feed one
-        # corrected re-solve at the same mu.
-        sol_c = solve_lqr_cuda(_build_lqr(cfg, problem, it, mu), sc.reg)
-        pre, _ = all_steps(sol_c.dx, sol_c.du, mu[:, None, None])
-        corr = _Corr(*(ds * dnu for ds, dnu in pre))
-    else:
-        corr = None
     mu3 = mu[:, None, None]
 
-    data = _build_lqr(cfg, problem, it, mu, corr)
-    sol = solve_lqr_cuda(data, sc.reg)
     dx, du = sol.dx, sol.du
-    steps, jdz_ob = all_steps(dx, du, mu3, corr)
+    steps, jdz_ob = _all_steps(vals, normals, m, it, dx, du, mu3, floor, corr)
     ds_all = [ds for ds, _ in steps]
     dnu_all = [dnu for _, dnu in steps]
     if elastic:
         el = _elastic(cfg, it, vals[4], m.ob, mu3)
         ds_all[4], de_ob, dnu_all[4] = elastic_step(el, m.ob, jdz_ob, floor)
 
-    alpha_s = ftb_all(list(zip(_slacks(it), ds_all)) + ([(it.e_ob, de_ob)] if elastic else []))
-    alpha_nu = ftb_all(list(zip(_duals(it), dnu_all)))
+    alpha_s = _ftb_all(list(zip(_slacks(it), ds_all)) + ([(it.e_ob, de_ob)] if elastic else []),
+                       sc.tau, mu)
+    alpha_nu = _ftb_all(list(zip(_duals(it), dnu_all)), sc.tau, mu)
 
     # Parallel backtracking candidates [B, ls].
     ladder = sc.ls_backtrack ** torch.arange(sc.ls_iters, dtype=dtype, device=mu.device)
@@ -528,7 +523,7 @@ def _iteration(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> IPMState:
             torch.clamp(it.sigma * 1.5, max=max(sc.mu_sigma_max, sc.mu_sigma)),
             torch.clamp(it.sigma * 0.9, min=sc.mu_sigma),
         )
-    return IPMState(
+    new = IPMState(
         it.states + a3 * dx,
         it.controls + a3 * du,
         *s_new,
@@ -537,6 +532,60 @@ def _iteration(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> IPMState:
         reg=reg,
         sigma=sigma,
     )
+    return Step(new, _next_mu(cfg, new, _constraint_masks(cfg, problem, dtype)), alpha)
+
+
+def _predictor(cfg: MPCConfig, problem: Problem, it: IPMState, mu, condense, lqr):
+    """Mehrotra's predictor, for "pc" (the affine-scaling probe at mu = 0,
+    then the centring mu = (mu_aff / mu)^3 * mu) and "soc" (the centred
+    solve at the same mu): one more condensation and Newton-KKT solve, and
+    the correction rows ds * dnu of their steps.  Returns (mu, corr)."""
+    sc = cfg.solver
+    floor = _floor(it.states.dtype)
+    vals, normals, _, m = _constraint_values(cfg, problem, it.states, it.controls)
+    if sc.mehrotra == "pc":
+        # Affine-scaling predictor (mu = 0): how far pure Newton pushes the
+        # complementarity.  It shares the Hessian with the corrector; only
+        # the right-hand side differs.
+        zero = torch.zeros_like(mu)
+        sol_aff = lqr(condense(cfg, problem, it, zero), sc.reg)
+        aff, _ = _all_steps(vals, normals, m, it, sol_aff.dx, sol_aff.du,
+                            zero[:, None, None], floor)
+        a_aff = torch.minimum(
+            _ftb_all([(s, d[0]) for s, d in zip(_slacks(it), aff)], sc.tau, mu),
+            _ftb_all([(nu, d[1]) for nu, d in zip(_duals(it), aff)], sc.tau, mu),
+        )
+        a3 = a_aff[:, None, None]
+        tot = torch.zeros_like(mu)
+        cnt = torch.zeros_like(mu)
+        for s, nu, mask, (ds, dnu) in zip(_slacks(it), _duals(it), m, aff):
+            if s.numel():
+                tot = tot + _sum(mask * (s + a3 * ds) * (nu + a3 * dnu))
+                cnt = cnt + _sum(mask)
+        mu_aff = tot / torch.clamp(cnt, min=1.0)
+        # Mehrotra's centring sigma = (mu_aff / mu)^3: near 0 when the
+        # affine step is unblocked, near 1 when blocked.
+        sigma_m = torch.clamp((mu_aff / torch.clamp(mu, min=floor)) ** 3, 0.0, 1.0)
+        mu = torch.clamp(sigma_m * mu, _mu_floor(cfg, it.states.dtype), sc.mu_init)
+        return mu, _Corr(*(ds * dnu for ds, dnu in aff))
+    # "soc": the centred solve plays predictor; its ds * dnu products feed
+    # one corrected re-solve at the same mu.
+    sol_c = lqr(condense(cfg, problem, it, mu), sc.reg)
+    pre, _ = _all_steps(vals, normals, m, it, sol_c.dx, sol_c.du, mu[:, None, None], floor)
+    return mu, _Corr(*(ds * dnu for ds, dnu in pre))
+
+
+def _iteration(cfg: MPCConfig, problem: Problem, it: IPMState, mu,
+               condense=condense_plain, lqr=solve_lqr, step=step_plain) -> Step:
+    """One Newton step with line search: ``condense``, the Newton-KKT solve
+    ``lqr`` and ``step``, after Mehrotra's predictor where configured.
+    ``mu`` is the barrier parameter, or for mehrotra="pc" the raw mean
+    complementarity that the affine probe rescales."""
+    corr = None
+    if cfg.solver.mehrotra != "off":
+        mu, corr = _predictor(cfg, problem, it, mu, condense, lqr)
+    data = condense(cfg, problem, it, mu, corr)
+    return step(cfg, problem, it, mu, data, lqr(data, cfg.solver.reg), corr)
 
 
 def _diagnostics(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> Diagnostics:
@@ -609,30 +658,56 @@ def _mean_complementarity(it: IPMState, masks: _Masks) -> torch.Tensor:
     return total / torch.clamp(count, min=1.0)
 
 
+def _mu_floor(cfg: MPCConfig, dtype) -> float:
+    """The barrier floor respects the dtype (50 eps), as in the reference."""
+    return max(cfg.solver.mu_min, 50.0 * torch.finfo(dtype).eps)
+
+
 def _adaptive_mu(cfg: MPCConfig, it: IPMState, masks: _Masks) -> torch.Tensor:
-    sc = cfg.solver
     comp = _mean_complementarity(it, masks)
-    # The barrier floor respects the dtype (50 eps), as in the reference.
-    mu_floor = max(sc.mu_min, 50.0 * torch.finfo(it.states.dtype).eps)
-    return torch.clamp(it.sigma * comp, mu_floor, sc.mu_init)
+    return torch.clamp(it.sigma * comp, _mu_floor(cfg, it.states.dtype), cfg.solver.mu_init)
 
 
-def solve(cfg: MPCConfig, problem: Problem) -> Solution:
-    """Solve a batch of MPC scenarios ([B] leading axis on every leaf) on
-    the device its tensors lie on, in their dtype.  Float32 matrix products
-    on the card are pinned to full float32 (no TF32)."""
+def _next_mu(cfg: MPCConfig, it: IPMState, masks: _Masks) -> torch.Tensor:
+    """An iteration's mu: the adaptive barrier, or for mehrotra="pc" the raw
+    mean complementarity (the predictor centres itself, sigma_m =
+    (mu_aff / comp)^3)."""
+    if cfg.solver.mehrotra == "pc":
+        return _mean_complementarity(it, masks)
+    return _adaptive_mu(cfg, it, masks)
+
+
+def _contiguous(problem: Problem) -> Problem:
+    return Problem(*(x.contiguous() for x in problem))
+
+
+def _solve(cfg: MPCConfig, problem: Problem, condense, lqr, step) -> Solution:
     _check_supported(cfg)
     pin_full_f32()
     with torch.no_grad():
         it = _init_state(cfg, problem)
         masks = _constraint_masks(cfg, problem, it.states.dtype)
+        mu = _next_mu(cfg, it, masks)
         for _ in range(cfg.solver.iterations):
-            if cfg.solver.mehrotra == "pc":
-                # Predictor-corrector centres itself from the raw mean
-                # complementarity (sigma_m = (mu_aff / comp)^3).
-                mu = _mean_complementarity(it, masks)
-            else:
-                mu = _adaptive_mu(cfg, it, masks)
-            it = _iteration(cfg, problem, it, mu)
+            it, mu, _ = _iteration(cfg, problem, it, mu, condense, lqr, step)
         diag = _diagnostics(cfg, problem, it, _adaptive_mu(cfg, it, masks))
     return Solution(states=it.states, controls=it.controls, diagnostics=diag)
+
+
+def solve(cfg: MPCConfig, problem: Problem) -> Solution:
+    """Solve a batch of MPC scenarios ([B] leading axis on every leaf) on
+    the device its tensors lie on, in their dtype.  Each iteration is the
+    condensation, the Newton-KKT solve and the step: on the card the two
+    kernels of `ops/ipm_split.py` around the Riccati kernel
+    (`ops/riccati.py`), three launches; on the CPU their plain versions
+    (`condense_plain`, `ops/lqr.py`, `step_plain`), as the wrappers decide
+    by device.  Float32 matrix products on the card are pinned to full
+    float32 (no TF32)."""
+    return _solve(cfg, _contiguous(problem), ipm_split.condense_cuda, solve_lqr_cuda,
+                  ipm_split.step_cuda)
+
+
+def solve_plain(cfg: MPCConfig, problem: Problem) -> Solution:
+    """`solve` by the plain halves and the plain `ops/lqr.py::solve_lqr`, on
+    any device: the plain version of the whole split solve."""
+    return _solve(cfg, problem, condense_plain, solve_lqr, step_plain)

@@ -1,0 +1,254 @@
+#!/usr/bin/env python3
+"""The split iteration's kernels run on the CPU, one thread per CUDA
+thread, against their plain halves; optionally under AddressSanitizer or
+ThreadSanitizer.
+
+    python3 scripts/ipm_split_cpu_shim.py [--sanitize address|thread]
+
+No GPU and no nvcc are needed, only g++ (C++20).  The script compiles
+`kissmpc_tpu_torch/csrc/ipm_split.cu` into a temporary directory with a
+small header in place of `cuda_runtime.h`: every CUDA thread is a
+`std::thread`; the lanes of a warp exchange shuffled values through the
+warp's slots between two waits on its `std::barrier`; a launch runs the
+blocks one after another with `blockIdx`, `threadIdx` and `blockDim` set.
+Each case drives the wrapper's own card path (`ops/ipm_split.py::_condense`
+and `_step`) on CPU tensors with the g++ build as the launcher, on a real
+iterate (a few plain iterations from the warm start), and holds the
+condensation and the step to chip_smoke.py's gates against
+`ipm.condense_plain` and `ipm.step_plain` (each field of each scenario
+within 1e-4 of its scale plus twice the plain version's own f32-vs-f64 gap
+in float32, 1e-9 of its scale in float64; the step's accepted candidate
+differs on at most max(1, twice the plain version's own f32-vs-f64 flips)).
+Mehrotra cases ("pc", "soc") give both kernels the correction rows of the
+plain predictor; two cases at N=40 put work on every lane of a warp.
+Last, a whole split solve through the shim kernels is held against
+`ipm.solve_plain` at a few iterations (float64).
+
+With ``--sanitize address`` the build and the run use AddressSanitizer: a
+read or write past an input or output row is reported.  With ``--sanitize
+thread`` they use ThreadSanitizer (the lanes share nothing but their
+shuffle slots).  The script re-executes itself with the sanitizer's runtime
+preloaded and exits non-zero on a mismatch or a sanitizer report.
+"""
+
+import argparse
+import ctypes
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SHIM = r"""
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+using std::cos;
+using std::fabs;
+using std::log;
+using std::pow;
+using std::sin;
+using std::sqrt;
+struct ShimDim { unsigned x; };
+thread_local ShimDim threadIdx, blockIdx, blockDim;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+constexpr int cudaSuccess = 0;
+inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(int) { return "shim"; }
+struct ShimWarp {
+  std::barrier<> bar{32};
+  unsigned long long slot[32];
+};
+thread_local ShimWarp* shim_warp;
+template <class V> V shim_exchange(V v, int src) {
+  static_assert(sizeof(V) <= sizeof(unsigned long long));
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  std::memcpy(&shim_warp->slot[lane], &v, sizeof(V));
+  shim_warp->bar.arrive_and_wait();
+  V r;
+  std::memcpy(&r, &shim_warp->slot[src], sizeof(V));
+  shim_warp->bar.arrive_and_wait();
+  return r;
+}
+template <class V> V __shfl_xor_sync(unsigned, V v, int o) {
+  return shim_exchange(v, (static_cast<int>(threadIdx.x) % 32) ^ o);
+}
+template <class V> V __shfl_sync(unsigned, V v, int src) { return shim_exchange(v, src); }
+template <class Kern, class... A>
+void shim_launch(Kern kernel, int blocks, int threads, size_t, cudaStream_t, A... args) {
+  for (int blk = 0; blk < blocks; ++blk) {
+    std::vector<std::unique_ptr<ShimWarp>> warps;
+    for (int w = 0; w < (threads + 31) / 32; ++w) warps.push_back(std::make_unique<ShimWarp>());
+    std::vector<std::thread> lanes;
+    for (int t = 0; t < threads; ++t)
+      lanes.emplace_back([&, t] {
+        threadIdx.x = static_cast<unsigned>(t);
+        blockIdx.x = static_cast<unsigned>(blk);
+        blockDim.x = static_cast<unsigned>(threads);
+        shim_warp = warps[t / 32].get();
+        kernel(args...);
+      });
+    for (auto& l : lanes) l.join();
+  }
+}
+"""
+
+
+def shim_source(text):
+    """The kernels' source with the shim in place of the CUDA runtime."""
+    if text.count("#include <cuda_runtime.h>\n") != 1:
+        raise SystemExit("ipm_split_cpu_shim: cuda_runtime.h is not included once")
+    text = text.replace("#include <cuda_runtime.h>\n", SHIM)
+    text, n = re.subn(r"(\w+<T, EL>)<<<(.*?)>>>\(", r"shim_launch(\1, \2, ", text)
+    if n != 2:
+        raise SystemExit(f"ipm_split_cpu_shim: {n} kernel launches in ipm_split.cu, expected 2")
+    return text
+
+
+def build(tmp, sanitize=None):
+    from kissmpc_tpu_torch.ops import ipm_split
+
+    src = Path(tmp) / "ipm_split_shim.cpp"
+    src.write_text(shim_source(ipm_split.SOURCE.read_text()))
+    out = Path(tmp) / "libipm_split_shim.so"
+    flags = ["-std=c++20", "-O1", "-g", "-pthread", "-shared", "-fPIC", "-w"]
+    if sanitize:
+        flags.append(f"-fsanitize={sanitize}")
+    subprocess.run(["g++", *flags, str(src), "-o", str(out)], check=True)
+    return ipm_split.bind(ctypes.CDLL(str(out)))
+
+
+# (name, N, K, batch, iterations before the checked one, solver fields,
+# cost fields): hard and elastic, K=0 and K=4, with and without the
+# curvature term, both cost modes, Mehrotra "pc" and "soc", a longer
+# line search, adaptive sigma; each case runs in float32 and float64.
+CASES = (
+    ("free", 12, 0, 5, 4, {}, {}),
+    ("k4", 12, 4, 9, 4, {"mu_sigma_max": 0.7}, {}),
+    ("k4_nocurv_ls4", 10, 4, 6, 3, {"obstacle_curvature": False, "ls_iters": 4},
+     {"goal_cost_mode": "exclude_terminal", "reverse_penalty_mode": "linear"}),
+    ("k4_elastic", 12, 4, 9, 4, {"elastic_obstacles": True, "mu_sigma_max": 0.7}, {}),
+    ("k4_pc", 12, 4, 6, 3, {"mehrotra": "pc"}, {}),
+    ("k4_soc", 12, 4, 6, 3, {"mehrotra": "soc"}, {}),
+)
+# Run by the script alone (the tests keep N <= 15): a horizon past the
+# warp's 32 lanes, so lanes stride over two stages and every lane of the
+# butterfly reductions carries work.
+LONG_CASES = (("k3_elastic_n40", 40, 3, 3, 3, {"elastic_obstacles": True}, {}),
+              ("k3_n40", 40, 3, 3, 3, {"mu_sigma_max": 0.7}, {}))
+
+
+def config(n, K, solver, cost):
+    from kissmpc_tpu_torch import MPCConfig
+
+    cfg = MPCConfig(horizon=n, time_step=0.1, max_obstacles=K)
+    return cfg.replace(solver=dataclasses.replace(cfg.solver, solve_backend="split", **solver),
+                       cost=dataclasses.replace(cfg.cost, **cost))
+
+
+def problems(cfg, batch, dtype, seed=5):
+    from kissmpc_tpu_torch.scenarios import free_problems, obstacle_problems
+
+    if cfg.max_obstacles:
+        return obstacle_problems(cfg, batch, seed=seed, n_dynamic=1, dtype=dtype, device="cpu")
+    return free_problems(cfg, batch, seed=seed, dtype=dtype, device="cpu")
+
+
+def run_cases(lib, cases=CASES, dtypes=None):
+    """Each case in each dtype: (ok, a line for the log) per case."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    out = []
+    for name, n, K, batch, iters, solver, cost in cases:
+        cfg = config(n, K, solver, cost)
+        for dtype in dtypes or (torch.float32, torch.float64):
+            pr = problems(cfg, batch, dtype)
+            res = chip_smoke.split_kernels_check(cfg, pr, iters, lib, 0)
+            label = f"{name} N={n} K={K} B={batch} {str(dtype)[6:]}"
+            out.append((res["ok"], f"{label}: {chip_smoke.describe_split_check(res)}"))
+    return out
+
+
+def solve_through(lib, cfg, pr):
+    """The split solve with the shim build's kernels in place of the card's."""
+    from kissmpc_tpu_torch.ops import ipm_split
+    from kissmpc_tpu_torch.ops.lqr import solve_lqr
+    from kissmpc_tpu_torch.solver import ipm
+
+    def condense(cfg, problem, it, mu, corr=None):
+        return ipm_split._condense(lib, 0, cfg, problem, it, mu, corr)
+
+    def step(cfg, problem, it, mu, data, sol, corr=None):
+        return ipm_split._step(lib, 0, cfg, problem, it, mu, data, sol, corr)
+
+    return ipm._solve(cfg, ipm._contiguous(pr), condense, solve_lqr, step)
+
+
+def check_solve(lib, name="k4", iterations=6):
+    """A whole float64 solve through the shim kernels against `solve_plain`:
+    states and controls within 1e-7."""
+    import torch
+
+    from kissmpc_tpu_torch.solver import ipm
+
+    _, n, K, batch, _, solver, cost = next(c for c in CASES if c[0] == name)
+    cfg = config(n, K, {**solver, "iterations": iterations}, cost)
+    pr = problems(cfg, batch, torch.float64)
+    got, ref = solve_through(lib, cfg, pr), ipm.solve_plain(cfg, pr)
+    err = max(float((got.states - ref.states).abs().max()),
+              float((got.controls - ref.controls).abs().max()))
+    ok = err <= 1e-7
+    return ok, (f"solve {name} float64, {iterations} iterations: max|shim-plain| {err:.3e} "
+                f"(limit 1e-7) {'passes' if ok else 'FAILS'}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sanitize", choices=("address", "thread"))
+    args = ap.parse_args()
+    if args.sanitize and "KISSMPC_SHIM_PRELOADED" not in os.environ:
+        runtime = subprocess.run(["g++", f"-print-file-name=lib{args.sanitize[0]}san.so"],
+                                 capture_output=True, text=True, check=True).stdout.strip()
+        env = dict(os.environ, KISSMPC_SHIM_PRELOADED="1", LD_PRELOAD=runtime,
+                   ASAN_OPTIONS="detect_leaks=0:halt_on_error=1",
+                   TSAN_OPTIONS="halt_on_error=1:report_signal_unsafe=0")
+        os.execve(sys.executable, [sys.executable, *sys.argv], env)
+
+    import torch
+
+    torch.set_num_threads(1)
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = build(tmp, args.sanitize)
+        for ok, line in run_cases(lib, CASES + LONG_CASES) + [check_solve(lib)]:
+            print(line, flush=True)
+            if not ok:
+                failed.append(line.split(":")[0])
+    if failed:
+        raise SystemExit(f"ipm_split_cpu_shim: the shim build disagrees with the plain "
+                         f"halves: {failed}")
+    print(f"ipm_split_cpu_shim: done ({args.sanitize or 'no'} sanitizer)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
