@@ -211,9 +211,15 @@ bytes.
    plain condensation and Riccati solve): the accepted line-search
    candidate differs on at most max(1, twice the plain version's own
    f32-vs-f64 flips) scenarios, and elsewhere the new iterate, the next mu
-   and the step length meet the same gate.  Each kernel timed by
-   `kernel_ms` (20 launches in a CUDA graph) beside its bound
-   (`split_bound`) and its plain half.
+   and the step length meet the same gate, and so do the merits at
+   alpha = 0 and at every candidate and the penalty weight rho (the
+   kernel's optional output, null on the main path; their f32-vs-f64 gap
+   is the plain version's against itself in float64 arithmetic with
+   float32's floors).  Each kernel timed
+   by `kernel_ms` (20 launches in a CUDA graph) beside its bound
+   (`split_bound`) and its plain half, with the step's warps per scenario
+   and residency (`ops/ipm_split.py::step_occupancy`); k8_dyn2 float32 is
+   also timed at the other refine batches, 1024 and 328.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -730,10 +736,28 @@ def _flips(a, b):
     return ~((a - b).abs() <= SPLIT_FLIP_RTOL * b.abs())
 
 
-def split_kernels_check(cfg, problems, iterations, lib, stream):
+@contextlib.contextmanager
+def float32_floors():
+    """The plain halves with float32's floors at every dtype (`ipm._floor`,
+    `ipm._sigma_max`): float64 arithmetic under the float32 contract."""
+    import torch
+
+    from kissmpc_tpu_torch.solver import ipm
+
+    saved = ipm._floor, ipm._sigma_max
+    ipm._floor = lambda dtype: saved[0](torch.float32)
+    ipm._sigma_max = lambda dtype: saved[1](torch.float32)
+    try:
+        yield
+    finally:
+        ipm._floor, ipm._sigma_max = saved
+
+
+def split_kernels_check(cfg, problems, iterations, lib, stream, warps=None):
     """The split iteration's two kernels, launched through ``lib`` on
     ``stream`` by the wrapper's card path (`ops/ipm_split.py::_condense`,
-    `_step`; a CPU build of the source runs them on CPU tensors), against
+    `_step`, with ``warps`` per scenario if given, else the wrapper's
+    choice; a CPU build of the source runs them on CPU tensors), against
     their plain halves on the iterate after ``iterations`` plain
     iterations, with the plain predictor's correction rows under Mehrotra:
 
@@ -743,10 +767,18 @@ def split_kernels_check(cfg, problems, iterations, lib, stream):
     - step, given the plain condensation and its plain Riccati solve: the
       accepted candidate differs on at most max(1, twice the plain
       version's own f32-vs-f64 flips) scenarios, and elsewhere the new
-      iterate, the next mu and the step length meet the same gate.
+      iterate, the next mu and the step length meet the same gate;
+    - the step's merits at alpha = 0 and at every candidate and its
+      penalty weight rho, of every scenario, by the same gate, the plain
+      version's own gap measured against itself in float64 arithmetic
+      with float32's floors (`float32_floors`): the floors are part of
+      the float32 contract, and against float64's floors (sigma at most
+      1e18, not 1e12) their effect and float32 rounding cancel in some
+      elastic scenarios, hiding the rounding the kernel does not share.
 
-    Returns {"ok", "condense", "step", "flips", "plain_flips", "allowed",
-    "B", "dtype"} and the inputs, outputs of the kernels ("launched")."""
+    Returns {"ok", "condense", "step", "merit", "flips", "plain_flips",
+    "allowed", "B", "dtype"} and the inputs, outputs of the kernels
+    ("launched")."""
     import torch
 
     from kissmpc_tpu_torch.ops import ipm_split
@@ -769,10 +801,15 @@ def split_kernels_check(cfg, problems, iterations, lib, stream):
         cgate = split_field_gate([(f, getattr(got_c, f), getattr(ref_c, f), getattr(oth_c, f))
                                   for f in ref_c._fields], f32)
         sol = solve_lqr(ref_c, cfg.solver.reg)
-        got_s = ipm_split._step(lib, stream, cfg, problems, it, mu, ref_c, sol, corr)
-        ref_s = ipm.step_plain(cfg, problems, it, mu, ref_c, sol, corr)
-        oth_s = ipm.step_plain(cfg, *args_o[:3], _cast(ref_c, other), _cast(sol, other),
-                               args_o[3])
+        got_s, got_m = ipm_split._step(lib, stream, cfg, problems, it, mu, ref_c, sol, corr,
+                                       merits=True, warps=warps)
+        ref_s, ref_m = ipm.step_plain(cfg, problems, it, mu, ref_c, sol, corr, merits=True)
+        oth_s, oth_m = ipm.step_plain(cfg, *args_o[:3], _cast(ref_c, other), _cast(sol, other),
+                                      args_o[3], merits=True)
+        if f32:
+            with float32_floors():
+                _, oth_m = ipm.step_plain(cfg, *args_o[:3], _cast(ref_c, other),
+                                          _cast(sol, other), args_o[3], merits=True)
     flips = _flips(got_s.alpha, ref_s.alpha)
     plain_flips = int(_flips(oth_s.alpha, ref_s.alpha).sum())
     allowed = max(1, 2 * plain_flips)
@@ -781,21 +818,26 @@ def split_kernels_check(cfg, problems, iterations, lib, stream):
     fields += [("mu", got_s.mu, ref_s.mu, oth_s.mu), ("alpha", got_s.alpha, ref_s.alpha,
                                                       oth_s.alpha)]
     sgate = split_field_gate(fields, f32, skip=flips)
+    mgate = split_field_gate([(f, getattr(got_m, f), getattr(ref_m, f), getattr(oth_m, f))
+                              for f in ref_m._fields], f32)
     n_flips = int(flips.sum())
-    return {"ok": cgate["ok"] and sgate["ok"] and n_flips <= allowed, "condense": cgate,
-            "step": sgate, "flips": n_flips, "plain_flips": plain_flips, "allowed": allowed,
+    return {"ok": cgate["ok"] and sgate["ok"] and mgate["ok"] and n_flips <= allowed,
+            "condense": cgate, "step": sgate, "merit": mgate, "flips": n_flips,
+            "plain_flips": plain_flips, "allowed": allowed,
             "B": int(problems.initial_state.shape[0]), "dtype": str(dtype)[6:],
             "launched": (problems, it, mu, corr, ref_c, sol)}
 
 
 def describe_split_check(res):
-    c, s = res["condense"], res["step"]
+    c, s, m = res["condense"], res["step"], res["merit"]
     return (f"condensation max|kernel-plain| {c['err']:.3e}, nearest its limit {c['worst']} "
             f"at {c['fields'][c['worst']]['ratio']:.3f} of it; step: accepted candidate differs "
             f"on {res['flips']} of {res['B']} (allowed {res['allowed']}: the plain version's "
             f"own f32-vs-f64 flips {res['plain_flips']}), elsewhere max|kernel-plain| "
             f"{s['err']:.3e}, nearest its limit {s['worst']} at "
-            f"{s['fields'][s['worst']]['ratio']:.3f} of it; "
+            f"{s['fields'][s['worst']]['ratio']:.3f} of it; merits and rho: max|kernel-plain| "
+            f"{m['err']:.3e}, nearest its limit {m['worst']} at "
+            f"{m['fields'][m['worst']]['ratio']:.3f} of it; "
             f"{'passes' if res['ok'] else 'FAILS'}")
 
 
@@ -888,18 +930,18 @@ def split_bytes(cfg, batch, dtype, kernel):
 
 def split_ops(cfg, batch, kernel):
     """Operations of the split ``kernel`` for ``batch`` scenarios of
-    ``cfg``, counted from csrc/ipm_split.cu as written, roughly: each add,
-    multiply, compare-and-select, min, max, abs, division, sqrt, sin, cos
-    and log one, an FMA two.  Condensation per stage: 96 (state row: cost,
-    two box families, Hessian diagonal), 80 (control row: cost, two box
-    families, linearisation with sin and cos, defect), 60 per obstacle (its
-    geometry, gradient coefficient, Gauss-Newton and curvature terms; +15
-    elastic).  Step: three passes that recompute each element's step (12
-    per box element, 25 per obstacle element, +30 elastic), the fractions
-    to the boundary (10 per element), per candidate 10 per box element, 38
-    per obstacle element and 45 per stage (trial point, cost, defect with
-    sin and cos), the update and complementarity (17 per element), and the
-    adjoint sweep (21 per stage)."""
+    ``cfg`` that the function needs, roughly: each add, multiply,
+    compare-and-select, min, max, abs, division, sqrt, sin, cos and log
+    one, an FMA two.  Condensation per stage: 96 (state row: cost, two box
+    families, Hessian diagonal), 80 (control row: cost, two box families,
+    linearisation with sin and cos, defect), 60 per obstacle (its geometry,
+    gradient coefficient, Gauss-Newton and curvature terms; +15 elastic).
+    Step: each element's step once (12 per box element, 25 per obstacle
+    element, +30 elastic), the fractions to the boundary (10 per element),
+    per candidate 10 per box element, 38 per obstacle element and 45 per
+    stage (trial point, cost, defect with sin and cos), the update and
+    complementarity (17 per element), and the adjoint sweep (21 per
+    stage)."""
     N, K = cfg.horizon, cfg.max_obstacles
     elastic = cfg.solver.elastic_obstacles and K > 0
     box, obst = 4 * N + 6 * (N + 1), N * K
@@ -908,7 +950,7 @@ def split_ops(cfg, batch, kernel):
     else:
         cand = 1 + cfg.solver.ls_iters
         step = 12 * box + (25 + (30 if elastic else 0)) * obst
-        per = (3 * step + 10 * (box + obst) + cand * (10 * box + 38 * obst + 45 * (N + 1))
+        per = (step + 10 * (box + obst) + cand * (10 * box + 38 * obst + 45 * (N + 1))
                + 17 * (box + obst) + 21 * N)
     return per * batch
 
@@ -935,10 +977,12 @@ def phase_split_kernels(split_cfgs, pools):
     halves on the card (`split_kernels_check`), on the iterate after
     SPLIT_CHECK_ITERATIONS plain iterations: k8_dyn2 at B=8192 and at the
     last refine stage's 164 in float32 and float64, k8_dyn2_elastic and
-    free at B=8192, Mehrotra "pc" at 164, and the node (N=7, B=1); each
-    kernel timed by `kernel_ms` (launches captured in a CUDA graph) beside
-    its bound and its plain half.  Returns the two kernels' rows of the
-    ``kernels`` line (k8_dyn2, f32, B=8192), launches filled in later."""
+    free at B=8192, Mehrotra "pc" at 164, the node (N=7, B=1), and k8_dyn2
+    float32 at the other refine batches, 1024 and 328; each kernel timed by
+    `kernel_ms` (launches captured in a CUDA graph) beside its bound and
+    its plain half, the step with its layout (`ipm_split.step_occupancy`).
+    Returns the two kernels' rows of the ``kernels`` line (k8_dyn2, f32,
+    B=8192), launches filled in later."""
     import torch
 
     from kissmpc_tpu_torch.ops import ipm_split
@@ -957,7 +1001,9 @@ def phase_split_kernels(split_cfgs, pools):
              ("k8_dyn2_elastic", split_cfgs["k8_dyn2_elastic"], "k8_dyn2", BATCH, torch.float32),
              ("free", split_cfgs["free"], "free", BATCH, torch.float32),
              ("k8_dyn2 pc", pc, "k8_dyn2", REFINE_CHECK_BATCH, torch.float32),
-             ("node", node, None, 1, torch.float32)]
+             ("node", node, None, 1, torch.float32),
+             ("k8_dyn2", k8, "k8_dyn2", 1024, torch.float32),
+             ("k8_dyn2", k8, "k8_dyn2", 328, torch.float32)]
     rows = []
     for label, cfg, pool, B, dtype in cases:
         if pool is None:
@@ -974,8 +1020,15 @@ def phase_split_kernels(split_cfgs, pools):
             fail(f"the split kernels disagree with their plain halves ({label}, {res['dtype']}, "
                  f"B={B})")
         pr, it, mu, corr, data, sol = res["launched"]
+        occ = ipm_split.step_occupancy(cfg, B, dtype, corr=corr is not None)
+        log(f"[17] step kernel, {label} {res['dtype']} B={B}: {occ['warps_per_scenario']} warps "
+            f"per scenario, {occ['smem_bytes_per_block']} bytes of dynamic shared memory per "
+            f"block{' (arena in global scratch)' if occ['global_arena'] else ''}, "
+            f"{occ['registers']} registers, {occ['local_bytes']} local bytes per thread, "
+            f"{occ['scenarios_per_sm']} scenarios resident per SM")
         row = {"case": label, "dtype": res["dtype"], "B": B, "N": cfg.horizon,
-               "flips": res["flips"], "allowed_flips": res["allowed"]}
+               "flips": res["flips"], "allowed_flips": res["allowed"],
+               "merit_err": res["merit"]["err"], "step_layout": occ}
         # The stream is read at each call: kernel_ms captures the calls on
         # a stream of its own.
         stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731

@@ -16,51 +16,73 @@
 // floors follow the dtype (1e-10 / 1e-14; sigma at most 1e12 / 1e18; the
 // Newton regime below a step of 1e-2 / 1e-4).
 //
-// condense_kernel: one thread per (scenario, stage t = 0..N).  Stage t's
-// state row (box families xl, xu and, for t >= 1, the K obstacle
-// constraints on state t, hard or elastic, with the Gauss-Newton term and
-// the damped curvature term), its control row (t < N: box families cl, cu,
-// the cost's gradient and Hessian, the unicycle linearisation and defect)
-// and, at t = 0, the pin residual d0.  Every stage is independent.  It
-// writes the eight LQRData tensors in the contiguous layout that
-// csrc/riccati.cu reads.
+// condense_kernel: one thread per (scenario, stage t = 0..N), a block of
+// 128 consecutive stages.  Stage t's state row (box families xl, xu and,
+// for t >= 1, the K obstacle constraints on state t, hard or elastic, with
+// the Gauss-Newton term and the damped curvature term), its control row
+// (t < N: box families cl, cu, the cost's gradient and Hessian, the
+// unicycle linearisation and defect) and, at t = 0, the pin residual d0.
+// The block's obstacle rows (s_ob, nu_ob, e_ob: one contiguous span) are
+// copied into shared memory (cp.async) while the box families are
+// condensed; its output rows go out through shared memory, so each store
+// instruction of a warp covers one contiguous span of the eight LQRData
+// tensors, in the layout that csrc/riccati.cu reads.
 //
-// step_kernel: one warp per scenario, kWarps scenarios per block.  The
-// lanes stride over the stages in three passes, each recomputing the
-// slack, dual and (elastic) e steps of its elements from the iterate and
-// the Riccati kernel's dx, du: (1) the fractions to the boundary, the
-// largest dual and the step's infinity norm; (2) the l1 merit at alpha = 0
-// and at every line-search candidate, all in one pass; (3) the update with
-// the dual clamp, and the mean complementarity of the new iterate.  Each
-// reduction is lane-strided, then a butterfly of shuffles, so every lane
-// holds the same bits; lane 0 runs the penalty weight's N-step adjoint
-// sweep of the condensed gradients (qx, A) and writes the scenario's
-// scalars: reg, sigma, the next iteration's mu (the adaptive mu, or for
-// Mehrotra "pc" the raw mean complementarity) and the accepted step length.
+// step_kernel: one block per scenario, of 1 to 4 warps (the launch's
+// `warps`, from ops/ipm_split.py::step_warps).  (0) The scenario's rows
+// (trajectory, step, slacks, duals, e, the correction rows, the centers,
+// qx and A) are copied once into an arena by cp.async, 16 bytes at a time
+// where source and arena share their alignment: dynamic shared memory, or
+// a global scratch where the arena does not fit in the card's 227 KB (the
+// GLOBAL instance, long horizons).  (1) Each thread takes elements (box
+// entries of each family, then obstacle constraints) and computes each
+// one's slack, dual and elastic steps once, into the arena in double, with
+// the fractions to the boundary, the largest dual and the step's norm.
+// (2) Thread 0 runs the penalty weight's N-step adjoint sweep of (qx, A)
+// while the other threads take, candidate by candidate, (stage or element,
+// candidate) and sum the objective less mu times the log barrier, and the
+// l1 residuals, of the merit at alpha = 0 and at every line-search
+// candidate; rho enters only where those sums are combined.  (3) The
+// acceptance, then the update with the dual clamp and the new mean
+// complementarity.  Passes 1 and 3 reduce by a butterfly of shuffles within
+// a warp, then the warps' partials in warp order; pass 2 keeps each
+// thread's sums in shared memory and adds them in thread order; so every
+// thread holds the same bits.
 //
-// What bounds them: device memory at the batches of the benchmark (a few
-// hundred bytes and some hundred operations per element and pass; the
-// card's balance is ~10 double operations per byte), and launch latency at
-// the node's B=1.  A simple design that is right: no shared memory, every
-// value read from device memory (L1 and L2 keep what a pass re-reads).
+// What bounds them: by bytes, device memory at the batches of the
+// benchmark (a few hundred bytes per element; the card's balance is ~10
+// double operations per byte).  In practice the latency of one scenario's
+// chain of dependent double operations, at every batch: the several warps
+// per scenario shorten it, and the launch bounds keep registers low enough
+// for 5 resident blocks of 4 warps per SM in the hard step instances (96
+// registers) and 5 blocks of 128 threads in the condensation.
 //
-// Templated on the data type D (float, double) and on the elastic branch;
-// both instances compute in double (Compute) and round what they store,
-// with the floors of D.  K (0 included), N, ls_iters (1..kMaxLs), the cost
-// modes and the curvature term are runtime parameters, and the Mehrotra
-// correction rows are nullable pointers (all five, or none).  Compiled
-// without fast math: max, min and clip propagate NaN, as torch's do (maxp,
-// minp, clipp).
+// Templated on the data type D (float, double) and on the elastic branch.
+// Both compute in double and round what they store, with the floors of D:
+// near an active constraint the condensed gradient and the dual step
+// multiply a slack gap of a few ulps by sigma = nu/s (up to 1e12 in
+// float32), which float arithmetic does not carry.  The float32 step
+// instance evaluates in float only the merit's transcendentals of float32
+// data, as step_plain does (`Trans`): the log of a trial slack and the
+// trial point's obstacle distance.  sin and cos are this file's own
+// (`sincos_rd`, in double for both).  K (0 included), N, ls_iters
+// (1..kMaxLs), the cost modes and the curvature term are runtime
+// parameters, and the Mehrotra correction rows are nullable pointers (all
+// five, or none).  Compiled without fast math: max, min and clip propagate
+// NaN, as torch's do (maxp, minp, clipp).  No per-family array is indexed
+// at run time: the kernels keep no stack frame.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
 
 // The launchers' argument structs (outside the anonymous namespace, so the
 // extern "C" launchers that take them are exported).
 
 // Mirror of `_Params` in ops/ipm_split.py (ints first, then doubles).
 struct SplitParams {
-  int B, N, K, ls_iters;
+  int B, N, K, ls_iters, warps;
   int exclude_terminal, reverse_squared, curvature, elastic, adaptive_sigma, raw_mu;
   double dt, tau, ls_backtrack, merit_penalty, reg, rho_e;
   double w0, w1, w2, w_neg, w_pos, w_ang;
@@ -88,20 +110,29 @@ struct CorrPtrs {
   const void *cl, *cu, *xl, *xu, *ob;
 };
 
+// The step's outputs besides the iterate: the next mu and the step length;
+// the merits at alpha = 0 and at each candidate ([B, 1 + ls_iters]) and
+// rho ([B]), both null on the main path (the gates ask for them); the
+// global arena (null unless the arena does not fit in shared memory).
+struct StepOut {
+  void *mu, *alpha, *merit, *rho, *scratch;
+};
+
 namespace {
 
 constexpr int kLanes = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 4;              // scenarios per block of the step kernel
+constexpr int kMaxWarps = 4;           // warps per scenario of the step kernel at most
 constexpr int kCondenseThreads = 128;  // stages per block of the condensation
 constexpr int kMaxLs = 8;              // line-search candidates at most
 constexpr int kMaxCand = kMaxLs + 1;   // with alpha = 0
+constexpr long long kSmemOptin = 232448;  // sm_90's opt-in shared memory per block
 
 template <typename T> struct Num;
 template <> struct Num<float> {
-  __device__ static constexpr float floor() { return 1e-10f; }
-  __device__ static constexpr float sigma_max() { return 1e12f; }
-  __device__ static constexpr float newton() { return 1e-2f; }
+  __device__ static constexpr double floor() { return 1e-10f; }
+  __device__ static constexpr double sigma_max() { return 1e12f; }
+  __device__ static constexpr double newton() { return 1e-2f; }
   __device__ static constexpr double eps() { return 1.1920928955078125e-07; }
 };
 template <> struct Num<double> {
@@ -112,103 +143,134 @@ template <> struct Num<double> {
   __device__ static constexpr double big() { return 1.7976931348623157e308; }
 };
 
-// The arithmetic type of data type D: both instances compute in double and
-// round what they store.  Near an active constraint the condensed gradient
-// and the dual step multiply a slack gap of a few ulps by sigma = nu/s (up
-// to 1e12 in float32), so float32 arithmetic carries errors far above the
-// data's own rounding; double keeps the float32 instance within half an ulp
-// of each stored value of the float64 computation on the same inputs.
-template <typename D> struct Compute {
-  using type = double;
+// The merit's transcendentals of data type D: in float for float32 data
+// (as exact as step_plain's own float32 evaluation), in double for
+// float64.
+template <typename D> struct Trans;
+template <> struct Trans<float> {
+  __device__ static double log(double x) { return logf(static_cast<float>(x)); }
+  __device__ static double sqrt(double x) { return sqrtf(static_cast<float>(x)); }
+};
+template <> struct Trans<double> {
+  __device__ static double log(double x) { return ::log(x); }
+  __device__ static double sqrt(double x) { return ::sqrt(x); }
 };
 
-template <typename T> __device__ __forceinline__ T maxp(T a, T b) {
-  return (a > b || a != a) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T minp(T a, T b) {
-  return (a < b || a != a) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T clipp(T x, T lo, T hi) {
+__device__ __forceinline__ double maxp(double a, double b) { return (a > b || a != a) ? a : b; }
+__device__ __forceinline__ double minp(double a, double b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ double clipp(double x, double lo, double hi) {
   return minp(maxp(x, lo), hi);
 }
-template <typename T> __device__ __forceinline__ bool isfin(T x) {
-  return fabs(x) <= Num<T>::big();
+__device__ __forceinline__ bool isfin(double x) { return fabs(x) <= Num<double>::big(); }
+
+// sin and cos of x: a two-part Cody-Waite reduction by pi/2 with FMA, then
+// fdlibm's kernels on [-pi/4, pi/4]; within an ulp or two of the true
+// values for |x| below ~1e15, NaN for |x| >= 5e18, inf and NaN.  CUDA's
+// sin and cos keep a Payne-Hanek reduction for huge arguments in a stack
+// frame; this keeps none.
+__device__ __forceinline__ void sincos_rd(double x, double& s, double& c) {
+  if (!(fabs(x) < 5e18)) {
+    s = c = x - x;  // NaN (inf - inf, or NaN itself)
+    return;
+  }
+  const double k = rint(x * 0.63661977236758134308);
+  double r = fma(-k, 1.5707963267948966, x);
+  r = fma(-k, 6.123233995736766e-17, r);
+  const double z = r * r;
+  const double ps = z * (-1.66666666666666324348e-01 +
+                         z * (8.33333333332248946124e-03 +
+                              z * (-1.98412698298579493134e-04 +
+                                   z * (2.75573137070700676789e-06 +
+                                        z * (-2.50507602534068634195e-08 +
+                                             z * 1.58969099521155010221e-10)))));
+  const double sn = fma(r, ps, r);
+  const double pc = z * (4.16666666666666019037e-02 +
+                         z * (-1.38888888888741095749e-03 +
+                              z * (2.48015872894767294178e-05 +
+                                   z * (-2.75573143513906633035e-07 +
+                                        z * (2.08757232129817482790e-09 +
+                                             z * -1.13596475577881948265e-11)))));
+  const double hz = 0.5 * z, w = 1.0 - hz;
+  const double cs = w + (((1.0 - w) - hz) + z * pc);
+  switch (static_cast<int>(static_cast<long long>(k) & 3)) {
+    case 0: s = sn; c = cs; break;
+    case 1: s = cs; c = -sn; break;
+    case 2: s = -sn; c = -cs; break;
+    default: s = -cs; c = sn; break;
+  }
 }
 
 // Butterfly sum, max and min: every lane ends with the same bits.
-template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = kLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
-template <typename T> __device__ __forceinline__ T warp_max(T v) {
+__device__ __forceinline__ double warp_max(double v) {
 #pragma unroll
   for (int o = kLanes / 2; o > 0; o >>= 1) v = maxp(v, __shfl_xor_sync(kFull, v, o));
   return __shfl_sync(kFull, v, 0);
 }
-template <typename T> __device__ __forceinline__ T warp_min(T v) {
+__device__ __forceinline__ double warp_min(double v) {
 #pragma unroll
   for (int o = kLanes / 2; o > 0; o >>= 1) v = minp(v, __shfl_xor_sync(kFull, v, o));
   return __shfl_sync(kFull, v, 0);
 }
 
 // A bound entry: its value with +-inf read as 0, and its finiteness mask.
-template <typename T> struct Bound {
-  T val, mask;
+struct Bound {
+  double val, mask;
 };
-template <typename T> __device__ __forceinline__ Bound<T> bound(T b) {
+__device__ __forceinline__ Bound bound(double b) {
   const bool f = isfin(b);
-  return {f ? b : T(0), f ? T(1) : T(0)};
+  return {f ? b : 0.0, f ? 1.0 : 0.0};
 }
 // A box constraint value; masked entries read 1.
-template <typename T> __device__ __forceinline__ T masked(T c, T mask) {
-  return mask > T(0) ? c : T(1);
-}
+__device__ __forceinline__ double masked(double c, double mask) { return mask > 0.0 ? c : 1.0; }
 
 // One obstacle constraint on a point: value (1 where masked), unit normal
 // by the distance floored at 1e-2, that floored distance, and the mask.
-template <typename T> struct Ob {
-  T c, nx, ny, dist, mask;
+struct Ob {
+  double c, nx, ny, dist, mask;
 };
-template <typename T>
-__device__ __forceinline__ Ob<T> obstacle(T px, T py, T cx, T cy, T rad, T infl, T om) {
-  const T dx = px - cx, dy = py - cy;
-  const T dist = sqrt(dx * dx + dy * dy + T(1e-16));
-  const T mask = om > T(0.5) ? T(1) : T(0);
-  const T ds = maxp(dist, T(1e-2));
+__device__ __forceinline__ Ob obstacle(double px, double py, double cx, double cy, double rad,
+                                       double infl, double om) {
+  const double dx = px - cx, dy = py - cy;
+  const double dist = sqrt(dx * dx + dy * dy + 1e-16);
+  const double mask = om > 0.5 ? 1.0 : 0.0;
+  const double ds = maxp(dist, 1e-2);
   return {masked(dist - rad - infl, mask), dx / ds, dy / ds, ds, mask};
 }
 
-// The floors of the data's dtype (solver/ipm.py::_floor, _sigma_max), in
-// the arithmetic type.
-template <typename T> struct Floors {
-  T fl, smax;
+// The floors of the data's dtype (solver/ipm.py::_floor, _sigma_max).
+struct Floors {
+  double fl, smax;
 };
 
-template <typename T> __device__ __forceinline__ T sigma_of(T nu, T s, T mask, Floors<T> f) {
-  return clipp(mask * nu / maxp(s, f.fl), T(0), f.smax);
+__device__ __forceinline__ double sigma_of(double nu, double s, double mask, Floors f) {
+  return clipp(mask * nu / maxp(s, f.fl), 0.0, f.smax);
 }
 
-// Hard slack and dual step: ds = J dz + (c - s), dnu = num/s - nu - sigma ds.
-template <typename T>
-__device__ __forceinline__ void box_step(T c, T s, T nu, T mask, T jdz, T num, Floors<T> f,
-                                         T& ds, T& dnu) {
+// Hard slack and dual step: ds = J dz + (c - s), dnu = num/s - nu - sigma ds
+// (s floored; one reciprocal of it for both quotients).
+__device__ __forceinline__ void box_step(double c, double s, double nu, double mask, double jdz,
+                                         double num, Floors f, double& ds, double& dnu) {
+  const double r = 1.0 / maxp(s, f.fl);
   ds = mask * (jdz + c - s);
-  dnu = mask * (num / maxp(s, f.fl) - nu - sigma_of(nu, s, mask, f) * ds);
+  dnu = mask * (num * r - nu - clipp(mask * nu * r, 0.0, f.smax) * ds);
 }
 
 // solver/ipm.py::elastic_coef.
-template <typename T> struct Elastic {
-  T g, Tt, r_e, r_c, sig_s, sig_e, sig_eff;
+struct Elastic {
+  double g, Tt, r_e, r_c, sig_s, sig_e, sig_eff;
 };
-template <typename T>
-__device__ __forceinline__ Elastic<T> elastic_coef(T c, T s, T nu, T e, T mask, T mu, T rho_e,
-                                                  Floors<T> f) {
-  const T fl = f.fl, smax = f.smax;
-  const T s_safe = maxp(s, fl), e_safe = maxp(e, fl);
-  Elastic<T> el;
-  el.sig_s = clipp(mask * nu / s_safe, T(0), smax);
-  el.sig_e = clipp(mu / (e_safe * e_safe), T(0), smax);
+__device__ __forceinline__ Elastic elastic_coef(double c, double s, double nu, double e,
+                                                double mask, double mu, double rho_e, Floors f) {
+  const double fl = f.fl, smax = f.smax;
+  const double s_safe = maxp(s, fl), e_safe = maxp(e, fl);
+  Elastic el;
+  el.sig_s = clipp(mask * nu / s_safe, 0.0, smax);
+  el.sig_e = clipp(mu / (e_safe * e_safe), 0.0, smax);
   el.sig_eff = mask * el.sig_s * el.sig_e / maxp(el.sig_s + el.sig_e, fl);
   el.Tt = mu / s_safe - nu;
   el.r_e = rho_e - mu / e_safe - nu;
@@ -219,10 +281,9 @@ __device__ __forceinline__ Elastic<T> elastic_coef(T c, T s, T nu, T e, T mask, 
 }
 
 // solver/ipm.py::elastic_step: the eliminated (ds, de, dnu).
-template <typename T>
-__device__ __forceinline__ void elastic_step(const Elastic<T>& el, T mask, T jdz, Floors<T> f,
-                                             T& ds, T& de, T& dnu) {
-  const T beta = el.sig_e / maxp(el.sig_s + el.sig_e, f.fl);
+__device__ __forceinline__ void elastic_step(const Elastic& el, double mask, double jdz, Floors f,
+                                             double& ds, double& de, double& dnu) {
+  const double beta = el.sig_e / maxp(el.sig_s + el.sig_e, f.fl);
   ds = mask * beta * (jdz + el.r_c + (el.Tt - el.r_e) / el.sig_e);
   de = mask * (el.Tt - el.r_e - el.sig_s * ds) / el.sig_e;
   dnu = mask * (el.Tt - el.sig_s * ds);
@@ -233,435 +294,698 @@ __device__ __forceinline__ bool goal_row(int t, int N, int exclude_terminal) {
   return t >= 1 && (!exclude_terminal || t <= N - 1);
 }
 
+// One value, or 16 bytes, from global memory to dst: ASYNC by cp.async into
+// shared memory (the block waits with copies_done), else a load and a
+// store (a global arena).
+template <bool ASYNC, typename D> __device__ __forceinline__ void copy_one(D* dst, const D* src) {
+#ifdef __CUDA_ARCH__
+  if (ASYNC) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src), "n"(sizeof(D)));
+    return;
+  }
+#endif
+  *dst = *src;
+}
+template <bool ASYNC, typename D> __device__ __forceinline__ void copy_vec(D* dst, const D* src) {
+#ifdef __CUDA_ARCH__
+  if (ASYNC) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src));
+    return;
+  }
+#endif
+  memcpy(dst, src, 16);
+}
+__device__ __forceinline__ void copies_done() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// The block's threads copy n values from global memory to dst: in 16-byte
+// copies where dst and src lie at the same offset from a 16-byte boundary
+// (the values before the first boundary and after the last one alone),
+// value by value otherwise.
+template <bool ASYNC, typename D>
+__device__ __forceinline__ void stage(D* dst, const D* src, long long n, int tid, int nthr) {
+  constexpr int V = 16 / sizeof(D);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const bool vec = ((reinterpret_cast<uintptr_t>(dst) ^ a) & 15) == 0;
+  long long head = vec ? static_cast<long long>((16 - a % 16) % 16 / sizeof(D)) : n;
+  if (head > n) head = n;
+  const long long nv = (n - head) / V;
+  for (long long i = tid; i < head; i += nthr) copy_one<ASYNC>(dst + i, src + i);
+  for (long long i = tid; i < nv; i += nthr)
+    copy_vec<ASYNC>(dst + head + i * V, src + head + i * V);
+  for (long long i = head + nv * V + tid; i < n; i += nthr) copy_one<ASYNC>(dst + i, src + i);
+}
+
+// The block's threads copy n values to global memory: consecutive threads
+// store consecutive values.
+template <typename D>
+__device__ __forceinline__ void store_rows(D* dst, const D* src, long long n, int tid, int nthr) {
+  for (long long i = tid; i < n; i += nthr) dst[i] = src[i];
+}
+
+template <typename D> __device__ __forceinline__ const D* at(const void* ptr, long long off) {
+  return static_cast<const D*>(ptr) + off;
+}
+template <typename D> __device__ __forceinline__ D* put(void* ptr, long long off) {
+  return static_cast<D*>(ptr) + off;
+}
+
 // ---------------------------------------------------------------------------
 // The condensation.
 
+// Values per stage row in the condensation's shared memory: its obstacle
+// rows (s_ob, nu_ob, and e_ob when elastic or the Mehrotra correction when
+// given: 2 or 3 K), then its outputs (the state row's Qxx 9 and qx 3, the
+// control row's Quu 4, qu 2, A 9, B 6, d 3).
+__host__ __device__ inline int condense_row_values(int K, bool third) {
+  return (third ? 3 : 2) * K + 36;
+}
+
 template <typename D, bool EL>
-__global__ void __launch_bounds__(kCondenseThreads)
+__global__ void __launch_bounds__(kCondenseThreads, 5)
 condense_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
                 const D* __restrict__ mu_in, const CorrPtrs corr, const LqrPtrs out) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int N = p.N, K = p.K, T1 = N + 1;
-  const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= static_cast<long long>(p.B) * T1) return;
-  const int b = static_cast<int>(gid / T1), t = static_cast<int>(gid % T1);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const long long rows = static_cast<long long>(p.B) * T1;
+  const long long g0 = static_cast<long long>(blockIdx.x) * nthr;
+  const long long gid = g0 + tid;
+  const long long glast = (g0 + nthr < rows ? g0 + nthr : rows) - 1;
+  const long long nrows = glast - g0 + 1;
+  const bool active = gid < rows;
+  const int b = active ? static_cast<int>(gid / T1) : 0;
+  const int t = active ? static_cast<int>(gid % T1) : 0;
   const bool has_corr = corr.cl != nullptr;
-  using T = typename Compute<D>::type;
-  const Floors<T> f{T(Num<D>::floor()), T(Num<D>::sigma_max())};
+  const Floors f{Num<D>::floor(), Num<D>::sigma_max()};
 
-  const D* X = static_cast<const D*>(it.states) + static_cast<long long>(b) * T1 * 3;
-  const D* goal = static_cast<const D*>(pr.goal) + b * 3;
-  const T mu = mu_in[b];
-  const T shift = T(p.reg) + static_cast<const D*>(it.reg)[b];
-  const T w[3] = {T(p.w0), T(p.w1), T(p.w2)};
+  // The block's obstacle rows: row (b, t >= 1) is b * N + t - 1 = gid - b - 1,
+  // non-decreasing in gid, so the block's rows are one span [o_lo, o_hi],
+  // copied while the control row and the box families are condensed.
+  const long long o_lo0 = g0 - g0 / T1 - 1;
+  const long long o_lo = o_lo0 > 0 ? o_lo0 : 0;
+  const long long o_hi = glast - glast / T1 - 1;
+  const long long no = K > 0 && o_hi >= o_lo ? (o_hi - o_lo + 1) * K : 0;
+  D* const sob = reinterpret_cast<D*>(smem);
+  D* const nob = sob + static_cast<long long>(nthr) * K;
+  D* const eob = nob + static_cast<long long>(nthr) * K;  // e_ob, or the correction
+  stage<true>(sob, at<D>(it.s_ob, o_lo * K), no, tid, nthr);
+  stage<true>(nob, at<D>(it.nu_ob, o_lo * K), no, tid, nthr);
+  if (EL)
+    stage<true>(eob, at<D>(it.e_ob, o_lo * K), no, tid, nthr);
+  else if (has_corr)
+    stage<true>(eob, at<D>(corr.ob, o_lo * K), no, tid, nthr);
+  // The outputs, each written to shared memory as soon as it is known: the
+  // state rows [g0, glast] (Qxx, qx), then the control rows, b * N + t =
+  // gid - b for t < N, one span [c_lo, c_hi] (a block's last stage t = N
+  // has none): Quu, qu, A, B, d.
+  D* const qxx = sob + static_cast<long long>(nthr) * (EL || has_corr ? 3 : 2) * K;
+  D* const qxv = qxx + nrows * 9;
+  const long long c_lo = g0 - g0 / T1;
+  const long long c_hi = glast - glast / T1 - (glast % T1 == N ? 1 : 0);
+  const long long nc = c_hi >= c_lo ? c_hi - c_lo + 1 : 0;
+  D* const crow = qxx + nrows * 12;
 
-  // State row t: cost, box families xl, xu, obstacles on state t.
-  T qx[3], Q[3][3];
-  const bool grow = goal_row(t, N, p.exclude_terminal);
-  const T gm = grow ? T(1) : T(0);
-  const long long xrow = (static_cast<long long>(b) * T1 + t) * 3;
-  for (int i = 0; i < 3; ++i) {
-    const T x = X[t * 3 + i];
-    const T gx = T(2) * gm * w[i] * (x - goal[i]);
-    const T Hx = T(2) * gm * w[i];
-    const Bound<T> lo = bound(T(static_cast<const D*>(pr.xl)[b * 3 + i]));
-    const Bound<T> hi = bound(T(static_cast<const D*>(pr.xu)[b * 3 + i]));
-    const T c_lo = masked(x - lo.val, lo.mask), c_hi = masked(hi.val - x, hi.mask);
-    const T s_lo = static_cast<const D*>(it.s_xl)[xrow + i];
-    const T s_hi = static_cast<const D*>(it.s_xu)[xrow + i];
-    const T nu_lo = static_cast<const D*>(it.nu_xl)[xrow + i];
-    const T nu_hi = static_cast<const D*>(it.nu_xu)[xrow + i];
-    const T num_lo = has_corr ? mu - static_cast<const D*>(corr.xl)[xrow + i] : mu;
-    const T num_hi = has_corr ? mu - static_cast<const D*>(corr.xu)[xrow + i] : mu;
-    const T fl = f.fl;
-    const T sig_lo = sigma_of(nu_lo, s_lo, lo.mask, f);
-    const T sig_hi = sigma_of(nu_hi, s_hi, hi.mask, f);
-    const T g_lo = lo.mask * (num_lo / maxp(s_lo, fl) - sig_lo * (c_lo - s_lo));
-    const T g_hi = hi.mask * (num_hi / maxp(s_hi, fl) - sig_hi * (c_hi - s_hi));
-    qx[i] = gx - g_lo + g_hi;
-    for (int j = 0; j < 3; ++j) Q[i][j] = T(0);
-    Q[i][i] = Hx + sig_lo + sig_hi;
-  }
-  if (K > 0 && t >= 1) {
-    const int r = t - 1;  // obstacle row r covers state r + 1
-    const long long orow = (static_cast<long long>(b) * N + r) * K;
-    const T px = X[t * 3], py = X[t * 3 + 1];
-    const T infl = static_cast<const D*>(pr.infl)[b];
-    T gsum[2] = {T(0), T(0)}, H[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
-    T wsum = T(0), C[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
-    for (int k = 0; k < K; ++k) {
-      const D* ctr = static_cast<const D*>(pr.centers) + ((static_cast<long long>(b) * K + k) * N + r) * 2;
-      const Ob<T> o = obstacle(px, py, T(ctr[0]), T(ctr[1]),
-                               T(static_cast<const D*>(pr.radii)[b * K + k]), infl,
-                               T(static_cast<const D*>(pr.omask)[b * K + k]));
-      const T s = static_cast<const D*>(it.s_ob)[orow + k];
-      const T nu = static_cast<const D*>(it.nu_ob)[orow + k];
-      T g, sig;
-      if (EL) {
-        const Elastic<T> el = elastic_coef(o.c, s, nu, T(static_cast<const D*>(it.e_ob)[orow + k]),
-                                           o.mask, mu, T(p.rho_e), f);
-        g = el.g;
-        sig = el.sig_eff;
-      } else {
-        const T num = has_corr ? mu - static_cast<const D*>(corr.ob)[orow + k] : mu;
-        sig = sigma_of(nu, s, o.mask, f);
-        g = o.mask * (num / maxp(s, f.fl) - sig * (o.c - s));
-      }
-      const T n[2] = {o.nx, o.ny};
-      for (int d = 0; d < 2; ++d) {
-        gsum[d] += n[d] * g;
-        for (int e = 0; e < 2; ++e) H[d][e] += sig * n[d] * n[e];
-      }
-      if (p.curvature) {
-        T wk = -o.mask * nu / maxp(o.dist, T(1e-6));
-        wk = maxp(wk, T(-0.9) * sig);
-        wsum += wk;
-        for (int d = 0; d < 2; ++d)
-          for (int e = 0; e < 2; ++e) C[d][e] += wk * n[d] * n[e];
-      }
-    }
-    for (int d = 0; d < 2; ++d) {
-      qx[d] -= gsum[d];
-      for (int e = 0; e < 2; ++e) {
-        T h = H[d][e];
-        if (p.curvature) h = h + (wsum * (d == e ? T(1) : T(0)) - C[d][e]);
-        Q[d][e] += h;
-      }
-    }
-  }
-  D* Qxx = static_cast<D*>(out.Qxx) + xrow * 3;
-  for (int i = 0; i < 3; ++i) {
-    Q[i][i] += shift;
-    static_cast<D*>(out.qx)[xrow + i] = qx[i];
-    for (int j = 0; j < 3; ++j) Qxx[i * 3 + j] = Q[i][j];
-  }
-  if (t == 0) {
-    const D* x0 = static_cast<const D*>(pr.x0) + b * 3;
-    for (int i = 0; i < 3; ++i) static_cast<D*>(out.d0)[b * 3 + i] = x0[i] - X[i];
-  }
-  if (t == N) return;
+  const D* X = at<D>(it.states, static_cast<long long>(b) * T1 * 3);
+  const double mu = mu_in[b];
+  const double shift = p.reg + static_cast<double>(*at<D>(it.reg, b));
 
   // Control row t: cost, box families cl, cu, linearisation and defect.
-  const long long urow = (static_cast<long long>(b) * N + t) * 2;
-  const D* U = static_cast<const D*>(it.controls) + urow;
-  const T v = U[0], om = U[1];
-  T gu[2], Hu[2];
-  if (p.reverse_squared) {
-    gu[0] = T(2.0 * p.w_neg) * minp(v, T(0));
-    Hu[0] = T(2.0 * p.w_neg) * (v < T(0) ? T(1) : T(0));
-  } else {
-    gu[0] = T(p.w_neg) * (v < T(0) ? T(1) : T(0));
-    Hu[0] = T(0);
+  if (active && t < N) {
+    const long long urow = (static_cast<long long>(b) * N + t) * 2;
+    const long long lc = gid - b - c_lo;
+    const D* U = at<D>(it.controls, urow);
+    const double v = U[0], om = U[1];
+    double gu0, Hu0;
+    if (p.reverse_squared) {
+      gu0 = 2.0 * p.w_neg * minp(v, 0.0);
+      Hu0 = 2.0 * p.w_neg * (v < 0.0 ? 1.0 : 0.0);
+    } else {
+      gu0 = p.w_neg * (v < 0.0 ? 1.0 : 0.0);
+      Hu0 = 0.0;
+    }
+    gu0 = gu0 + 2.0 * p.w_pos * maxp(v, 0.0);
+    Hu0 = Hu0 + 2.0 * p.w_pos * (v > 0.0 ? 1.0 : 0.0);
+    D* quu = crow + lc * 4;
+    D* qu = crow + nc * 4 + lc * 2;
+    quu[1] = 0.0;
+    quu[2] = 0.0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const Bound lo = bound(*at<D>(pr.cl, b * 2 + j));
+      const Bound hi = bound(*at<D>(pr.cu, b * 2 + j));
+      const double u = U[j];
+      const double c_lo_ = masked(u - lo.val, lo.mask), c_hi_ = masked(hi.val - u, hi.mask);
+      const double s_lo = *at<D>(it.s_cl, urow + j), s_hi = *at<D>(it.s_cu, urow + j);
+      const double nu_lo = *at<D>(it.nu_cl, urow + j), nu_hi = *at<D>(it.nu_cu, urow + j);
+      const double num_lo = has_corr ? mu - static_cast<double>(*at<D>(corr.cl, urow + j)) : mu;
+      const double num_hi = has_corr ? mu - static_cast<double>(*at<D>(corr.cu, urow + j)) : mu;
+      const double sig_lo = sigma_of(nu_lo, s_lo, lo.mask, f);
+      const double sig_hi = sigma_of(nu_hi, s_hi, hi.mask, f);
+      const double g_lo = lo.mask * (num_lo / maxp(s_lo, f.fl) - sig_lo * (c_lo_ - s_lo));
+      const double g_hi = hi.mask * (num_hi / maxp(s_hi, f.fl) - sig_hi * (c_hi_ - s_hi));
+      qu[j] = (j == 0 ? gu0 : 2.0 * p.w_ang * om) - g_lo + g_hi;
+      quu[j * 3] = (j == 0 ? Hu0 : 2.0 * p.w_ang) + sig_lo + sig_hi + shift;
+    }
+    const double dt = p.dt;
+    const double th = X[t * 3 + 2];
+    double sth, cth;
+    sincos_rd(th, sth, cth);
+    D* a = crow + nc * 6 + lc * 9;
+    a[0] = 1.0;
+    a[1] = 0.0;
+    a[2] = -v * sth * dt;
+    a[3] = 0.0;
+    a[4] = 1.0;
+    a[5] = v * cth * dt;
+    a[6] = 0.0;
+    a[7] = 0.0;
+    a[8] = 1.0;
+    D* bm = crow + nc * 15 + lc * 6;
+    bm[0] = cth * dt;
+    bm[1] = 0.0;
+    bm[2] = sth * dt;
+    bm[3] = 0.0;
+    bm[4] = 0.0;
+    bm[5] = dt;
+    D* d = crow + nc * 21 + lc * 3;
+    const D* X1 = X + (t + 1) * 3;
+    d[0] = X[t * 3] + v * cth * dt - X1[0];
+    d[1] = X[t * 3 + 1] + v * sth * dt - X1[1];
+    d[2] = th + om * dt - X1[2];
   }
-  gu[0] = gu[0] + T(2.0 * p.w_pos) * maxp(v, T(0));
-  Hu[0] = Hu[0] + T(2.0 * p.w_pos) * (v > T(0) ? T(1) : T(0));
-  gu[1] = T(2.0 * p.w_ang) * om;
-  Hu[1] = T(2.0 * p.w_ang);
-  D* qu = static_cast<D*>(out.qu) + urow;
-  D* Quu = static_cast<D*>(out.Quu) + urow * 2;
-  for (int j = 0; j < 2; ++j) {
-    const Bound<T> lo = bound(T(static_cast<const D*>(pr.cl)[b * 2 + j]));
-    const Bound<T> hi = bound(T(static_cast<const D*>(pr.cu)[b * 2 + j]));
-    const T c_lo = masked(U[j] - lo.val, lo.mask), c_hi = masked(hi.val - U[j], hi.mask);
-    const T s_lo = static_cast<const D*>(it.s_cl)[urow + j];
-    const T s_hi = static_cast<const D*>(it.s_cu)[urow + j];
-    const T nu_lo = static_cast<const D*>(it.nu_cl)[urow + j];
-    const T nu_hi = static_cast<const D*>(it.nu_cu)[urow + j];
-    const T num_lo = has_corr ? mu - static_cast<const D*>(corr.cl)[urow + j] : mu;
-    const T num_hi = has_corr ? mu - static_cast<const D*>(corr.cu)[urow + j] : mu;
-    const T fl = f.fl;
-    const T sig_lo = sigma_of(nu_lo, s_lo, lo.mask, f);
-    const T sig_hi = sigma_of(nu_hi, s_hi, hi.mask, f);
-    const T g_lo = lo.mask * (num_lo / maxp(s_lo, fl) - sig_lo * (c_lo - s_lo));
-    const T g_hi = hi.mask * (num_hi / maxp(s_hi, fl) - sig_hi * (c_hi - s_hi));
-    qu[j] = gu[j] - g_lo + g_hi;
-    Quu[j * 2 + j] = Hu[j] + sig_lo + sig_hi + shift;
+
+  // State row t: cost and box families xl, xu; the obstacles on state t
+  // below add to its first two entries.  Qxx is diagonal until then.
+  D* const q = qxx + (gid - g0) * 9;
+  D* const g = qxv + (gid - g0) * 3;
+  if (active) {
+    const D* goal = at<D>(pr.goal, b * 3);
+    const double gm = goal_row(t, N, p.exclude_terminal) ? 1.0 : 0.0;
+    const long long xrow = (static_cast<long long>(b) * T1 + t) * 3;
+    const double w[3] = {p.w0, p.w1, p.w2};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const double x = X[t * 3 + i];
+      const Bound lo = bound(*at<D>(pr.xl, b * 3 + i));
+      const Bound hi = bound(*at<D>(pr.xu, b * 3 + i));
+      const double c_lo_ = masked(x - lo.val, lo.mask), c_hi_ = masked(hi.val - x, hi.mask);
+      const double s_lo = *at<D>(it.s_xl, xrow + i), s_hi = *at<D>(it.s_xu, xrow + i);
+      const double nu_lo = *at<D>(it.nu_xl, xrow + i), nu_hi = *at<D>(it.nu_xu, xrow + i);
+      const double num_lo = has_corr ? mu - static_cast<double>(*at<D>(corr.xl, xrow + i)) : mu;
+      const double num_hi = has_corr ? mu - static_cast<double>(*at<D>(corr.xu, xrow + i)) : mu;
+      const double sig_lo = sigma_of(nu_lo, s_lo, lo.mask, f);
+      const double sig_hi = sigma_of(nu_hi, s_hi, hi.mask, f);
+      const double g_lo = lo.mask * (num_lo / maxp(s_lo, f.fl) - sig_lo * (c_lo_ - s_lo));
+      const double g_hi = hi.mask * (num_hi / maxp(s_hi, f.fl) - sig_hi * (c_hi_ - s_hi));
+      g[i] = 2.0 * gm * w[i] * (x - goal[i]) - g_lo + g_hi;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) q[i * 3 + j] = i == j ? 2.0 * gm * w[i] + sig_lo + sig_hi : 0.0;
+    }
+    if (t == 0) {
+      const D* x0 = at<D>(pr.x0, b * 3);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        put<D>(out.d0, b * 3 + i)[0] = static_cast<double>(x0[i]) - X[i];
+    }
   }
-  Quu[1] = T(0);
-  Quu[2] = T(0);
-  const T dt = T(p.dt);
-  const T th = X[t * 3 + 2], cth = cos(th), sth = sin(th);
-  const long long arow = static_cast<long long>(b) * N + t;
-  D* A = static_cast<D*>(out.A) + arow * 9;
-  D* Bm = static_cast<D*>(out.B) + arow * 6;
-  const T Av[9] = {T(1), T(0), -v * sth * dt, T(0), T(1), v * cth * dt, T(0), T(0), T(1)};
-  const T Bv[6] = {cth * dt, T(0), sth * dt, T(0), T(0), dt};
-  for (int i = 0; i < 9; ++i) A[i] = Av[i];
-  for (int i = 0; i < 6; ++i) Bm[i] = Bv[i];
-  D* d = static_cast<D*>(out.d) + arow * 3;
-  const D* X1 = X + (t + 1) * 3;
-  d[0] = X[t * 3] + v * cth * dt - X1[0];
-  d[1] = X[t * 3 + 1] + v * sth * dt - X1[1];
-  d[2] = th + om * dt - X1[2];
+  copies_done();
+  __syncthreads();  // the obstacle rows are in
+  if (K > 0 && t >= 1 && active) {
+    const int r = t - 1;  // obstacle row r covers state r + 1
+    const long long orow = (static_cast<long long>(b) * N + r - o_lo) * K;
+    const double px = X[t * 3], py = X[t * 3 + 1];
+    const double infl = *at<D>(pr.infl, b);
+    double g0x = 0.0, g0y = 0.0, H00 = 0.0, H01 = 0.0, H11 = 0.0;
+    double wsum = 0.0, C00 = 0.0, C01 = 0.0, C11 = 0.0;
+    for (int k = 0; k < K; ++k) {
+      const D* ctr = at<D>(pr.centers, ((static_cast<long long>(b) * K + k) * N + r) * 2);
+      const Ob o = obstacle(px, py, ctr[0], ctr[1], *at<D>(pr.radii, b * K + k), infl,
+                            *at<D>(pr.omask, b * K + k));
+      const double s = sob[orow + k], nu = nob[orow + k];
+      double gk, sig;
+      if (EL) {
+        const Elastic el = elastic_coef(o.c, s, nu, eob[orow + k], o.mask, mu, p.rho_e, f);
+        gk = el.g;
+        sig = el.sig_eff;
+      } else {
+        const double num = has_corr ? mu - static_cast<double>(eob[orow + k]) : mu;
+        sig = sigma_of(nu, s, o.mask, f);
+        gk = o.mask * (num / maxp(s, f.fl) - sig * (o.c - s));
+      }
+      g0x += o.nx * gk;
+      g0y += o.ny * gk;
+      H00 += sig * o.nx * o.nx;
+      H01 += sig * o.nx * o.ny;
+      H11 += sig * o.ny * o.ny;
+      if (p.curvature) {
+        double wk = -o.mask * nu / maxp(o.dist, 1e-6);
+        wk = maxp(wk, -0.9 * sig);
+        wsum += wk;
+        C00 += wk * o.nx * o.nx;
+        C01 += wk * o.nx * o.ny;
+        C11 += wk * o.ny * o.ny;
+      }
+    }
+    if (p.curvature) {
+      H00 = H00 + (wsum - C00);
+      H01 = H01 + (wsum * 0.0 - C01);
+      H11 = H11 + (wsum - C11);
+    }
+    // qx and Qxx were stored after the box families, rounded to D where the
+    // plain half rounds them; the obstacles' terms go onto those values.
+    g[0] = static_cast<double>(g[0]) - g0x;
+    g[1] = static_cast<double>(g[1]) - g0y;
+    q[0] = static_cast<double>(q[0]) + H00;
+    q[1] = static_cast<double>(q[1]) + H01;
+    q[3] = static_cast<double>(q[3]) + H01;
+    q[4] = static_cast<double>(q[4]) + H11;
+  }
+  if (active) {
+    q[0] = static_cast<double>(q[0]) + shift;
+    q[4] = static_cast<double>(q[4]) + shift;
+    q[8] = static_cast<double>(q[8]) + shift;
+  }
+  __syncthreads();  // every row is in; each store below covers one span
+  store_rows(put<D>(out.Qxx, g0 * 9), qxx, nrows * 9, tid, nthr);
+  store_rows(put<D>(out.qx, g0 * 3), qxv, nrows * 3, tid, nthr);
+  store_rows(put<D>(out.Quu, c_lo * 4), crow, nc * 4, tid, nthr);
+  store_rows(put<D>(out.qu, c_lo * 2), crow + nc * 4, nc * 2, tid, nthr);
+  store_rows(put<D>(out.A, c_lo * 9), crow + nc * 6, nc * 9, tid, nthr);
+  store_rows(put<D>(out.B, c_lo * 6), crow + nc * 15, nc * 6, tid, nthr);
+  store_rows(put<D>(out.d, c_lo * 3), crow + nc * 21, nc * 3, tid, nthr);
 }
 
 // ---------------------------------------------------------------------------
 // The step.
 
-// One scenario's view of its inputs (data type D, values of type T).
-template <typename D> struct Scenario {
-  using T = typename Compute<D>::type;
-  const D *X, *U, *dX, *dU;
-  const D *s[5], *nu[5], *k[5];  // families cl, cu, xl, xu, ob; k: corrections or null
-  const D *e_ob, *x0, *goal, *centers, *radii, *omask;
-  Bound<T> lo[2][3];  // [0]: controls (2 used), [1]: states
-  Bound<T> hi[2][3];
-  T infl;
+// One scenario's arena: byte offsets of its rows.  Doubles first (the
+// steps ds, dnu of every element and de of the obstacles when elastic),
+// then rows of the data type: X, dX, U, dU, the slacks and duals of every
+// element (families cl, cu, xl, xu, ob in that order, each as its global
+// row), e (elastic), the correction rows (when given), the centers, radii,
+// mask, A and qx.
+struct StepLayout {
+  int nel, nbox;
+  long long ds, dnu, de, X, dX, U, dU, s, nu, e, k, ctr, rad, om, A, q, bytes;
 };
 
-// Family f's box constraint value at a point: f = 0 (cl), 1 (cu) on a
-// control entry, 2 (xl), 3 (xu) on a state entry; ``sub`` its component.
-template <typename D, typename T = typename Compute<D>::type>
-__device__ __forceinline__ T box_value(const Scenario<D>& S, int f, int sub, T z) {
-  const Bound<T>& lo = S.lo[f / 2][sub];
-  const Bound<T>& hi = S.hi[f / 2][sub];
-  return f % 2 == 0 ? masked(z - lo.val, lo.mask) : masked(hi.val - z, hi.mask);
+__host__ __device__ inline StepLayout step_layout(int N, int K, bool el, bool corr, int eb) {
+  StepLayout L;
+  const int T1 = N + 1;
+  L.nbox = 4 * N + 6 * T1;
+  L.nel = L.nbox + N * K;
+  long long o = 0;
+  auto take = [&o](long long n, int size) {  // each row from a 16-byte boundary
+    const long long at = (o + 15) / 16 * 16;
+    o = at + n * size;
+    return at;
+  };
+  L.ds = take(L.nel, 8);
+  L.dnu = take(L.nel, 8);
+  L.de = take(el ? N * K : 0, 8);
+  L.X = take(3 * T1, eb);
+  L.dX = take(3 * T1, eb);
+  L.U = take(2 * N, eb);
+  L.dU = take(2 * N, eb);
+  L.s = take(L.nel, eb);
+  L.nu = take(L.nel, eb);
+  L.e = take(el ? N * K : 0, eb);
+  L.k = take(corr ? L.nel : 0, eb);
+  L.ctr = take(2LL * K * N, eb);
+  L.rad = take(K, eb);
+  L.om = take(K, eb);
+  L.A = take(9 * N, eb);
+  L.q = take(3 * T1, eb);
+  L.bytes = (o + 15) / 16 * 16;
+  return L;
 }
 
-// The obstacle constraint of flat index io = r * K + k (state r + 1) at a
-// point.
-template <typename D, typename T = typename Compute<D>::type>
-__device__ __forceinline__ Ob<T> obstacle_at(const SplitParams& p, const Scenario<D>& S, int io,
-                                             T px, T py) {
-  const int r = io / p.K, k = io % p.K;
-  const D* ctr = S.centers + (static_cast<long long>(k) * p.N + r) * 2;
-  return obstacle(px, py, T(ctr[0]), T(ctr[1]), T(S.radii[k]), S.infl, T(S.omask[k]));
+// The block's own shared memory ahead of the arena, in doubles: the
+// scenario's scalars and the merits' two sums per candidate, then per warp
+// the partials of pass 1 (4) and pass 3 (2), then per thread its two sums
+// of pass 2 per candidate.
+enum Scalar {
+  kLoX = 0, kMloX = 3, kHiX = 6, kMhiX = 9,  // state bounds: values and masks
+  kLoU = 12, kMloU = 14, kHiU = 16, kMhiU = 18,  // control bounds
+  kX0 = 20, kGoal = 23, kMu = 26, kInfl = 27, kLam = 28,
+  kLadder = 29,  // ls_backtrack^j, j < kMaxLs
+  kSums = kLadder + kMaxLs,  // the merits' sums P, R of candidate c at 2c, 2c + 1
+  kScalars = kSums + 2 * kMaxCand
+};
+constexpr int kPartials = 4 + 2;
+__host__ __device__ inline long long step_red_bytes(int warps, int ls_iters) {
+  const int threads = warps * kLanes;
+  return (static_cast<long long>(kScalars + warps * kPartials + 2 * (1 + ls_iters) * threads) *
+              8 + 15) / 16 * 16;
 }
 
-// Every element of stage t of a scenario (state row t with its box
-// families, control row t if t < N, the obstacles on state t if t >= 1),
-// with its slack and dual steps (the eliminated elastic ones for the
-// obstacles in elastic mode), handed to ``fn`` one at a time:
-// fn(family, index in the family's row-major array, component, c, s, nu,
-// mask, ds, dnu, e, de), e and de 0 outside the elastic obstacles.
-template <typename D, bool EL, typename T, typename F>
-__device__ __forceinline__ void stage_steps(const SplitParams& p, const Scenario<D>& S, int t,
-                                            T mu, Floors<T> f, F&& fn) {
-  const bool corr = S.k[0] != nullptr;
-  for (int i = 0; i < 3; ++i) {
-    const int ix = t * 3 + i;
-    const T dx = S.dX[ix];
-    for (int fam = 2; fam < 4; ++fam) {
-      const T c = box_value(S, fam, i, T(S.X[ix]));
-      const T mask = fam == 2 ? S.lo[1][i].mask : S.hi[1][i].mask;
-      const T s = S.s[fam][ix], nu = S.nu[fam][ix];
-      T ds, dnu;
-      box_step(c, s, nu, mask, fam == 2 ? dx : -dx, corr ? mu - T(S.k[fam][ix]) : mu, f, ds,
-               dnu);
-      fn(fam, ix, i, c, s, nu, mask, ds, dnu, T(0), T(0));
-    }
+// Box element e < nbox (families cl, cu on controls, xl, xu on states):
+// whether it is a state entry, an upper bound, its index in the family's
+// row and its component.
+struct BoxElem {
+  bool state, upper;
+  int idx, comp;
+};
+__device__ __forceinline__ BoxElem box_elem(int e, int N, int T1) {
+  BoxElem x;
+  if (e < 4 * N) {
+    x.state = false;
+    x.upper = e >= 2 * N;
+    x.idx = x.upper ? e - 2 * N : e;
+    x.comp = x.idx & 1;
+  } else {
+    const int i = e - 4 * N;
+    x.state = true;
+    x.upper = i >= 3 * T1;
+    x.idx = x.upper ? i - 3 * T1 : i;
+    x.comp = x.idx % 3;
   }
-  if (t < p.N) {
-    for (int j = 0; j < 2; ++j) {
-      const int iu = t * 2 + j;
-      const T du = S.dU[iu];
-      for (int fam = 0; fam < 2; ++fam) {
-        const T c = box_value(S, fam, j, T(S.U[iu]));
-        const T mask = fam == 0 ? S.lo[0][j].mask : S.hi[0][j].mask;
-        const T s = S.s[fam][iu], nu = S.nu[fam][iu];
-        T ds, dnu;
-        box_step(c, s, nu, mask, fam == 0 ? du : -du, corr ? mu - T(S.k[fam][iu]) : mu, f, ds,
-                 dnu);
-        fn(fam, iu, j, c, s, nu, mask, ds, dnu, T(0), T(0));
-      }
-    }
+  return x;
+}
+
+// The bound a box element reads (values and masks in the scalars).
+__device__ __forceinline__ void box_bound(const double* sc, const BoxElem& x, double& val,
+                                          double& mask) {
+  const int i = x.comp;
+  if (x.state) {
+    val = x.upper ? sc[kHiX + i] : sc[kLoX + i];
+    mask = x.upper ? sc[kMhiX + i] : sc[kMloX + i];
+  } else {
+    val = x.upper ? sc[kHiU + i] : sc[kLoU + i];
+    mask = x.upper ? sc[kMhiU + i] : sc[kMloU + i];
   }
-  if (p.K > 0 && t >= 1) {
-    const T px = S.X[t * 3], py = S.X[t * 3 + 1];
-    const T dpx = S.dX[t * 3], dpy = S.dX[t * 3 + 1];
-    for (int io = (t - 1) * p.K; io < t * p.K; ++io) {
-      const Ob<T> o = obstacle_at(p, S, io, px, py);
-      const T s = S.s[4][io], nu = S.nu[4][io];
-      const T jdz = o.nx * dpx + o.ny * dpy;
-      T ds, dnu, e = T(0), de = T(0);
-      if (EL) {
-        e = S.e_ob[io];
-        elastic_step(elastic_coef(o.c, s, nu, e, o.mask, mu, T(p.rho_e), f), o.mask, jdz, f, ds,
-                     de, dnu);
-      } else {
-        box_step(o.c, s, nu, o.mask, jdz, corr ? mu - T(S.k[4][io]) : mu, f, ds, dnu);
-      }
-      fn(4, io, io % p.K, o.c, s, nu, o.mask, ds, dnu, e, de);
-    }
-  }
+}
+
+// Family array of a box element, in the iterate's field order.
+__device__ __forceinline__ void* box_row(const IteratePtrs& v, const BoxElem& x, bool dual) {
+  if (x.state) return dual ? (x.upper ? v.nu_xu : v.nu_xl) : (x.upper ? v.s_xu : v.s_xl);
+  return dual ? (x.upper ? v.nu_cu : v.nu_cl) : (x.upper ? v.s_cu : v.s_cl);
 }
 
 // Fraction-to-boundary ratio of one element (1 where the step does not
 // decrease it).
-template <typename T> __device__ __forceinline__ T ftb(T v, T dv, T tau) {
-  return dv < T(0) ? -tau * v / minp(dv, T(-1e-30)) : T(1);
+__device__ __forceinline__ double ftb(double v, double dv, double tau) {
+  return dv < 0.0 ? -tau * v / minp(dv, -1e-30) : 1.0;
 }
 
-template <typename D, bool EL>
-__global__ void __launch_bounds__(kWarps * kLanes)
+template <typename D, bool EL, bool GLOBAL>
+__global__ void __launch_bounds__(kMaxWarps * kLanes, EL || GLOBAL ? 3 : 5)
 step_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
             const D* __restrict__ mu_in, const D* __restrict__ qx, const D* __restrict__ Amat,
             const D* __restrict__ dx, const D* __restrict__ du, const CorrPtrs corr,
-            const IteratePtrs out, D* __restrict__ mu_out, D* __restrict__ alpha_out) {
-  const int lane = threadIdx.x % kLanes;
-  const int b = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
-  if (b >= p.B) return;  // the whole warp leaves together
-  const int N = p.N, K = p.K;
-  const long long xs = static_cast<long long>(b) * (N + 1) * 3;
+            const IteratePtrs out, const StepOut so) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Phase clocks start here.
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid % kLanes, warp = tid / kLanes;
+  const int nwarps = nthr / kLanes;
+  const int N = p.N, K = p.K, T1 = N + 1;
+  const bool has_corr = corr.cl != nullptr;
+  const StepLayout L = step_layout(N, K, EL, has_corr, sizeof(D));
+  const int nel = L.nel, nbox = L.nbox;
+  double* const sc = reinterpret_cast<double*>(smem);
+  double* const part1 = sc + kScalars;
+  double* const part3 = part1 + 4 * nwarps;
+  double* const part2 = part3 + 2 * nwarps;  // [2 * candidates][threads]
+  unsigned char* const arena =
+      GLOBAL ? static_cast<unsigned char*>(so.scratch) + static_cast<long long>(b) * L.bytes
+             : smem + step_red_bytes(nwarps, p.ls_iters);
+  double* const DS = reinterpret_cast<double*>(arena + L.ds);
+  double* const DNU = reinterpret_cast<double*>(arena + L.dnu);
+  double* const DE = reinterpret_cast<double*>(arena + L.de);
+  D* const X = reinterpret_cast<D*>(arena + L.X);
+  D* const dX = reinterpret_cast<D*>(arena + L.dX);
+  D* const U = reinterpret_cast<D*>(arena + L.U);
+  D* const dU = reinterpret_cast<D*>(arena + L.dU);
+  D* const S = reinterpret_cast<D*>(arena + L.s);
+  D* const NU = reinterpret_cast<D*>(arena + L.nu);
+  D* const E = reinterpret_cast<D*>(arena + L.e);
+  D* const KC = reinterpret_cast<D*>(arena + L.k);
+  D* const CTR = reinterpret_cast<D*>(arena + L.ctr);
+  D* const RAD = reinterpret_cast<D*>(arena + L.rad);
+  D* const OM = reinterpret_cast<D*>(arena + L.om);
+  D* const AM = reinterpret_cast<D*>(arena + L.A);
+  D* const Q = reinterpret_cast<D*>(arena + L.q);
+  const long long xs = static_cast<long long>(b) * T1 * 3;
   const long long us = static_cast<long long>(b) * N * 2;
   const long long os = static_cast<long long>(b) * N * K;
-  const long long offs[5] = {us, us, xs, xs, os};
-  auto at = [](const void* ptr, long long off) { return static_cast<const D*>(ptr) + off; };
-  auto put = [](void* ptr, long long off) { return static_cast<D*>(ptr) + off; };
-  using T = typename Compute<D>::type;
-  const Floors<T> f{T(Num<D>::floor()), T(Num<D>::sigma_max())};
+  const Floors f{Num<D>::floor(), Num<D>::sigma_max()};
 
-  Scenario<D> S;
-  S.X = at(it.states, xs);
-  S.U = at(it.controls, us);
-  S.dX = dx + xs;
-  S.dU = du + us;
-  const void* const s_in[5] = {it.s_cl, it.s_cu, it.s_xl, it.s_xu, it.s_ob};
-  const void* const nu_in[5] = {it.nu_cl, it.nu_cu, it.nu_xl, it.nu_xu, it.nu_ob};
-  const void* const k_in[5] = {corr.cl, corr.cu, corr.xl, corr.xu, corr.ob};
-  for (int fam = 0; fam < 5; ++fam) {
-    S.s[fam] = at(s_in[fam], offs[fam]);
-    S.nu[fam] = at(nu_in[fam], offs[fam]);
-    S.k[fam] = k_in[fam] != nullptr ? at(k_in[fam], offs[fam]) : nullptr;
+  // Pass 0: the scenario's rows into the arena, its scalars into the block.
+  stage<!GLOBAL>(X, at<D>(it.states, xs), 3 * T1, tid, nthr);
+  stage<!GLOBAL>(dX, dx + xs, 3 * T1, tid, nthr);
+  stage<!GLOBAL>(U, at<D>(it.controls, us), 2 * N, tid, nthr);
+  stage<!GLOBAL>(dU, du + us, 2 * N, tid, nthr);
+  {
+    const long long seg[5] = {0, 2 * N, 4 * N, 4 * N + 3 * T1, nbox};
+    stage<!GLOBAL>(S + seg[0], at<D>(it.s_cl, us), 2 * N, tid, nthr);
+    stage<!GLOBAL>(S + seg[1], at<D>(it.s_cu, us), 2 * N, tid, nthr);
+    stage<!GLOBAL>(S + seg[2], at<D>(it.s_xl, xs), 3 * T1, tid, nthr);
+    stage<!GLOBAL>(S + seg[3], at<D>(it.s_xu, xs), 3 * T1, tid, nthr);
+    stage<!GLOBAL>(S + seg[4], at<D>(it.s_ob, os), N * K, tid, nthr);
+    stage<!GLOBAL>(NU + seg[0], at<D>(it.nu_cl, us), 2 * N, tid, nthr);
+    stage<!GLOBAL>(NU + seg[1], at<D>(it.nu_cu, us), 2 * N, tid, nthr);
+    stage<!GLOBAL>(NU + seg[2], at<D>(it.nu_xl, xs), 3 * T1, tid, nthr);
+    stage<!GLOBAL>(NU + seg[3], at<D>(it.nu_xu, xs), 3 * T1, tid, nthr);
+    stage<!GLOBAL>(NU + seg[4], at<D>(it.nu_ob, os), N * K, tid, nthr);
+    if (has_corr) {
+      stage<!GLOBAL>(KC + seg[0], at<D>(corr.cl, us), 2 * N, tid, nthr);
+      stage<!GLOBAL>(KC + seg[1], at<D>(corr.cu, us), 2 * N, tid, nthr);
+      stage<!GLOBAL>(KC + seg[2], at<D>(corr.xl, xs), 3 * T1, tid, nthr);
+      stage<!GLOBAL>(KC + seg[3], at<D>(corr.xu, xs), 3 * T1, tid, nthr);
+      stage<!GLOBAL>(KC + seg[4], at<D>(corr.ob, os), N * K, tid, nthr);
+    }
   }
-  S.e_ob = at(it.e_ob, os);
-  S.x0 = at(pr.x0, b * 3);
-  S.goal = at(pr.goal, b * 3);
-  S.centers = at(pr.centers, static_cast<long long>(b) * K * N * 2);
-  S.radii = at(pr.radii, static_cast<long long>(b) * K);
-  S.omask = at(pr.omask, static_cast<long long>(b) * K);
-  S.infl = *at(pr.infl, b);
-  for (int j = 0; j < 3; ++j) {
-    S.lo[0][j] = bound(j < 2 ? T(*at(pr.cl, b * 2 + j)) : T(0));
-    S.hi[0][j] = bound(j < 2 ? T(*at(pr.cu, b * 2 + j)) : T(0));
-    S.lo[1][j] = bound(T(*at(pr.xl, b * 3 + j)));
-    S.hi[1][j] = bound(T(*at(pr.xu, b * 3 + j)));
+  if (EL) stage<!GLOBAL>(E, at<D>(it.e_ob, os), N * K, tid, nthr);
+  stage<!GLOBAL>(CTR, at<D>(pr.centers, os * 2), 2LL * N * K, tid, nthr);
+  stage<!GLOBAL>(RAD, at<D>(pr.radii, static_cast<long long>(b) * K), K, tid, nthr);
+  stage<!GLOBAL>(OM, at<D>(pr.omask, static_cast<long long>(b) * K), K, tid, nthr);
+  stage<!GLOBAL>(AM, Amat + static_cast<long long>(b) * N * 9, 9 * N, tid, nthr);
+  stage<!GLOBAL>(Q, qx + xs, 3 * T1, tid, nthr);
+  if (tid < 3) {
+    const Bound lo = bound(*at<D>(pr.xl, b * 3 + tid)), hi = bound(*at<D>(pr.xu, b * 3 + tid));
+    sc[kLoX + tid] = lo.val;
+    sc[kMloX + tid] = lo.mask;
+    sc[kHiX + tid] = hi.val;
+    sc[kMhiX + tid] = hi.mask;
+    sc[kX0 + tid] = *at<D>(pr.x0, b * 3 + tid);
+    sc[kGoal + tid] = *at<D>(pr.goal, b * 3 + tid);
+  } else if (tid < 5) {
+    const int j = tid - 3;
+    const Bound lo = bound(*at<D>(pr.cl, b * 2 + j)), hi = bound(*at<D>(pr.cu, b * 2 + j));
+    sc[kLoU + j] = lo.val;
+    sc[kMloU + j] = lo.mask;
+    sc[kHiU + j] = hi.val;
+    sc[kMhiU + j] = hi.mask;
+  } else if (tid == 5) {
+    sc[kMu] = mu_in[b];
+    sc[kInfl] = *at<D>(pr.infl, b);
+  } else if (tid >= kLanes - kMaxLs) {
+    const int j = tid - (kLanes - kMaxLs);
+    sc[kLadder + j] = pow(p.ls_backtrack, static_cast<double>(j));
   }
-  const T mu = mu_in[b];
-  const T tau = T(p.tau);
+  copies_done();
+  __syncthreads();
+  // Phase clocks: loads.
 
-  // Pass 1: fractions to the boundary, the largest dual, the step's norm.
-  T a_s = T(1), a_nu = T(1), nu_max = T(0), step_inf = T(0);
-  for (int t = lane; t <= N; t += kLanes) {
-    for (int i = 0; i < 3; ++i) step_inf = maxp(step_inf, T(fabs(S.dX[t * 3 + i])));
-    if (t < N)
-      for (int j = 0; j < 2; ++j) step_inf = maxp(step_inf, T(fabs(S.dU[t * 2 + j])));
-    stage_steps<D, EL>(p, S, t, mu, f, [&](int fam, int, int, T, T s, T nu, T mask, T ds, T dnu,
-                                        T e, T de) {
-      a_s = minp(a_s, ftb(s, ds, tau));
-      a_nu = minp(a_nu, ftb(nu, dnu, tau));
-      nu_max = maxp(nu_max, mask * nu);
-      if (EL && fam == 4) a_s = minp(a_s, ftb(e, de, tau));
-    });
+  // Pass 1: each element's steps into the arena; the fractions to the
+  // boundary, the largest dual, the step's norm.
+  const double mu = sc[kMu], infl = sc[kInfl], tau = p.tau, rho_e = p.rho_e;
+  double a_s = 1.0, a_nu = 1.0, nu_max = 0.0, step_inf = 0.0;
+  for (int i = tid; i < 3 * T1 + 2 * N; i += nthr)
+    step_inf = maxp(step_inf, fabs(static_cast<double>(i < 3 * T1 ? dX[i] : dU[i - 3 * T1])));
+  for (int e = tid; e < nel; e += nthr) {
+    const double s = S[e], nu = NU[e];
+    const double num = has_corr ? mu - static_cast<double>(KC[e]) : mu;
+    double ds, dnu, mask;
+    if (e < nbox) {
+      const BoxElem x = box_elem(e, N, T1);
+      double bval;
+      box_bound(sc, x, bval, mask);
+      const double z = x.state ? X[x.idx] : U[x.idx];
+      const double dz = x.state ? dX[x.idx] : dU[x.idx];
+      const double c = x.upper ? masked(bval - z, mask) : masked(z - bval, mask);
+      box_step(c, s, nu, mask, x.upper ? -dz : dz, num, f, ds, dnu);
+    } else {
+      const int io = e - nbox, r = io / K, k = io - r * K;
+      const int n1 = (r + 1) * 3;
+      const D* ctr = CTR + (static_cast<long long>(k) * N + r) * 2;
+      const Ob o = obstacle(X[n1], X[n1 + 1], ctr[0], ctr[1], RAD[k], infl, OM[k]);
+      const double jdz = o.nx * dX[n1] + o.ny * dX[n1 + 1];
+      mask = o.mask;
+      if (EL) {
+        const double ev = E[io];
+        double de;
+        elastic_step(elastic_coef(o.c, s, nu, ev, o.mask, mu, rho_e, f), o.mask, jdz, f, ds, de,
+                     dnu);
+        DE[io] = de;
+        a_s = minp(a_s, ftb(ev, de, tau));
+      } else {
+        box_step(o.c, s, nu, o.mask, jdz, num, f, ds, dnu);
+      }
+    }
+    DS[e] = ds;
+    DNU[e] = dnu;
+    a_s = minp(a_s, ftb(s, ds, tau));
+    a_nu = minp(a_nu, ftb(nu, dnu, tau));
+    nu_max = maxp(nu_max, mask * nu);
   }
   a_s = warp_min(a_s);
   a_nu = warp_min(a_nu);
   nu_max = warp_max(nu_max);
   step_inf = warp_max(step_inf);
-
-  // The penalty weight: dominate the duals and the dynamics adjoints (one
-  // adjoint sweep of the condensed gradients), on lane 0.
-  T rho = T(0);
   if (lane == 0) {
-    const D* q = qx + xs;
-    const D* A = Amat + static_cast<long long>(b) * N * 9;
-    T lam[3] = {q[N * 3], q[N * 3 + 1], q[N * 3 + 2]};
-    T lam_max = maxp(maxp(T(fabs(lam[0])), T(fabs(lam[1]))), T(fabs(lam[2])));
-    for (int t = N - 1; t >= 0; --t) {
-      const D* At = A + t * 9;
-      T nl[3];
-      for (int i = 0; i < 3; ++i)
-        nl[i] = q[t * 3 + i] + (At[i] * lam[0] + At[3 + i] * lam[1] + At[6 + i] * lam[2]);
-      for (int i = 0; i < 3; ++i) {
-        lam[i] = nl[i];
-        lam_max = maxp(lam_max, T(fabs(nl[i])));
-      }
-    }
-    rho = maxp(T(2) * maxp(nu_max, lam_max), T(p.merit_penalty));
+    part1[warp * 4 + 0] = a_s;
+    part1[warp * 4 + 1] = a_nu;
+    part1[warp * 4 + 2] = nu_max;
+    part1[warp * 4 + 3] = step_inf;
   }
-  rho = __shfl_sync(kFull, rho, 0);
+  __syncthreads();
+  a_s = part1[0];
+  a_nu = part1[1];
+  nu_max = part1[2];
+  step_inf = part1[3];
+  for (int w = 1; w < nwarps; ++w) {
+    a_s = minp(a_s, part1[w * 4 + 0]);
+    a_nu = minp(a_nu, part1[w * 4 + 1]);
+    nu_max = maxp(nu_max, part1[w * 4 + 2]);
+    step_inf = maxp(step_inf, part1[w * 4 + 3]);
+  }
+  // Phase clocks: pass 1.
 
-  // Pass 2: the merit at alpha = 0 and at every candidate, in one pass:
-  // per candidate the objective, the log barrier and the l1 residuals
-  // (defects, pin, consistency of every family).
+  // Pass 2: thread 0 runs the penalty weight's adjoint sweep of the
+  // condensed gradients; the other threads take, candidate by candidate,
+  // (stage or element, candidate) and sum the objective less mu times the
+  // log barrier (P), and the l1 residuals (R: defects, pin, consistency of
+  // every family).  Candidate c is alpha = 0 (c = 0) or a_s * ladder[c - 1].
   const int nc = 1 + p.ls_iters;
-  T cand[kMaxCand], obj[kMaxCand], logs[kMaxCand], res[kMaxCand];
-#pragma unroll
-  for (int c = 0; c < kMaxCand; ++c) {
-    cand[c] = c == 0 ? T(0) : a_s * T(pow(T(p.ls_backtrack), T(c - 1)));
-    obj[c] = logs[c] = res[c] = T(0);
-  }
-  const T w[3] = {T(p.w0), T(p.w1), T(p.w2)};
-  const T dt = T(p.dt), rho_e = T(p.rho_e);
-  for (int t = lane; t <= N; t += kLanes) {
-    const T gm = goal_row(t, N, p.exclude_terminal) ? T(1) : T(0);
-#pragma unroll
-    for (int c = 0; c < kMaxCand; ++c) {
-      if (c < nc) {
-        const T a = cand[c];
-        T xa[3];
-        for (int i = 0; i < 3; ++i) {
-          xa[i] = S.X[t * 3 + i] + a * S.dX[t * 3 + i];
-          const T err = xa[i] - S.goal[i];
-          obj[c] += gm * (err * err) * w[i];
-          if (t == 0) res[c] += fabs(S.x0[i] - xa[i]);
-        }
-        if (t < N) {
-          const T v = S.U[t * 2] + a * S.dU[t * 2];
-          const T om = S.U[t * 2 + 1] + a * S.dU[t * 2 + 1];
-          const T nv = minp(v, T(0)), pv = maxp(v, T(0));
-          obj[c] += p.reverse_squared ? T(p.w_neg) * (nv * nv) : T(p.w_neg) * nv;
-          obj[c] += T(p.w_pos) * (pv * pv) + T(p.w_ang) * (om * om);
-          const int n1 = (t + 1) * 3;
-          res[c] += fabs(xa[0] + v * cos(xa[2]) * dt - (S.X[n1] + a * S.dX[n1]));
-          res[c] += fabs(xa[1] + v * sin(xa[2]) * dt - (S.X[n1 + 1] + a * S.dX[n1 + 1]));
-          res[c] += fabs(xa[2] + om * dt - (S.X[n1 + 2] + a * S.dX[n1 + 2]));
-        }
-      }
+  const double* const ladder = sc + kLadder;
+  if (tid == 0) {
+    double l0 = Q[N * 3], l1 = Q[N * 3 + 1], l2 = Q[N * 3 + 2];
+    double lam_max = maxp(maxp(fabs(l0), fabs(l1)), fabs(l2));
+#pragma unroll 5
+    for (int t = N - 1; t >= 0; --t) {
+      const D* At = AM + t * 9;
+      const double n0 = Q[t * 3] + (At[0] * l0 + At[3] * l1 + At[6] * l2);
+      const double n1 = Q[t * 3 + 1] + (At[1] * l0 + At[4] * l1 + At[7] * l2);
+      const double n2 = Q[t * 3 + 2] + (At[2] * l0 + At[5] * l1 + At[8] * l2);
+      l0 = n0;
+      l1 = n1;
+      l2 = n2;
+      lam_max = maxp(lam_max, fabs(n0));
+      lam_max = maxp(lam_max, fabs(n1));
+      lam_max = maxp(lam_max, fabs(n2));
     }
-    stage_steps<D, EL>(p, S, t, mu, f, [&](int fam, int idx, int sub, T, T s, T, T mask, T ds, T,
-                                        T e, T de) {
-#pragma unroll
-      for (int c = 0; c < kMaxCand; ++c) {
-        if (c < nc) {
-          const T a = cand[c];
-          const T sa = s + a * ds;
-          logs[c] += mask * log(maxp(sa, T(1e-30)));
-          T ca;
-          if (fam < 2) {
-            ca = box_value(S, fam, sub, S.U[idx] + a * S.dU[idx]);
-          } else if (fam < 4) {
-            ca = box_value(S, fam, sub, S.X[idx] + a * S.dX[idx]);
-          } else {
-            const int n1 = (idx / K + 1) * 3;
-            ca = obstacle_at(p, S, idx, S.X[n1] + a * S.dX[n1], S.X[n1 + 1] + a * S.dX[n1 + 1]).c;
+    sc[kLam] = lam_max;
+    for (int q = 0; q < 2 * nc; ++q) part2[q * nthr] = 0.0;
+    // Phase clocks: sweep.
+  } else {
+    const double w0 = p.w0, w1 = p.w1, w2 = p.w2, dt = p.dt;
+    for (int c = 0; c < nc; ++c) {
+      const double a = c == 0 ? 0.0 : a_s * ladder[c - 1];
+      double Pc = 0.0, Rc = 0.0;
+      for (int i = tid - 1; i < T1 + nel; i += nthr - 1) {
+        if (i < T1) {
+          // Stage i: the objective, the pin (i = 0) and the defect to i + 1.
+          const int t = i;
+          const double gm = goal_row(t, N, p.exclude_terminal) ? 1.0 : 0.0;
+          const double xa0 = X[t * 3] + a * dX[t * 3];
+          const double xa1 = X[t * 3 + 1] + a * dX[t * 3 + 1];
+          const double xa2 = X[t * 3 + 2] + a * dX[t * 3 + 2];
+          const double r0 = xa0 - sc[kGoal], r1 = xa1 - sc[kGoal + 1], r2 = xa2 - sc[kGoal + 2];
+          Pc += gm * (r0 * r0) * w0;
+          Pc += gm * (r1 * r1) * w1;
+          Pc += gm * (r2 * r2) * w2;
+          if (t == 0) {
+            Rc += fabs(sc[kX0] - xa0);
+            Rc += fabs(sc[kX0 + 1] - xa1);
+            Rc += fabs(sc[kX0 + 2] - xa2);
           }
-          if (EL && fam == 4) {
-            const T ea = e + a * de;
-            logs[c] += mask * log(maxp(ea, T(1e-30)));
-            obj[c] += rho_e * (mask * ea);
-            res[c] += mask * fabs(ca + ea - sa);
-          } else {
-            res[c] += mask * fabs(ca - sa);
+          if (t < N) {
+            const int n1 = (t + 1) * 3;
+            const double v = U[t * 2] + a * dU[t * 2], om = U[t * 2 + 1] + a * dU[t * 2 + 1];
+            const double nv = minp(v, 0.0), pv = maxp(v, 0.0);
+            Pc += p.reverse_squared ? p.w_neg * (nv * nv) : p.w_neg * nv;
+            Pc += p.w_pos * (pv * pv) + p.w_ang * (om * om);
+            double sth, cth;
+            sincos_rd(xa2, sth, cth);
+            Rc += fabs(xa0 + v * cth * dt - (X[n1] + a * dX[n1]));
+            Rc += fabs(xa1 + v * sth * dt - (X[n1 + 1] + a * dX[n1 + 1]));
+            Rc += fabs(xa2 + om * dt - (X[n1 + 2] + a * dX[n1 + 2]));
           }
+        } else if (i < T1 + nbox) {
+          // Box element e: its log barrier and consistency along the step.
+          const int e = i - T1;
+          const BoxElem x = box_elem(e, N, T1);
+          double bval, mask;
+          box_bound(sc, x, bval, mask);
+          const double za = x.state ? X[x.idx] + a * dX[x.idx] : U[x.idx] + a * dU[x.idx];
+          const double sa = S[e] + a * DS[e];
+          const double ca = x.upper ? masked(bval - za, mask) : masked(za - bval, mask);
+          Pc -= mu * (mask * Trans<D>::log(maxp(sa, 1e-30)));
+          Rc += mask * fabs(ca - sa);
+        } else {
+          // Obstacle element: the same, with the distance at the trial point.
+          const int e = i - T1, io = e - nbox, r = io / K, k = io - r * K;
+          const int n1 = (r + 1) * 3;
+          const D* ctr = CTR + (static_cast<long long>(k) * N + r) * 2;
+          const double mask = OM[k] > 0.5 ? 1.0 : 0.0;
+          const double qx_ = X[n1] + a * dX[n1] - ctr[0];
+          const double qy = X[n1 + 1] + a * dX[n1 + 1] - ctr[1];
+          const double dist = Trans<D>::sqrt(qx_ * qx_ + qy * qy + 1e-16);
+          const double ca = masked(dist - RAD[k] - infl, mask);
+          const double sa = S[e] + a * DS[e];
+          double lg = mask * Trans<D>::log(maxp(sa, 1e-30));
+          if (EL) {
+            const double ea = E[io] + a * DE[io];
+            lg += mask * Trans<D>::log(maxp(ea, 1e-30));
+            Pc += rho_e * (mask * ea);
+            Rc += mask * fabs(ca + ea - sa);
+          } else {
+            Rc += mask * fabs(ca - sa);
+          }
+          Pc -= mu * lg;
         }
       }
-    });
+      part2[(2 * c) * nthr + tid] = Pc;
+      part2[(2 * c + 1) * nthr + tid] = Rc;
+    }
   }
-  T merit[kMaxCand];
+  __syncthreads();
+  // Each sum over the threads in thread order: warp w takes sums w,
+  // w + nwarps, ...; the block reads them after a barrier.
+  for (int q = warp; q < 2 * nc; q += nwarps) {
+    double v = 0.0;
+    for (int i = lane; i < nthr; i += kLanes) v += part2[q * nthr + i];
+    v = warp_sum(v);
+    if (lane == 0) sc[kSums + q] = v;
+  }
+  __syncthreads();
+  // Phase clocks: pass 2.
+  const double rho = maxp(2.0 * maxp(nu_max, sc[kLam]), p.merit_penalty);
+  double merit[kMaxCand];
 #pragma unroll
   for (int c = 0; c < kMaxCand; ++c)
-    if (c < nc) merit[c] = warp_sum(obj[c]) - mu * warp_sum(logs[c]) + rho * warp_sum(res[c]);
+    merit[c] = c < nc ? sc[kSums + 2 * c] + rho * sc[kSums + 2 * c + 1] : 0.0;
 
   // Acceptance: the largest candidate whose merit does not rise beyond
   // rounding noise plus, in the small-step Newton regime only, the
   // curvature budget; else the deepest one if its merit is finite; else 0.
-  const T m0 = merit[0];
-  const bool newton = step_inf < T(Num<D>::newton());
-  const T tol = T(16.0 * Num<D>::eps()) * (T(1) + fabs(m0)) +
-                (newton ? T(10) * rho * step_inf * step_inf : T(0));
+  const double m0 = merit[0];
+  const bool newton = step_inf < Num<D>::newton();
+  const double tol =
+      16.0 * Num<D>::eps() * (1.0 + fabs(m0)) + (newton ? 10.0 * rho * step_inf * step_inf : 0.0);
   int idx = 0;
   bool any_ok = false;
-  T alpha = T(0), deepest = T(0);
+  double alpha = 0.0, deepest = 0.0;
   bool deepest_finite = false;
 #pragma unroll
   for (int c = 1; c < kMaxCand; ++c) {
@@ -670,55 +994,87 @@ step_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
       if (ok && !any_ok) {
         any_ok = true;
         idx = c - 1;
-        alpha = cand[c];
+        alpha = a_s * ladder[c - 1];
       }
       if (c == nc - 1) {
-        deepest = cand[c];
+        deepest = a_s * ladder[c - 1];
         deepest_finite = isfin(merit[c]);
       }
     }
   }
-  if (!any_ok) alpha = deepest_finite ? deepest : T(0);
+  if (!any_ok) alpha = deepest_finite ? deepest : 0.0;
   a_nu = minp(a_nu, alpha);
+  // Phase clocks: acceptance.
 
   // Pass 3: the update, the dual clamp, and the new mean complementarity.
-  void* const s_out[5] = {out.s_cl, out.s_cu, out.s_xl, out.s_xu, out.s_ob};
-  void* const nu_out[5] = {out.nu_cl, out.nu_cu, out.nu_xl, out.nu_xu, out.nu_ob};
-  D* const X_out = put(out.states, xs);
-  D* const U_out = put(out.controls, us);
-  D* const e_out = put(out.e_ob, os);
-  T tot = T(0), cnt = T(0);
-  for (int t = lane; t <= N; t += kLanes) {
-    for (int i = 0; i < 3; ++i) X_out[t * 3 + i] = S.X[t * 3 + i] + alpha * S.dX[t * 3 + i];
-    if (t < N)
-      for (int j = 0; j < 2; ++j) U_out[t * 2 + j] = S.U[t * 2 + j] + alpha * S.dU[t * 2 + j];
-    stage_steps<D, EL>(p, S, t, mu, f, [&](int fam, int idx, int, T, T s, T nu, T mask, T ds, T dnu,
-                                        T e, T de) {
-      const T sn = s + alpha * ds;
-      const T center = mu / maxp(sn, f.fl);
-      const T nn = mask * minp(maxp(nu + a_nu * dnu, center / T(1e10)), center * T(1e10));
-      put(s_out[fam], offs[fam])[idx] = sn;
-      put(nu_out[fam], offs[fam])[idx] = nn;
-      tot += mask * sn * nn;
-      cnt += mask;
-      if (fam == 4) e_out[idx] = EL ? e + alpha * de : S.e_ob[idx];
-    });
+  for (int i = tid; i < 3 * T1 + 2 * N; i += nthr) {
+    if (i < 3 * T1)
+      put<D>(out.states, xs)[i] = static_cast<double>(X[i]) + alpha * dX[i];
+    else
+      put<D>(out.controls, us)[i - 3 * T1] =
+          static_cast<double>(U[i - 3 * T1]) + alpha * dU[i - 3 * T1];
+  }
+  double tot = 0.0, cnt = 0.0;
+  for (int e = tid; e < nel; e += nthr) {
+    const double s = S[e], nu = NU[e];
+    const double sn = s + alpha * DS[e];
+    const double center = mu / maxp(sn, f.fl);
+    double mask;
+    D *s_to, *nu_to;
+    if (e < nbox) {
+      const BoxElem x = box_elem(e, N, T1);
+      double bval;
+      box_bound(sc, x, bval, mask);
+      const long long off = (x.state ? xs : us) + x.idx;
+      s_to = put<D>(box_row(out, x, false), off);
+      nu_to = put<D>(box_row(out, x, true), off);
+    } else {
+      const int io = e - nbox, k = io % K;
+      mask = OM[k] > 0.5 ? 1.0 : 0.0;
+      s_to = put<D>(out.s_ob, os + io);
+      nu_to = put<D>(out.nu_ob, os + io);
+      put<D>(out.e_ob, os)[io] = EL ? static_cast<double>(E[io]) + alpha * DE[io]
+                                    : static_cast<double>(*at<D>(it.e_ob, os + io));
+    }
+    const double nn = mask * minp(maxp(nu + a_nu * DNU[e], center / 1e10), center * 1e10);
+    *s_to = sn;
+    *nu_to = nn;
+    tot += mask * sn * nn;
+    cnt += mask;
   }
   tot = warp_sum(tot);
   cnt = warp_sum(cnt);
   if (lane == 0) {
-    const T reg = *at(it.reg, b), sigma = *at(it.sigma, b);
-    const bool grow = !any_ok || (idx >= 4 && !newton);
-    *put(out.reg, b) = grow ? minp(maxp(reg, T(p.reg)) * T(8), T(1e8)) : maxp(reg / T(3), T(p.reg));
-    T sig = sigma;
-    if (p.adaptive_sigma)
-      sig = (alpha < T(0.25) && !newton) ? minp(sigma * T(1.5), T(p.sigma_cap))
-                                         : maxp(sigma * T(0.9), T(p.mu_sigma));
-    *put(out.sigma, b) = sig;
-    const T comp = tot / maxp(cnt, T(1));
-    mu_out[b] = p.raw_mu ? comp : clipp(sig * comp, T(p.mu_floor), T(p.mu_init));
-    alpha_out[b] = alpha;
+    part3[warp * 2] = tot;
+    part3[warp * 2 + 1] = cnt;
   }
+  __syncthreads();
+  if (tid == 0) {
+    tot = part3[0];
+    cnt = part3[1];
+    for (int w = 1; w < nwarps; ++w) {
+      tot += part3[w * 2];
+      cnt += part3[w * 2 + 1];
+    }
+    const double reg = *at<D>(it.reg, b), sigma = *at<D>(it.sigma, b);
+    const bool grow = !any_ok || (idx >= 4 && !newton);
+    *put<D>(out.reg, b) = grow ? minp(maxp(reg, p.reg) * 8.0, 1e8) : maxp(reg / 3.0, p.reg);
+    double sig = sigma;
+    if (p.adaptive_sigma)
+      sig = (alpha < 0.25 && !newton) ? minp(sigma * 1.5, p.sigma_cap)
+                                      : maxp(sigma * 0.9, p.mu_sigma);
+    *put<D>(out.sigma, b) = sig;
+    const double comp = tot / maxp(cnt, 1.0);
+    *put<D>(so.mu, b) = p.raw_mu ? comp : clipp(sig * comp, p.mu_floor, p.mu_init);
+    *put<D>(so.alpha, b) = alpha;
+    if (so.merit != nullptr) {
+#pragma unroll
+      for (int c = 0; c < kMaxCand; ++c)
+        if (c < nc) put<D>(so.merit, static_cast<long long>(b) * nc)[c] = merit[c];
+      *put<D>(so.rho, b) = rho;
+    }
+  }
+  // Phase clocks: pass 3.
 }
 
 template <typename T, bool EL>
@@ -727,21 +1083,56 @@ cudaError_t launch_condense(const SplitParams& p, const ProblemPtrs& pr, const I
                             cudaStream_t stream) {
   const long long threads = static_cast<long long>(p.B) * (p.N + 1);
   const int blocks = static_cast<int>((threads + kCondenseThreads - 1) / kCondenseThreads);
-  condense_kernel<T, EL><<<blocks, kCondenseThreads, 0, stream>>>(
+  const size_t bytes = static_cast<size_t>(kCondenseThreads) *
+                       condense_row_values(p.K, EL || corr.cl != nullptr) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(condense_kernel<T, EL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  condense_kernel<T, EL><<<blocks, kCondenseThreads, bytes, stream>>>(
       p, pr, it, static_cast<const T*>(mu), corr, out);
   return cudaGetLastError();
 }
 
-template <typename T, bool EL>
+template <typename T>
+using StepFn = void (*)(const SplitParams, const ProblemPtrs, const IteratePtrs, const T*,
+                        const T*, const T*, const T*, const T*, const CorrPtrs, const IteratePtrs,
+                        const StepOut);
+
+// The step's instance, dynamic shared bytes per block and whether its
+// arena is global, for the launch's (N, K, elastic, corrections, warps);
+// the bytes allowed before the launch (needed above 48 KB).
+template <typename T>
+cudaError_t prepare_step(const SplitParams& p, bool has_corr, StepFn<T>* fn, size_t* bytes,
+                         bool* global) {
+  if (p.warps < 1 || p.warps > kMaxWarps) return cudaErrorInvalidValue;
+  const bool el = p.elastic && p.K > 0;
+  const StepLayout L = step_layout(p.N, p.K, el, has_corr, sizeof(T));
+  const long long red = step_red_bytes(p.warps, p.ls_iters);
+  *global = red + L.bytes > kSmemOptin;
+  *bytes = static_cast<size_t>(red + (*global ? 0 : L.bytes));
+  if (el)
+    *fn = *global ? step_kernel<T, true, true> : step_kernel<T, true, false>;
+  else
+    *fn = *global ? step_kernel<T, false, true> : step_kernel<T, false, false>;
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
+}
+
+template <typename T>
 cudaError_t launch_step(const SplitParams& p, const ProblemPtrs& pr, const IteratePtrs& it,
                         const void* mu, const void* qx, const void* A, const void* dx,
                         const void* du, const CorrPtrs& corr, const IteratePtrs& out,
-                        void* mu_out, void* alpha_out, cudaStream_t stream) {
-  const int blocks = (p.B + kWarps - 1) / kWarps;
-  step_kernel<T, EL><<<blocks, kWarps * kLanes, 0, stream>>>(
-      p, pr, it, static_cast<const T*>(mu), static_cast<const T*>(qx),
-      static_cast<const T*>(A), static_cast<const T*>(dx), static_cast<const T*>(du), corr, out,
-      static_cast<T*>(mu_out), static_cast<T*>(alpha_out));
+                        const StepOut& so, cudaStream_t stream) {
+  StepFn<T> fn;
+  size_t bytes;
+  bool global;
+  cudaError_t err = prepare_step<T>(p, corr.cl != nullptr, &fn, &bytes, &global);
+  if (err != cudaSuccess) return err;
+  if (global && so.scratch == nullptr) return cudaErrorInvalidValue;
+  fn<<<p.B, p.warps * kLanes, bytes, stream>>>(
+      p, pr, it, static_cast<const T*>(mu), static_cast<const T*>(qx), static_cast<const T*>(A),
+      static_cast<const T*>(dx), static_cast<const T*>(du), corr, out, so);
   return cudaGetLastError();
 }
 
@@ -754,22 +1145,45 @@ int condense(const SplitParams* params, const ProblemPtrs* pr, const IteratePtrs
   const cudaError_t err = p.elastic && p.K > 0
                               ? launch_condense<T, true>(p, *pr, *it, mu, *corr, *out, s)
                               : launch_condense<T, false>(p, *pr, *it, mu, *corr, *out, s);
+  if (err != cudaSuccess) cudaGetLastError();  // clear it; the caller reports it
   return static_cast<int>(err);
 }
 
 template <typename T>
 int step(const SplitParams* params, const ProblemPtrs* pr, const IteratePtrs* it, const void* mu,
          const void* qx, const void* A, const void* dx, const void* du, const CorrPtrs* corr,
-         const IteratePtrs* out, void* mu_out, void* alpha_out, void* stream) {
+         const IteratePtrs* out, const StepOut* so, void* stream) {
   const SplitParams p = *params;
   if (p.B <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      p.elastic && p.K > 0
-          ? launch_step<T, true>(p, *pr, *it, mu, qx, A, dx, du, *corr, *out, mu_out, alpha_out, s)
-          : launch_step<T, false>(p, *pr, *it, mu, qx, A, dx, du, *corr, *out, mu_out, alpha_out,
-                                  s);
+  const cudaError_t err = launch_step<T>(p, *pr, *it, mu, qx, A, dx, du, *corr, *out, *so,
+                                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) cudaGetLastError();  // clear it; the caller reports it
   return static_cast<int>(err);
+}
+
+template <typename T>
+int step_occupancy(const SplitParams* params, int corr, int* out) {
+  const SplitParams p = *params;
+  StepFn<T> fn;
+  size_t bytes;
+  bool global;
+  cudaError_t err = prepare_step<T>(p, corr != 0, &fn, &bytes, &global);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, p.warps * kLanes, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  out[0] = p.warps;
+  out[1] = static_cast<int>(bytes);
+  out[2] = global ? 1 : 0;
+  out[3] = blocks;
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 }  // namespace
@@ -790,17 +1204,38 @@ extern "C" int kissmpc_split_condense_f64(const SplitParams* p, const ProblemPtr
 extern "C" int kissmpc_split_step_f32(const SplitParams* p, const ProblemPtrs* pr,
                                       const IteratePtrs* it, const void* mu, const void* qx,
                                       const void* A, const void* dx, const void* du,
-                                      const CorrPtrs* corr, const IteratePtrs* out, void* mu_out,
-                                      void* alpha_out, void* stream) {
-  return step<float>(p, pr, it, mu, qx, A, dx, du, corr, out, mu_out, alpha_out, stream);
+                                      const CorrPtrs* corr, const IteratePtrs* out,
+                                      const StepOut* so, void* stream) {
+  return step<float>(p, pr, it, mu, qx, A, dx, du, corr, out, so, stream);
 }
 
 extern "C" int kissmpc_split_step_f64(const SplitParams* p, const ProblemPtrs* pr,
                                       const IteratePtrs* it, const void* mu, const void* qx,
                                       const void* A, const void* dx, const void* du,
-                                      const CorrPtrs* corr, const IteratePtrs* out, void* mu_out,
-                                      void* alpha_out, void* stream) {
-  return step<double>(p, pr, it, mu, qx, A, dx, du, corr, out, mu_out, alpha_out, stream);
+                                      const CorrPtrs* corr, const IteratePtrs* out,
+                                      const StepOut* so, void* stream) {
+  return step<double>(p, pr, it, mu, qx, A, dx, du, corr, out, so, stream);
+}
+
+// Bytes of global scratch per scenario that a step launch of (N, K,
+// elastic, corrections, element bytes, warps, ls_iters) needs: its arena where that
+// does not fit in shared memory beside the block's reductions, else 0.
+// Host arithmetic only: no CUDA call.
+extern "C" long long kissmpc_split_step_scratch_bytes(int N, int K, int elastic, int corr,
+                                                      int elem_bytes, int warps, int ls_iters) {
+  const StepLayout L = step_layout(N, K, elastic && K > 0, corr != 0, elem_bytes);
+  return step_red_bytes(warps, ls_iters) + L.bytes > kSmemOptin ? L.bytes : 0;
+}
+
+// The launch shape of a step of ``p`` (its N, K, elastic, warps, element
+// bytes from ``elem_bytes``): out = {warps per scenario, dynamic shared
+// bytes per block, 1 if the arena is global, resident blocks (scenarios)
+// per SM, registers per thread, local (stack and spill) bytes per thread}.
+// Returns a cudaError_t.
+extern "C" int kissmpc_split_step_occupancy(const SplitParams* p, int corr, int elem_bytes,
+                                            int* out) {
+  return elem_bytes == 8 ? step_occupancy<double>(p, corr, out)
+                         : step_occupancy<float>(p, corr, out);
 }
 
 extern "C" const char* kissmpc_cuda_error_string(int code) {

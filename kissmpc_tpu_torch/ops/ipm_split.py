@@ -3,7 +3,11 @@
 On the card every split iteration is three launches: `condense_cuda` (the
 condensed LQR model of the iterate), the Riccati kernel
 (`ops/riccati.py::solve_lqr_cuda`) and `step_cuda` (steps, fraction to the
-boundary, penalty weight, merit line search, update, next mu).  They are
+boundary, penalty weight, merit line search, update, next mu).  The step
+kernel runs one block per scenario, of `step_warps(B, N, K)` warps: one
+where the batch fills the card with small scenarios, four where scenarios
+are large (K=8 at N=50) or the batch is small (the refine batches, the
+node's batch of one).  They are
 the port's counterpart of what XLA fuses of the reference's split
 iteration under `jax.jit` (`kissmpc_tpu/solver/ipm.py:407-714`); there is
 no TPU kernel behind them.  Their plain versions are
@@ -51,7 +55,7 @@ class _Params(ctypes.Structure):
     """Mirror of ``struct SplitParams`` in `csrc/ipm_split.cu`."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "B", "N", "K", "ls_iters", "exclude_terminal", "reverse_squared", "curvature",
+        "B", "N", "K", "ls_iters", "warps", "exclude_terminal", "reverse_squared", "curvature",
         "elastic", "adaptive_sigma", "raw_mu",
     )] + [(name, ctypes.c_double) for name in (
         "dt", "tau", "ls_backtrack", "merit_penalty", "reg", "rho_e", "w0", "w1", "w2",
@@ -67,6 +71,20 @@ _ProblemPtrs = _pointers("_ProblemPtrs", Problem._fields[:10])
 _IteratePtrs = _pointers("_IteratePtrs", ITERATE_FIELDS)
 _LqrPtrs = _pointers("_LqrPtrs", LQRData._fields)
 _CorrPtrs = _pointers("_CorrPtrs", CORR_FIELDS)
+_StepOut = _pointers("_StepOut", ("mu", "alpha", "merit", "rho", "scratch"))
+
+# Warps per scenario of the step kernel: one where the batch fills the card
+# (ONE_WARP_MIN_BATCH: 8 one-warp blocks on each of the 132 SMs) and one
+# warp's lanes take at most ONE_WARP_MAX_ELEMENTS / 32 elements each (the
+# obstacle-free N=50 and the node's N=7 scenarios; K=8 at N=50 has 906),
+# else SMALL_BATCH_WARPS.  `scripts/ipm_split_design_sweep.py` measured
+# the choice: at B=8192 one warp is fastest for 104 elements and within 5%
+# of the fastest for 506, four fastest for 906 and at every smaller batch.
+SMS = 132
+ONE_WARP_MIN_BATCH = SMS * 8
+ONE_WARP_MAX_ELEMENTS = 512
+SMALL_BATCH_WARPS = 4
+MAX_WARPS = 4
 
 
 def build():
@@ -86,9 +104,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"kissmpc_split_step_{dt}")
         fn.argtypes = ([ptr(_Params), ptr(_ProblemPtrs), ptr(_IteratePtrs)]
                        + [ctypes.c_void_p] * 5
-                       + [ptr(_CorrPtrs), ptr(_IteratePtrs), ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_void_p])
+                       + [ptr(_CorrPtrs), ptr(_IteratePtrs), ptr(_StepOut), ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.kissmpc_split_step_scratch_bytes.argtypes = [ctypes.c_int] * 7
+    lib.kissmpc_split_step_scratch_bytes.restype = ctypes.c_longlong
+    lib.kissmpc_split_step_occupancy.argtypes = [ptr(_Params), ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_void_p]
+    lib.kissmpc_split_step_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -97,12 +119,24 @@ def _library() -> ctypes.CDLL:
     return bind(_build.load(SOURCE, "kissmpc_ipm_split"))
 
 
-def _params(cfg: MPCConfig, B: int, dtype: torch.dtype) -> _Params:
-    """The kernels' runtime parameters: ``cfg`` and the batch alone."""
+def step_warps(B: int, N: int, K: int) -> int:
+    """Warps per scenario of the step kernel for ``B`` scenarios of horizon
+    ``N`` with ``K`` obstacles: one where the batch fills the card and the
+    scenario has at most ONE_WARP_MAX_ELEMENTS constraint entries, else
+    SMALL_BATCH_WARPS."""
+    elements = 10 * N + 6 + N * K  # box entries of the four families, obstacle rows
+    if B >= ONE_WARP_MIN_BATCH and elements <= ONE_WARP_MAX_ELEMENTS:
+        return 1
+    return SMALL_BATCH_WARPS
+
+
+def _params(cfg: MPCConfig, B: int, dtype: torch.dtype, warps: int = 1) -> _Params:
+    """The kernels' runtime parameters: ``cfg``, the batch and the step's
+    warps per scenario alone."""
     sc, cc = cfg.solver, cfg.cost
     w0, w1, w2 = cc.goal_weights
     return _Params(
-        B=B, N=cfg.horizon, K=cfg.max_obstacles, ls_iters=sc.ls_iters,
+        B=B, N=cfg.horizon, K=cfg.max_obstacles, ls_iters=sc.ls_iters, warps=warps,
         exclude_terminal=int(cc.goal_cost_mode == "exclude_terminal"),
         reverse_squared=int(cc.reverse_penalty_mode == "squared"),
         curvature=int(sc.obstacle_curvature),
@@ -230,23 +264,57 @@ def step_cuda(cfg: MPCConfig, problem: Problem, it, mu: torch.Tensor, data: LQRD
 
 
 def _step(lib, stream: int, cfg: MPCConfig, problem: Problem, it, mu, data: LQRData,
-          sol: LQRSolution, corr=None):
+          sol: LQRSolution, corr=None, merits: bool = False, warps: int | None = None):
     """Allocate the new iterate and launch the step on ``stream`` through
-    ``lib``."""
+    ``lib``, with ``warps`` per scenario (`step_warps` unless given).
+    Returns an `ipm.Step`; with ``merits``, the pair (`ipm.Step`,
+    `ipm.Merits`), as `ipm.step_plain` does."""
     B, dtype = it.states.shape[0], it.states.dtype
+    N, K = cfg.horizon, cfg.max_obstacles
+    warps = step_warps(B, N, K) if warps is None else warps
+    if not 1 <= warps <= MAX_WARPS:
+        raise ValueError(f"the step kernel takes 1 to {MAX_WARPS} warps per scenario, got {warps}")
+    params = _params(cfg, B, dtype, warps)
     new = ipm.IPMState(*(torch.empty_like(x) for x in it))
     mu_next = torch.empty_like(mu)
     alpha = torch.empty_like(mu)
+    kw = dict(dtype=dtype, device=mu.device)
+    merit = torch.empty((B, 1 + cfg.solver.ls_iters), **kw) if merits else None
+    rho = torch.empty((B,), **kw) if merits else None
+    per = lib.kissmpc_split_step_scratch_bytes(N, K, params.elastic, int(corr is not None),
+                                               mu.element_size(), warps, params.ls_iters)
+    scratch = torch.empty((B * per,), dtype=torch.uint8, device=mu.device) if per else None
+    so = _StepOut(*(x.data_ptr() if x is not None else None
+                    for x in (mu_next, alpha, merit, rho, scratch)))
     pr, ip, cp = _structs(problem, it, corr)
     fn = lib.kissmpc_split_step_f32 if dtype == torch.float32 else lib.kissmpc_split_step_f64
-    err = fn(ctypes.byref(_params(cfg, B, dtype)), ctypes.byref(pr), ctypes.byref(ip),
+    err = fn(ctypes.byref(params), ctypes.byref(pr), ctypes.byref(ip),
              mu.data_ptr(), data.qx.data_ptr(), data.A.data_ptr(), sol.dx.data_ptr(),
              sol.du.data_ptr(), ctypes.byref(cp),
-             ctypes.byref(_IteratePtrs(*(x.data_ptr() for x in new))),
-             mu_next.data_ptr(), alpha.data_ptr(), stream)
+             ctypes.byref(_IteratePtrs(*(x.data_ptr() for x in new))), ctypes.byref(so), stream)
     _build.check_launch(lib, err, "split step kernel")
     step_cuda.launches += 1
-    return ipm.Step(new, mu_next, alpha)
+    out = ipm.Step(new, mu_next, alpha)
+    return (out, ipm.Merits(merit, rho)) if merits else out
+
+
+def step_occupancy(cfg: MPCConfig, B: int, dtype: torch.dtype = torch.float32,
+                   corr: bool = False, warps: int | None = None) -> dict:
+    """The launch shape of a step of ``B`` scenarios of ``cfg`` on the
+    current card: warps per scenario, dynamic shared bytes per block,
+    whether the arena is global, resident scenarios per SM, registers and
+    local (stack and spill) bytes per thread.  Builds the kernel; needs
+    CUDA."""
+    N, K = cfg.horizon, cfg.max_obstacles
+    warps = step_warps(B, N, K) if warps is None else warps
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    err = lib.kissmpc_split_step_occupancy(ctypes.byref(_params(cfg, B, dtype, warps)),
+                                           int(corr), 4 if dtype == torch.float32 else 8, out)
+    _build.check_launch(lib, err, "split step occupancy query")
+    w, smem, glob, blocks, regs, local = out
+    return {"warps_per_scenario": w, "smem_bytes_per_block": smem, "global_arena": bool(glob),
+            "scenarios_per_sm": blocks, "registers": regs, "local_bytes": local}
 
 
 graph.counter(condense_cuda)

@@ -413,14 +413,23 @@ class Step(NamedTuple):
     alpha: torch.Tensor  # [B] the accepted primal step length
 
 
+class Merits(NamedTuple):
+    """The line search's inputs to its decision, for the kernels' gates."""
+
+    merit: torch.Tensor  # [B, 1 + ls_iters] the merit at alpha = 0, then at each candidate
+    rho: torch.Tensor  # [B] the l1 penalty weight
+
+
 def step_plain(cfg: MPCConfig, problem: Problem, it: IPMState, mu, data: LQRData,
-               sol, corr: _Corr | None = None) -> Step:
+               sol, corr: _Corr | None = None, merits: bool = False):
     """Everything after the Newton-KKT solve ``sol`` of the condensed system
     ``data``: slack, dual (and elastic) steps, fraction to the boundary,
     the l1 penalty weight, the merit line search with the finite-merit
     fallback, the dual clamp, the reg and sigma updates, and the next
     iteration's mu.  The plain version of the step kernel
-    (`ops/ipm_split.py`)."""
+    (`ops/ipm_split.py`).  Returns a `Step`; with ``merits``, the pair
+    (`Step`, `Merits`): the merit at alpha = 0 and at every candidate, and
+    the penalty weight, as the kernel writes them when asked."""
     sc = cfg.solver
     dtype = it.states.dtype
     floor = _floor(dtype)
@@ -469,7 +478,7 @@ def step_plain(cfg: MPCConfig, problem: Problem, it: IPMState, mu, data: LQRData
         )
 
     merit0 = merit_at(torch.zeros_like(mu))
-    merits = torch.stack([merit_at(alphas[:, j]) for j in range(sc.ls_iters)], dim=1)
+    cand_merits = torch.stack([merit_at(alphas[:, j]) for j in range(sc.ls_iters)], dim=1)
     # Accept the largest alpha whose merit does not rise beyond rounding
     # noise plus, in the small-step Newton regime only, the curvature budget.
     eps = torch.finfo(dtype).eps
@@ -478,7 +487,7 @@ def step_plain(cfg: MPCConfig, problem: Problem, it: IPMState, mu, data: LQRData
     tol = 16.0 * eps * (1.0 + torch.abs(merit0)) + torch.where(
         newton_regime, 10.0 * rho * step_inf * step_inf, torch.zeros_like(rho)
     )
-    ok = torch.isfinite(merits) & (merits <= (merit0 + tol)[:, None])
+    ok = torch.isfinite(cand_merits) & (cand_merits <= (merit0 + tol)[:, None])
     idx = torch.argmax(ok.to(torch.uint8), dim=1)  # first True
     any_ok = ok.any(dim=1)
     # All-rejected fallback: the deepest candidate, only if its merit is finite.
@@ -486,7 +495,7 @@ def step_plain(cfg: MPCConfig, problem: Problem, it: IPMState, mu, data: LQRData
         any_ok,
         torch.gather(alphas, 1, idx[:, None])[:, 0],
         torch.where(
-            torch.isfinite(merits[:, -1]), alphas[:, -1], torch.zeros_like(mu)
+            torch.isfinite(cand_merits[:, -1]), alphas[:, -1], torch.zeros_like(mu)
         ),
     )
     # Dual step coupled to the accepted primal step.
@@ -532,7 +541,10 @@ def step_plain(cfg: MPCConfig, problem: Problem, it: IPMState, mu, data: LQRData
         reg=reg,
         sigma=sigma,
     )
-    return Step(new, _next_mu(cfg, new, _constraint_masks(cfg, problem, dtype)), alpha)
+    out = Step(new, _next_mu(cfg, new, _constraint_masks(cfg, problem, dtype)), alpha)
+    if merits:
+        return out, Merits(torch.cat([merit0[:, None], cand_merits], dim=1), rho)
+    return out
 
 
 def _predictor(cfg: MPCConfig, problem: Problem, it: IPMState, mu, condense, lqr):

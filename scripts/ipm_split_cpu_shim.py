@@ -10,7 +10,9 @@ No GPU and no nvcc are needed, only g++ (C++20).  The script compiles
 small header in place of `cuda_runtime.h`: every CUDA thread is a
 `std::thread`; the lanes of a warp exchange shuffled values through the
 warp's slots between two waits on its `std::barrier`; a launch runs the
-blocks one after another with `blockIdx`, `threadIdx` and `blockDim` set.
+blocks one after another with `blockIdx`, `threadIdx` and `blockDim` set;
+`__syncthreads()` waits on the block's `std::barrier`, and the block's
+dynamic shared memory is exactly the launch's bytes, filled with NaN.
 Each case drives the wrapper's own card path (`ops/ipm_split.py::_condense`
 and `_step`) on CPU tensors with the g++ build as the launcher, on a real
 iterate (a few plain iterations from the warm start), and holds the
@@ -20,14 +22,18 @@ within 1e-4 of its scale plus twice the plain version's own f32-vs-f64 gap
 in float32, 1e-9 of its scale in float64; the step's accepted candidate
 differs on at most max(1, twice the plain version's own f32-vs-f64 flips)).
 Mehrotra cases ("pc", "soc") give both kernels the correction rows of the
-plain predictor; two cases at N=40 put work on every lane of a warp.
+plain predictor; two cases at N=40 give every thread several elements.
+Each case runs in the wrapper's layout for its batch (a block of several
+warps per scenario); cases at N=7 and N=40 also force one warp per
+scenario and a block of 2 warps, and one at N=400 takes the step's arena
+in global scratch.
 Last, a whole split solve through the shim kernels is held against
 `ipm.solve_plain` at a few iterations (float64).
 
 With ``--sanitize address`` the build and the run use AddressSanitizer: a
 read or write past an input or output row is reported.  With ``--sanitize
-thread`` they use ThreadSanitizer (the lanes share nothing but their
-shuffle slots).  The script re-executes itself with the sanitizer's runtime
+thread`` they use ThreadSanitizer (the threads of a block share their
+shuffle slots and the block's shared memory, between barriers).  The script re-executes itself with the sanitizer's runtime
 preloaded and exits non-zero on a mismatch or a sanitizer report.
 """
 
@@ -48,7 +54,9 @@ SHIM = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
+#include <limits>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -58,17 +66,34 @@ SHIM = r"""
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
-using std::cos;
+#define __align__(n) alignas(n)
 using std::fabs;
-using std::log;
+using std::fma;
 using std::pow;
-using std::sin;
+using std::rint;
 using std::sqrt;
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 struct ShimDim { unsigned x; };
 thread_local ShimDim threadIdx, blockIdx, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 0;
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class F> int cudaFuncSetAttribute(F, int, int bytes) {  // sm_90's opt-in
+  return bytes <= 232448 ? 0 : cudaErrorInvalidValue;
+}
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return 0;
+}
+template <class F> int cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  a->numRegs = 0;
+  a->localSizeBytes = 0;
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "shim"; }
 struct ShimWarp {
@@ -76,6 +101,9 @@ struct ShimWarp {
   unsigned long long slot[32];
 };
 thread_local ShimWarp* shim_warp;
+thread_local std::barrier<>* shim_block;
+thread_local unsigned char* shim_smem;
+inline void __syncthreads() { shim_block->arrive_and_wait(); }
 template <class V> V shim_exchange(V v, int src) {
   static_assert(sizeof(V) <= sizeof(unsigned long long));
   const int lane = static_cast<int>(threadIdx.x) % 32;
@@ -90,9 +118,14 @@ template <class V> V __shfl_xor_sync(unsigned, V v, int o) {
   return shim_exchange(v, (static_cast<int>(threadIdx.x) % 32) ^ o);
 }
 template <class V> V __shfl_sync(unsigned, V v, int src) { return shim_exchange(v, src); }
+// A launch runs its blocks one after another; each block's dynamic shared
+// memory is exactly the launch's bytes, filled with NaN (as doubles) so
+// that a read before a write shows.
 template <class Kern, class... A>
-void shim_launch(Kern kernel, int blocks, int threads, size_t, cudaStream_t, A... args) {
+void shim_launch(Kern kernel, int blocks, int threads, size_t bytes, cudaStream_t, A... args) {
   for (int blk = 0; blk < blocks; ++blk) {
+    std::vector<double> sm((bytes + 7) / 8, std::numeric_limits<double>::quiet_NaN());
+    std::barrier<> block(threads);
     std::vector<std::unique_ptr<ShimWarp>> warps;
     for (int w = 0; w < (threads + 31) / 32; ++w) warps.push_back(std::make_unique<ShimWarp>());
     std::vector<std::thread> lanes;
@@ -102,12 +135,15 @@ void shim_launch(Kern kernel, int blocks, int threads, size_t, cudaStream_t, A..
         blockIdx.x = static_cast<unsigned>(blk);
         blockDim.x = static_cast<unsigned>(threads);
         shim_warp = warps[t / 32].get();
+        shim_block = &block;
+        shim_smem = reinterpret_cast<unsigned char*>(sm.data());
         kernel(args...);
       });
     for (auto& l : lanes) l.join();
   }
 }
 """
+SMEM = "  extern __shared__ __align__(16) unsigned char smem[];\n"
 
 
 def shim_source(text):
@@ -115,7 +151,10 @@ def shim_source(text):
     if text.count("#include <cuda_runtime.h>\n") != 1:
         raise SystemExit("ipm_split_cpu_shim: cuda_runtime.h is not included once")
     text = text.replace("#include <cuda_runtime.h>\n", SHIM)
-    text, n = re.subn(r"(\w+<T, EL>)<<<(.*?)>>>\(", r"shim_launch(\1, \2, ", text)
+    if text.count(SMEM) != 2:
+        raise SystemExit("ipm_split_cpu_shim: the two kernels' shared memory is not declared once each")
+    text = text.replace(SMEM, "  unsigned char* const smem = shim_smem;\n")
+    text, n = re.subn(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", r"shim_launch(\1, \2, ", text)
     if n != 2:
         raise SystemExit(f"ipm_split_cpu_shim: {n} kernel launches in ipm_split.cu, expected 2")
     return text
@@ -127,7 +166,8 @@ def build(tmp, sanitize=None):
     src = Path(tmp) / "ipm_split_shim.cpp"
     src.write_text(shim_source(ipm_split.SOURCE.read_text()))
     out = Path(tmp) / "libipm_split_shim.so"
-    flags = ["-std=c++20", "-O1", "-g", "-pthread", "-shared", "-fPIC", "-w"]
+    flags = ["-std=c++20", "-O1", "-g", "-pthread", "-shared", "-fPIC", "-w",
+             "-fno-strict-aliasing"]
     if sanitize:
         flags.append(f"-fsanitize={sanitize}")
     subprocess.run(["g++", *flags, str(src), "-o", str(out)], check=True)
@@ -147,11 +187,21 @@ CASES = (
     ("k4_pc", 12, 4, 6, 3, {"mehrotra": "pc"}, {}),
     ("k4_soc", 12, 4, 6, 3, {"mehrotra": "soc"}, {}),
 )
-# Run by the script alone (the tests keep N <= 15): a horizon past the
-# warp's 32 lanes, so lanes stride over two stages and every lane of the
-# butterfly reductions carries work.
+# Run by the script alone (the tests keep N <= 15): a horizon whose
+# elements outnumber every layout's threads, so each thread takes several.
 LONG_CASES = (("k3_elastic_n40", 40, 3, 3, 3, {"elastic_obstacles": True}, {}),
               ("k3_n40", 40, 3, 3, 3, {"mu_sigma_max": 0.7}, {}))
+# The cases above run in the wrapper's layout for their batch (a block of
+# 4 warps per scenario); these force the others on the node's horizon:
+# one warp per scenario (as at the benchmark's batches) and 2 warps, hard
+# and elastic, K=0 and K=4.
+LAYOUT_CASES = (("free_n7", 7, 0, 3, 3, {}, {}),
+                ("k4_n7", 7, 4, 3, 3, {"mu_sigma_max": 0.7}, {}),
+                ("k4_elastic_n7", 7, 4, 3, 3, {"elastic_obstacles": True}, {}))
+LAYOUTS = (1, 2)
+# A horizon whose arena does not fit in the card's shared memory: the step
+# keeps it in global scratch (the GLOBAL instance).
+GLOBAL_CASES = (("k8_n400_global", 400, 8, 2, 2, {"mu_sigma_max": 0.7}, {}),)
 
 
 def config(n, K, solver, cost):
@@ -170,8 +220,9 @@ def problems(cfg, batch, dtype, seed=5):
     return free_problems(cfg, batch, seed=seed, dtype=dtype, device="cpu")
 
 
-def run_cases(lib, cases=CASES, dtypes=None):
-    """Each case in each dtype: (ok, a line for the log) per case."""
+def run_cases(lib, cases=CASES, dtypes=None, warps=None):
+    """Each case in each dtype, the step with ``warps`` per scenario (the
+    wrapper's choice if None): (ok, a line for the log) per case."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -182,8 +233,9 @@ def run_cases(lib, cases=CASES, dtypes=None):
         cfg = config(n, K, solver, cost)
         for dtype in dtypes or (torch.float32, torch.float64):
             pr = problems(cfg, batch, dtype)
-            res = chip_smoke.split_kernels_check(cfg, pr, iters, lib, 0)
-            label = f"{name} N={n} K={K} B={batch} {str(dtype)[6:]}"
+            res = chip_smoke.split_kernels_check(cfg, pr, iters, lib, 0, warps=warps)
+            label = (f"{name} N={n} K={K} B={batch} {str(dtype)[6:]}"
+                     + (f" warps={warps}" if warps else ""))
             out.append((res["ok"], f"{label}: {chip_smoke.describe_split_check(res)}"))
     return out
 
@@ -239,7 +291,11 @@ def main():
     failed = []
     with tempfile.TemporaryDirectory() as tmp:
         lib = build(tmp, args.sanitize)
-        for ok, line in run_cases(lib, CASES + LONG_CASES) + [check_solve(lib)]:
+        results = run_cases(lib, CASES + LONG_CASES)
+        for warps in LAYOUTS:
+            results += run_cases(lib, LAYOUT_CASES + LONG_CASES, warps=warps)
+        results += run_cases(lib, GLOBAL_CASES)
+        for ok, line in results + [check_solve(lib)]:
             print(line, flush=True)
             if not ok:
                 failed.append(line.split(":")[0])

@@ -17,8 +17,12 @@ candidate on every scenario of these iterates).
 On the CPU `ipm.solve` runs the plain halves through the wrappers and is
 bitwise `ipm.solve_plain`.  The wrappers' card path (`_condense`,
 `_step`) is driven through a stand-in launcher: the parameters and
-pointers it hands the kernels, the launch counters, a failed launch, and
-no host round-trip on the way; and the wrappers' input checks.
+pointers it hands the kernels, the step's layout (warps per scenario from
+the batch, or forced) and its optional merit outputs, the launch counters,
+a failed launch, and no host round-trip on the way; and the wrappers'
+input checks.  `step_plain` asked for its merits returns the same step bit
+for bit, and its merit at alpha = 0 is the JAX `_merit` (`:272`) at the
+iterate with the same rho.
 """
 
 import dataclasses
@@ -173,8 +177,9 @@ class _Launcher:
     """Stands in for the library: records what each launcher is handed,
     writes nothing, returns ``err``."""
 
-    def __init__(self, err=0):
+    def __init__(self, err=0, scratch=0):
         self.err = err
+        self.scratch = scratch
         self.calls = []
 
     def _record(self, kind, params, *rest):
@@ -192,6 +197,9 @@ class _Launcher:
 
     def kissmpc_split_step_f64(self, *a):
         return self._record("step_f64", *a)
+
+    def kissmpc_split_step_scratch_bytes(self, *a):
+        return self.scratch
 
     def kissmpc_cuda_error_string(self, err):
         return b"stand-in failure"
@@ -244,6 +252,65 @@ def test_card_path_hands_the_kernels_cfg_and_pointers(dtype, mode):
     assert tuple(data.Qxx.shape) == (3, cfg.horizon + 1, 3, 3) and data.Qxx.dtype == dtype
     assert all(x.is_contiguous() for x in data)
     assert tuple(step.it.states.shape) == tuple(it.states.shape) and step.mu.shape == (3,)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["k4", "k4_elastic", "k4_pc"])
+def test_step_plain_merits_leave_the_step_bitwise(name, dtype):
+    """Asked for its merits, `step_plain` returns the same step bit for bit,
+    the merits at alpha = 0 and at each candidate ([B, 1 + ls_iters]) and
+    rho ([B], at least merit_penalty); the merit at alpha = 0 is the JAX
+    `_merit` at the iterate with that rho (float64 1e-9, float32 1e-4 of
+    its scale)."""
+    jcfg, tcfg, jp, jit, jmu, tp, tit, tmu = _case(name, dtype)
+    data = tipm.condense_plain(tcfg, tp, tit, tmu)
+    sol = solve_lqr(data, tcfg.solver.reg)
+    plain = tipm.step_plain(tcfg, tp, tit, tmu, data, sol)
+    step, merits = tipm.step_plain(tcfg, tp, tit, tmu, data, sol, merits=True)
+    for a, b in zip((*plain.it, plain.mu, plain.alpha), (*step.it, step.mu, step.alpha),
+                    strict=True):
+        assert torch.equal(a, b)
+    B = tmu.shape[0]
+    assert tuple(merits.merit.shape) == (B, 1 + tcfg.solver.ls_iters)
+    assert tuple(merits.rho.shape) == (B,) and bool((merits.rho >= tcfg.solver.merit_penalty).all())
+    slacks = (jit.s_cl, jit.s_cu, jit.s_xl, jit.s_xu, jit.s_ob, jit.e_ob)
+    jrho = jnp.asarray(merits.rho.numpy())
+    ref = jax.vmap(lambda p, x, u, s, m, r: jipm._merit(jcfg, p, x, u, s, m, r))(
+        jp, jit.states, jit.controls, slacks, jmu, jrho)
+    _assert_close(merits.merit[:, 0], ref, 1e-9 if dtype == "float64" else 1e-4, "merit at 0")
+
+
+def test_step_layout_follows_the_batch():
+    """One warp per scenario where the batch fills the card and the
+    scenario is small, a block of several warps otherwise; the launch
+    takes the wrapper's choice, a forced one, or raises outside
+    1..MAX_WARPS; the merit outputs and a global arena reach the launcher
+    only when asked for or needed."""
+    for N, K in ((50, 0), (7, 4)):  # 506 and 104 elements
+        assert ipm_split.step_warps(8192, N, K) == 1
+        assert ipm_split.step_warps(ipm_split.ONE_WARP_MIN_BATCH, N, K) == 1
+        for B in (ipm_split.ONE_WARP_MIN_BATCH - 1, 164, 1):
+            assert ipm_split.step_warps(B, N, K) == ipm_split.SMALL_BATCH_WARPS
+    assert ipm_split.step_warps(8192, 50, 8) == ipm_split.SMALL_BATCH_WARPS  # 906 elements
+    _, cfg = _configs(3, {"ls_iters": 3})
+    p, it, mu = _iterate(cfg)
+    data = tipm.condense_plain(cfg, p, it, mu)
+    sol = solve_lqr(data, cfg.solver.reg)
+    lib = _Launcher()
+    ipm_split._step(lib, 0, cfg, p, it, mu, data, sol)
+    step, merits = ipm_split._step(lib, 0, cfg, p, it, mu, data, sol, merits=True, warps=1)
+    big = _Launcher(scratch=640)
+    ipm_split._step(big, 0, cfg, p, it, mu, data, sol, warps=2)
+    (_, auto, rest0), (_, forced, rest1), (_, two, rest2) = lib.calls + big.calls
+    assert (auto.warps, forced.warps, two.warps) == (ipm_split.SMALL_BATCH_WARPS, 1, 2)
+    out0, out1, out2 = rest0[-2]._obj, rest1[-2]._obj, rest2[-2]._obj
+    assert (out0.merit, out0.rho, out0.scratch) == (None, None, None)
+    assert (out1.merit, out1.rho) == (merits.merit.data_ptr(), merits.rho.data_ptr())
+    assert tuple(merits.merit.shape) == (3, 4) and tuple(merits.rho.shape) == (3,)
+    assert out2.scratch is not None and out1.mu == step.mu.data_ptr()
+    for warps in (0, ipm_split.MAX_WARPS + 1):
+        with pytest.raises(ValueError, match="warps"):
+            ipm_split._step(lib, 0, cfg, p, it, mu, data, sol, warps=warps)
 
 
 def test_card_path_raises_on_a_failed_launch():

@@ -5,10 +5,12 @@ LQRData field and each field of the new iterate of each scenario within
 1e-4 of its scale plus twice the plain version's own f32-vs-f64 gap in
 float32, 1e-9 of its scale in float64; the accepted line-search candidate
 differs on at most max(1, twice the plain version's own f32-vs-f64 flips)
-scenarios) at the node's N=7 B=1 and at N=50 B=1024 with K=8 obstacles,
-hard and elastic; every split iteration as one condensation, one Riccati
-and one step launch; and a replayed `make_solver` bitwise equal to its
-eager run.
+scenarios; the step's merits at every candidate and rho by the same
+gate) at the node's N=7 B=1 and at N=50 B=1024 with K=8 obstacles, hard
+and elastic, in the wrapper's layout and with each layout forced (one warp
+per scenario; blocks of 2 and 4 warps); every split iteration as one
+condensation, one Riccati and one step launch; and a replayed
+`make_solver` bitwise equal to its eager run.
 
 Marked ``cuda``: it skips without an NVIDIA GPU (a CUDA kernel has no CPU
 mode).  It imports neither JAX nor the JAX package, so on a machine with a
@@ -57,6 +59,20 @@ def test_kernels_match_plain_halves(cuda, name, solver, dtype):
     cfg, problems = _case(name, dtype, **solver)
     res = split_kernels_check(cfg, problems, 6, ipm_split._library(),
                               torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert res["ok"], describe_split_check(res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 4])
+@pytest.mark.parametrize("name,solver", [("node", {}), ("k8", {"elastic_obstacles": True})],
+                         ids=["node", "k8_elastic"])
+def test_each_layout_matches_plain_halves(cuda, name, solver, warps):
+    """The step with its layout forced, float32 (the gates of
+    `split_kernels_check`)."""
+    cfg, problems = _case(name, torch.float32, **solver)
+    res = split_kernels_check(cfg, problems, 6, ipm_split._library(),
+                              torch.cuda.current_stream().cuda_stream, warps=warps)
     torch.cuda.synchronize()
     assert res["ok"], describe_split_check(res)
 

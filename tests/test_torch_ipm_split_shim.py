@@ -14,7 +14,11 @@ plus twice the plain version's own f32-vs-f64 gap in float32, 1e-9 of its
 scale in float64; the accepted line-search candidate differs on at most
 max(1, twice the plain version's own f32-vs-f64 flips) scenarios); and a
 whole float64 solve through the shim kernels is `ipm.solve_plain` within
-1e-7.  The tests skip where g++ is missing; they cannot see what only the
+1e-7.  The step runs in the wrapper's layout for these small batches (a
+block of several warps per scenario), and each layout is also forced at
+the node's N=7: one warp per scenario and a block of 2 warps, hard and
+elastic, K=0 and K=4, float32 and float64; the merits at every candidate
+and rho are held by the same gate.  The tests skip where g++ is missing; they cannot see what only the
 card shows (ptxas, a refused launch, speed).
 """
 
@@ -59,6 +63,15 @@ def shim(tmp_path_factory):
 def test_shim_kernels_match_plain_halves(shim, case, dtype):
     module, lib = shim
     [(ok, line)] = module.run_cases(lib, cases=(case,), dtypes=(dtype,))
+    assert ok, line
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("warps", _shim_module().LAYOUTS, ids=lambda w: f"warps{w}")
+@pytest.mark.parametrize("case", _shim_module().LAYOUT_CASES, ids=lambda c: c[0])
+def test_shim_layouts_match_plain_halves(shim, case, warps, dtype):
+    module, lib = shim
+    [(ok, line)] = module.run_cases(lib, cases=(case,), dtypes=(dtype,), warps=warps)
     assert ok, line
 
 
