@@ -5,9 +5,10 @@
 
 Phases, each a hard failure with a non-zero exit:
 
-1. build the four CUDA libraries from `kissmpc_tpu_torch/csrc/` (one nvcc
+1. build the five CUDA libraries from `kissmpc_tpu_torch/csrc/` (one nvcc
    per source, all started together: the Riccati kernel, the probe, the
-   fused IPM kernel and the split iteration's two kernels) and print each
+   fused IPM kernel, the split solve's four kernels and the problem
+   build) and print each
    ptxas register/spill line; for the fused kernel's instance of each configuration, its
    registers, local bytes, dynamic shared memory per block and the
    scenarios resident per SM (`ops/ipm_fused.py::occupancy`); the same for
@@ -16,7 +17,8 @@ Phases, each a hard failure with a non-zero exit:
    (`ops/riccati.py::occupancy`);
 Before phase 2 the benchmark's pools of 16384 (seed 0) are built on the card,
 free eagerly and K=8 by `scenarios.obstacle_problems`, one CUDA graph (as
-the reference jits its builder): its program under the sync debug mode, the
+the reference jits its builder; inside it one launch of the build kernel):
+its program under the sync debug mode, the
 first call (warm-up and capture) timed, then a second K=8 pool (seed 1) by a
 replay and eagerly, timed, bitwise equal, with the graph's static output
 bytes.
@@ -32,7 +34,7 @@ bytes.
    each by `kernel_ms` (20 launches captured in a CUDA graph between one
    event pair) beside its bound, and once at B=8192 as before, one call
    per event pair with the wrapper's host work inside;
-   then phase 17 (below) runs;
+   then phases 17 and 18 (below) run;
 3. the trip-count probe: counts 0, 7 and then 31 read from device memory
    by one loaded library; the results must be exactly those counts; timed
    at 31 trips and at 0 (its launch floor) by `kernel_ms`, beside
@@ -67,14 +69,15 @@ bytes.
    call (warm-up and capture, timed), then 5 distinct batches drawn from a
    pool of 16384, each solved eagerly and by a replay in turns, timed,
    bitwise equal; one replay under the profiler (kernels, busy time, idle
-   share; its fused, Riccati, split condensation and split step kernels
-   equal to the counters').  Every call launches the fused kernel once per
+   share; its fused, Riccati and split kernels equal to the counters').  Every call launches the fused kernel once per
    solve stage and no other.  Then the same for the "split" backend (free
    and K=8), whose every IPM iteration is one condensation, one Riccati and
-   one step launch (by the counters around every call, and by the
-   profiled replay's trace), and one eager call each of split with
-   mehrotra "pc" and "soc" on the free configuration: two condensations,
-   two Riccati solves and one step per iteration;
+   one step launch, and every solve stage one init and one diagnostics
+   launch (by the counters around every call, and by the profiled
+   replay's trace), and one eager call each of split with mehrotra "pc"
+   and "soc" on the free configuration: two condensations, two Riccati
+   solves and one step per iteration, one init and one diagnostics per
+   stage;
 6. check 64 scenarios of each configuration against the port's CPU path:
    the fused kernel against its plain version on the CPU in float32, the
    split path in float64 and float32, and in float64 the split path with
@@ -86,7 +89,8 @@ bytes.
    iterations plus two refine stages, B=4096 episode worlds routed by the
    "grid" router, the batched grid planner on a 96-cell grid with 3 route
    points per leg, 50 ticks: the first a warm-up and capture, reported
-   apart), 3 fused launches per tick; the first 10 ticks also eagerly on a
+   apart), 3 fused launches and one build launch per tick (by the counters
+   and a profiled replay's trace); the first 10 ticks also eagerly on a
    copy of the state, bitwise equal to the replays; one replayed tick under
    the profiler for the fused stages' share of a tick; the world build's
    time and its fraction of reachable legs; one replan from the current
@@ -125,8 +129,8 @@ bytes.
    bench jits it; the frame index a device tensor, the frames, geometry,
    offsets and static circles inputs), both programs first under the sync
    debug mode; the variants alternate in chunks of 8 ticks (56 replays each
-   after the first call, the capture, at frame 0), 3 fused launches per
-   tick; the first call and the first 10 replays of each also eagerly on a
+   after the first call, the capture, at frame 0), 3 fused launches and
+   one build launch per tick; the first call and the first 10 replays of each also eagerly on a
    copy of the state, bitwise equal (env, perception state, step info,
    tracked set) at 10 distinct frames; replay p50 and p99, eager p50, and
    `perception_added_ms` replayed and eager; one profiled replay of each
@@ -154,10 +158,12 @@ bytes.
    tick's p50 and p99 against the 10 ms period; the tick's program eagerly
    under `torch.cuda.set_sync_debug_mode("error")`; gates: one graph for
    the 50 ticks, condensation, Riccati and step launches per tick each
-   equal to the iterations run on both paths, the captured commands
-   bitwise equal to the eager ones, each replayed tick's trace showing
-   exactly 40 of each of the three kernels (120 for the IPM loop), as the
-   launch counters do, and at most 8 host syncs (one per leaf read back),
+   equal to the iterations run, and one build, one init and one
+   diagnostics launch per tick, on both paths, the captured commands
+   bitwise equal to the eager ones, each replayed tick's counters and a
+   replayed tick's trace showing exactly 40 of each of the three
+   iteration kernels (120 for the IPM loop) and one of each of the other
+   three, and at most 8 host syncs (one per leaf read back),
    the first 10 ticks' commands within 1e-3 of the CPU port's on the same
    inputs, the Riccati kernel against its plain version by phase 2's gate
    and the split kernels against their plain halves by phase 17's gates
@@ -199,7 +205,8 @@ bytes.
    then 5 eager calls and 5 replays in turns, each bitwise equal to the
    eager result, the first result unchanged by them, p50 of both, and one
    replay's condensation, Riccati and step kernels by the profiler equal
-   to its launch counters' 32 each;
+   to its launch counters' 32 each, and its init and diagnostics kernels
+   to their 1 each;
 17. (run right after phase 2) the split iteration's two kernels
    (`csrc/ipm_split.cu`) against their plain halves on the card
    (`split_kernels_check`), on the iterate after 8 plain iterations:
@@ -219,7 +226,29 @@ bytes.
    by `kernel_ms` (20 launches in a CUDA graph) beside its bound
    (`split_bound`) and its plain half, with the step's warps per scenario
    and residency (`ops/ipm_split.py::step_occupancy`); k8_dyn2 float32 is
-   also timed at the other refine batches, 1024 and 328.
+   also timed at the other refine batches, 1024 and 328;
+18. (run right after phase 17) the problem build kernel
+   (`csrc/problem_build.cu`) against `build_plain` (`build_kernel_check`)
+   on the pool's inputs (K=8, N=50, B=16384), the fleet loop's first tick
+   (B=4096) and the node's (N=7, B=1, 6 obstacles for 4 slots), and the
+   split solve's init and diagnostics kernels (`csrc/ipm_split.cu`)
+   against `ipm.init_plain` and `ipm.diagnostics_plain`
+   (`once_kernels_check`) at k8_dyn2's B=8192, 1024, 328 and 164,
+   k8_dyn2_elastic, mehrotra "pc" and the node, float32 and float64.
+   Build: every Problem field of each scenario within 1e-4 of its scale
+   plus twice the plain version's own f32-vs-f64 gap (f64: 1e-9 of its
+   scale); a scenario outside it counts as a discrete flip (the sensor's
+   order, the repair's deepest obstacle, the roll, a blocked step), at
+   most max(1, twice the plain version's own f32-vs-f64 flips).  Init and
+   diagnostics: every field by the same gate, ``converged`` flips counted
+   the same way.  Each kernel timed by `kernel_ms` (20 launches in a CUDA
+   graph) beside its bound (`build_bound`, `once_bound`) and its plain
+   version.
+
+Every check of a call's counted kernels by the profiler's trace
+(`traced_launches`) reads the last of two calls between recorded marker
+kernels: the profiler can lose a trace's first kernels, and a tick's first
+kernel is now its build kernel.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -297,7 +326,7 @@ PERCEPTION_CHUNK = 8
 PERCEPTION_VARIANTS = ("solver_only", "with_perception")
 PERCEPTION_EAGER_TICKS = 10  # replays also run eagerly on a copy of the state
 PERCEPTION_COMPARED_FRAMES = 5  # distinct frames among the compared ticks, at least
-MARKER_LEAD_CYCLES = 10_000_000  # a few ms of spin before a marked profile's calls
+MARKER_LEAD_CYCLES = 10_000_000  # a few ms of spin before a (marked) profile's calls
 PERCEPTION_STAGES = ((0.125, 64, 0.2), (0.02, 96, 0.7))
 PERCEPTION_OFFSET = (1.2, 0.0)  # the walk crosses ~1.5 m ahead of each robot
 TRACK_CAPACITY = 4
@@ -339,6 +368,15 @@ CLI_LAB_TICKS = 50
 CAPTURED_CALLS = 5
 # Phase 17: plain iterations before the iterate the split kernels are held on.
 SPLIT_CHECK_ITERATIONS = 8
+# Phase 18: node-shaped scenarios the build kernel is held on beside the
+# node's own one (N=7, K=4 slots, NODE_BUILD_K_ALL obstacles each).  The
+# build's and the diagnostics' discrete flips (`allowed_flips`): twice the
+# witness's, at least one scenario in FLIP_SHARE (none in a smaller batch),
+# at most one in FLIP_CAP whatever the witness.
+NODE_BUILD_BATCH = 512
+NODE_BUILD_K_ALL = 6
+FLIP_SHARE = 100
+FLIP_CAP = 4
 # The earlier fused kernel (one thread per scenario, iterate in global
 # scratch) at each solve stage, (B, iterations): ms, CUDA events around the
 # wrapper's call, NVIDIA H100 80GB HBM3 at 700 W (recorded in PERF.md).
@@ -498,19 +536,20 @@ def configs(backend):
 def phase_build():
     import torch
 
-    from kissmpc_tpu_torch.ops import _build, ipm_fused, ipm_split, probe, riccati
+    from kissmpc_tpu_torch.ops import _build, ipm_fused, ipm_split, probe, problem_build, riccati
 
     sources = {
         "kissmpc_riccati": riccati.SOURCE,
         "kissmpc_probe": probe.SOURCE,
         "kissmpc_ipm_fused": ipm_fused.SOURCE,
         "kissmpc_ipm_split": ipm_split.SOURCE,
+        "kissmpc_problem_build": problem_build.SOURCE,
     }
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         futures = {name: pool.submit(_build.build, src, name) for name, src in sources.items()}
         libs = {name: f.result() for name, f in futures.items()}
-    for module in (riccati, probe, ipm_fused, ipm_split):
+    for module in (riccati, probe, ipm_fused, ipm_split, problem_build):
         module._library()
     build_s = time.perf_counter() - t0
     for lib in libs.values():
@@ -552,8 +591,7 @@ def split_iterate(cfg, problems, iterations):
     from kissmpc_tpu_torch.solver import ipm
 
     with torch.no_grad():
-        it = ipm._init_state(cfg, problems)
-        mu = ipm._next_mu(cfg, it, ipm._constraint_masks(cfg, problems, it.states.dtype))
+        it, mu = ipm.init_plain(cfg, problems)
         for _ in range(iterations):
             it, mu, _ = ipm._iteration(cfg, problems, it, mu)
     return it, mu
@@ -679,6 +717,48 @@ def check_riccati(data, reg, phase=2):
 SPLIT_FLIP_RTOL = 1e-3  # alphas of one candidate agree far closer; two differ by ls_backtrack
 
 
+def allowed_flips(witness_flips, batch):
+    """Discrete flips a kernel may show against its plain version in a
+    batch of ``batch``: twice its witness's (`ulp_witness`), at least one
+    scenario in FLIP_SHARE (so none below FLIP_SHARE scenarios without a
+    witness), and never more than one in FLIP_CAP: however fragile the
+    data, three scenarios in four (all of a batch below FLIP_CAP) are held
+    to the field gate."""
+    return min(max(batch // FLIP_SHARE, 2 * witness_flips), batch // FLIP_CAP)
+
+
+def nudged(x, up):
+    """``x`` moved one ulp of its dtype up (or down)."""
+    import torch
+
+    return torch.nextafter(x, torch.full_like(x, float("inf") if up else -float("inf")))
+
+
+def ulp_witness(evaluate, start, differs):
+    """The plain version's own discrete flips in the kernel's dtype: the
+    most scenarios where ``differs(result)`` holds among three evaluations
+    an ulp away from the one the kernel is held to, the plain version on
+    the CPU (``evaluate(True, None)``) and with ``start`` moved one ulp up
+    and down (``evaluate(False, moved)``).  ``differs`` returns a boolean
+    per scenario."""
+    evals = [evaluate(True, None)] + [evaluate(False, nudged(start, up)) for up in (True, False)]
+    return max(int(differs(r).sum()) for r in evals)
+
+
+def on_cpu(tree):
+    """Every tensor of a tuple (or NamedTuple) tree, and ``kw``'s, on the CPU."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: on_cpu(v) if k != "device" else "cpu" for k, v in tree.items()}
+    if tree is None or not isinstance(tree, tuple):
+        return tree
+    return type(tree)(*(on_cpu(x) for x in tree)) if hasattr(tree, "_fields") \
+        else type(tree)(on_cpu(x) for x in tree)
+
+
 def _cast(tree, dtype):
     """Every floating tensor of a tuple (or NamedTuple) tree in ``dtype``."""
     import torch
@@ -689,6 +769,32 @@ def _cast(tree, dtype):
         return tree.to(dtype) if tree.dtype.is_floating_point else tree
     return type(tree)(*(_cast(x, dtype) for x in tree)) if hasattr(tree, "_fields") \
         else type(tree)(_cast(x, dtype) for x in tree)
+
+
+def _field_ratio(got, ref, other, f32, own=False):
+    """One field of `split_field_gate`, per scenario: (err, err / tol).
+    With ``own``, the plain version's own gap instead: |other - ref| over
+    1e-4 of the scale, its finite entries (above 1 where the two precisions
+    part by more than rounding: a discrete decision taken the other way)."""
+    import torch
+
+    B = ref.shape[0]
+    g = got.reshape(B, -1).double()
+    r = ref.reshape(B, -1).double().to(g.device)
+    o = other.reshape(B, -1).double().to(g.device)
+    if g.shape[1] == 0:
+        zero = torch.zeros(B, dtype=g.dtype, device=g.device)
+        return zero, zero
+    rf = torch.where(torch.isfinite(r), r, torch.zeros_like(r))
+    scale = rf.abs().amax(1).clamp(min=1.0)
+    og = torch.where(torch.isfinite(o) & torch.isfinite(r), (r - o).abs(), torch.zeros_like(r))
+    if own:
+        return og.amax(1), og.amax(1) / (1e-4 * scale)
+    same = (g == r) | (torch.isnan(g) & torch.isnan(r))
+    diff = torch.where(same, torch.zeros_like(g), (g - r).abs()).nan_to_num(nan=float("inf"))
+    err = diff.amax(1)
+    tol = 1e-4 * scale + 2.0 * og.amax(1) if f32 else 1e-9 * scale
+    return err, err / tol
 
 
 def split_field_gate(fields, f32, skip=None):
@@ -704,22 +810,7 @@ def split_field_gate(fields, f32, skip=None):
 
     out, ok = {}, True
     for name, got, ref, other in fields:
-        B = ref.shape[0]
-        g = got.reshape(B, -1).double()
-        r = ref.reshape(B, -1).double().to(g.device)
-        o = other.reshape(B, -1).double().to(g.device)
-        same = (g == r) | (torch.isnan(g) & torch.isnan(r))
-        diff = torch.where(same, torch.zeros_like(g), (g - r).abs()).nan_to_num(nan=float("inf"))
-        err = diff.amax(1) if g.shape[1] else torch.zeros(B, dtype=g.dtype, device=g.device)
-        rf = torch.where(torch.isfinite(r), r, torch.zeros_like(r))
-        scale = (rf.abs().amax(1) if g.shape[1] else torch.zeros_like(err)).clamp(min=1.0)
-        if f32:
-            og = torch.where(torch.isfinite(o) & torch.isfinite(r), (r - o).abs(),
-                             torch.zeros_like(r))
-            tol = 1e-4 * scale + 2.0 * (og.amax(1) if g.shape[1] else torch.zeros_like(err))
-        else:
-            tol = 1e-9 * scale
-        ratio = err / tol
+        err, ratio = _field_ratio(got, ref, other, f32)
         if skip is not None:
             ratio = torch.where(skip.to(ratio.device), torch.zeros_like(ratio), ratio)
             err = torch.where(skip.to(err.device), torch.zeros_like(err), err)
@@ -838,6 +929,181 @@ def describe_split_check(res):
             f"{s['fields'][s['worst']]['ratio']:.3f} of it; merits and rho: max|kernel-plain| "
             f"{m['err']:.3e}, nearest its limit {m['worst']} at "
             f"{m['fields'][m['worst']]['ratio']:.3f} of it; "
+            f"{'passes' if res['ok'] else 'FAILS'}")
+
+
+def once_kernels_check(cfg, problems, iterations, lib, stream):
+    """The split solve's init and diagnostics kernels, launched through
+    ``lib`` on ``stream`` by the wrapper's card path
+    (`ops/ipm_split.py::_init`, `_diagnostics`; a CPU build of the source
+    runs them on CPU tensors), against their plain versions
+    (`ipm.init_plain`, `ipm.diagnostics_plain`):
+
+    - init on the warm start: the new iterate's slacks, duals, e_ob, reg,
+      sigma and the first mu, each field of each scenario by
+      `split_field_gate` (float32: 1e-4 of its scale plus twice the plain
+      version's own f32-vs-f64 gap; float64: 1e-9 of its scale);
+    - diagnostics on the iterate after ``iterations`` plain iterations:
+      ``converged`` differs on at most `allowed_flips` scenarios, twice its
+      witness's flips (`ulp_witness`: the plain version on the CPU, and
+      with the initial state moved one ulp either way, against the plain
+      version where the kernel ran, in the kernel's dtype), and the
+      stationarity, feasibility, complementarity, final cost and final mu
+      of every scenario meet the same gate.
+
+    Returns {"ok", "init", "diagnostics", "flips", "plain_flips", "allowed",
+    "B", "dtype"} and the inputs of the launches ("launched": the problems
+    and the last iterate)."""
+    import torch
+
+    from kissmpc_tpu_torch.ops import ipm_split
+    from kissmpc_tpu_torch.solver import ipm
+
+    problems = ipm._contiguous(problems)
+    dtype = problems.initial_state.dtype
+    f32 = dtype == torch.float32
+    other = torch.float64 if f32 else torch.float32
+    with torch.no_grad():
+        got_it, got_mu = ipm_split._init(lib, stream, cfg, problems)
+        ref_it, ref_mu = ipm.init_plain(cfg, problems)
+        oth_it, oth_mu = ipm.init_plain(cfg, _cast(problems, other))
+        fields = [(f, getattr(got_it, f), getattr(ref_it, f), getattr(oth_it, f))
+                  for f in ref_it._fields[2:]]
+        igate = split_field_gate(fields + [("mu", got_mu, ref_mu, oth_mu)], f32)
+        it, _ = split_iterate(cfg, problems, iterations)
+        got_d = ipm_split._diagnostics(lib, stream, cfg, problems, it)
+        ref_d = ipm.diagnostics_plain(cfg, problems, it)
+        oth_d = ipm.diagnostics_plain(cfg, _cast(problems, other), _cast(it, other))
+        plain_flips = ulp_witness(
+            lambda cpu, x0: ipm.diagnostics_plain(cfg, on_cpu(problems), on_cpu(it)) if cpu
+            else ipm.diagnostics_plain(cfg, problems._replace(initial_state=x0), it),
+            problems.initial_state,
+            lambda d: d.converged.to(ref_d.converged.device) != ref_d.converged)
+    B = int(problems.initial_state.shape[0])
+    flips = int((got_d.converged != ref_d.converged).sum())
+    allowed = allowed_flips(plain_flips, B)
+    dgate = split_field_gate([(f, getattr(got_d, f), getattr(ref_d, f), getattr(oth_d, f))
+                              for f in ref_d._fields[1:]], f32)
+    return {"ok": igate["ok"] and dgate["ok"] and flips <= allowed, "init": igate,
+            "diagnostics": dgate, "flips": flips, "plain_flips": plain_flips,
+            "allowed": allowed, "B": B, "dtype": str(dtype)[6:], "launched": (problems, it)}
+
+
+def describe_once_check(res):
+    i, d = res["init"], res["diagnostics"]
+    return (f"init max|kernel-plain| {i['err']:.3e}, nearest its limit {i['worst']} at "
+            f"{i['fields'][i['worst']]['ratio']:.3f} of it; diagnostics: converged differs on "
+            f"{res['flips']} of {res['B']} (allowed {res['allowed']}: the plain version's own "
+            f"flips an ulp away {res['plain_flips']}), max|kernel-plain| {d['err']:.3e}, nearest "
+            f"its limit {d['worst']} at {d['fields'][d['worst']]['ratio']:.3f} of it; "
+            f"{'passes' if res['ok'] else 'FAILS'}")
+
+
+def build_inputs(cfg, batch, seed, *, k_all=None, shared=False, warm=True, n_dynamic=2,
+                 dtype=None, device="cuda"):
+    """Inputs of `problem_with_obstacles` from a numpy seed: starts and goals
+    (`scenarios.sample_endpoints`), ``k_all`` circles per scenario
+    straddling the start-goal segment (`scenarios.sample_obstacle_field`,
+    ``n_dynamic`` of them moving, some turning), about one slot in eight
+    inactive, one set shared by every scenario (a stride-0 ``expand``, as
+    `agent.build_problem` passes it) with ``shared``, and with ``warm`` a
+    warm start along the straight segment through the circles (which the
+    repair pushes out and the completion rolls out) and random controls.
+    Returns (initial_state, goal_state, obstacles, keywords)."""
+    import torch
+
+    from kissmpc_tpu_torch.obstacles.obstacles import ObstacleSet
+    from kissmpc_tpu_torch.scenarios import sample_endpoints, sample_obstacle_field
+
+    dtype = dtype or torch.float32
+    N = cfg.horizon
+    k_all = cfg.max_obstacles if k_all is None else k_all
+    rng = np.random.default_rng(seed)
+    starts, goals = sample_endpoints(cfg, batch, rng)
+    centers, radii, orient, v = sample_obstacle_field(starts, goals, k_all, rng,
+                                                      n_dynamic=min(n_dynamic, k_all),
+                                                      inflation=0.25)
+    turn = rng.normal(0.0, 0.3, (batch, k_all)) * (v > 0)
+    active = (rng.uniform(size=(batch, k_all)) > 0.125).astype(np.float32)
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)  # noqa: E731
+    leaves = [t(centers), t(radii), t(orient), t(v), t(turn), t(active)]
+    if shared:
+        leaves = [x[0].expand((batch,) + x.shape[1:]) for x in leaves]
+    kw = dict(sensor_radius=2.5, prediction_dt=cfg.time_step, inflation_radius=0.25,
+              dtype=dtype, device=device)
+    if warm:
+        s = np.linspace(0.0, 1.0, N + 1)[None, :, None]
+        path = starts[:, None, :] + s * (goals - starts)[:, None, :]
+        path[:, :, 2] = np.arctan2(goals[:, 1] - starts[:, 1], goals[:, 0] - starts[:, 0])[:, None]
+        kw.update(warm_states=t(path), warm_controls=t(rng.uniform(-0.2, 0.4, (batch, N, 2))))
+    return t(starts), t(goals), ObstacleSet(*leaves), kw
+
+
+def build_kernel_check(cfg, inputs, lib, stream, **options):
+    """The build kernel, launched through ``lib`` on ``stream`` by the
+    wrapper's card path (`ops/problem_build.py::_launch`; a CPU build of
+    the source runs it on CPU tensors), against `build_plain` on the same
+    ``inputs`` (`build_inputs`' tuple; ``options`` add keywords such as
+    the repair and completion switches).  Every field of the Problem is
+    held per scenario by `split_field_gate`'s rule (float32: 1e-4 of its
+    scale plus twice the plain version's own f32-vs-f64 gap; float64: 1e-9
+    of its scale).  A scenario outside it counts as a flip, a discrete
+    decision taken the other way (the sensor's order, the repair's deepest
+    obstacle, the roll, a blocked step and its obstacle): flips at most
+    `allowed_flips`, twice its witness's (`ulp_witness`: the scenarios the
+    same gate takes out when the plain version runs on the CPU, or with
+    the start moved one ulp either way, in the kernel's dtype).  Returns
+    {"ok", "gate", "flips", "plain_flips", "allowed", "rolled", "B",
+    "dtype", "launched"}."""
+    import torch
+
+    from kissmpc_tpu_torch.ops import problem_build
+
+    start, goal, obstacles, kw = inputs
+    kw = {**kw, **options}
+    dtype = kw["dtype"]
+    f32 = dtype == torch.float32
+    other = torch.float64 if f32 else torch.float32
+    with torch.no_grad():
+        got = problem_build._launch(lib, stream, cfg, start, goal, obstacles, **kw)
+        ref = problem_build.build_plain(cfg, start, goal, obstacles, **kw)
+        cast = {k: _cast(v, other) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        oth = problem_build.build_plain(cfg, _cast(start, other), _cast(goal, other),
+                                        _cast(obstacles, other), **{**cast, "dtype": other})
+    fields = [(f, getattr(got, f), getattr(ref, f), getattr(oth, f)) for f in ref._fields]
+
+    def outside(problem):
+        return torch.stack([_field_ratio(getattr(problem, f), r, o, f32)[1].to(r.device)
+                            for f, _, r, o in fields]).amax(0) > 1.0
+
+    def evaluate(cpu, x0):
+        with torch.no_grad():
+            if cpu:
+                return problem_build.build_plain(cfg, on_cpu(start), on_cpu(goal),
+                                                 on_cpu(obstacles), **on_cpu(kw))
+            return problem_build.build_plain(cfg, x0, goal, obstacles, **kw)
+
+    flips = outside(got)
+    plain_flips = ulp_witness(evaluate, start, outside)
+    B = int(ref.initial_state.shape[0])
+    allowed = allowed_flips(plain_flips, B)
+    gate = split_field_gate(fields, f32, skip=flips)
+    warm = kw.get("warm_controls")
+    warm = torch.zeros_like(ref.warm_controls) if warm is None else warm.to(ref.warm_controls)
+    rolled = int((ref.warm_controls != warm).flatten(1).any(1).sum())
+    return {"ok": gate["ok"] and int(flips.sum()) <= allowed, "gate": gate,
+            "flips": int(flips.sum()), "plain_flips": plain_flips, "allowed": allowed,
+            "rolled": rolled, "B": B, "dtype": str(dtype)[6:],
+            "launched": (start, goal, obstacles, kw)}
+
+
+def describe_build_check(res):
+    g = res["gate"]
+    return (f"scenarios outside the gate {res['flips']} of {res['B']} (allowed "
+            f"{res['allowed']}: the plain version's own flips an ulp away "
+            f"{res['plain_flips']}), "
+            f"{res['rolled']} rolled out by the plain version; elsewhere max|kernel-plain| {g['err']:.3e}, nearest its limit "
+            f"{g['worst']} at {g['fields'][g['worst']]['ratio']:.3f} of it; "
             f"{'passes' if res['ok'] else 'FAILS'}")
 
 
@@ -1065,6 +1331,260 @@ def phase_split_kernels(split_cfgs, pools):
                   "_build_lqr"),
             entry("step", "ipm_split_step", "kissmpc_tpu/solver/ipm.py:407",
                   "the rest of _iteration")]
+
+
+def pool_inputs(cfg, batch, seed, dtype):
+    """The inputs `scenarios.obstacle_problems` hands `problem_with_obstacles`
+    for its pool of ``batch`` scenarios from ``seed`` (two moving circles of
+    K straddling each start-goal segment, the start tiled as warm start),
+    in `build_inputs`' form."""
+    import torch
+
+    from kissmpc_tpu_torch.obstacles.obstacles import ObstacleSet
+    from kissmpc_tpu_torch.scenarios import (DEFAULT_INFLATION, sample_endpoints,
+                                             sample_obstacle_field)
+
+    rng = np.random.default_rng(seed)
+    starts, goals = sample_endpoints(cfg, batch, rng)
+    centers, radii, orient, v = sample_obstacle_field(starts, goals, cfg.max_obstacles, rng,
+                                                      n_dynamic=2, inflation=DEFAULT_INFLATION)
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device="cuda")  # noqa: E731
+    K = cfg.max_obstacles
+    obs = ObstacleSet(t(centers), t(radii), t(orient), t(v),
+                      torch.zeros((batch, K), dtype=dtype, device="cuda"),
+                      torch.ones((batch, K), dtype=dtype, device="cuda"))
+    kw = dict(sensor_radius=5.0, prediction_dt=cfg.time_step, inflation_radius=DEFAULT_INFLATION,
+              dtype=dtype, device="cuda")
+    return t(starts), t(goals), obs, kw
+
+
+def fleet_inputs(dtype):
+    """The first tick's inputs of the fleet loop's problem build (phase 7's
+    configuration and worlds, `agent.build_problem`'s keywords), in
+    `build_inputs`' form; (cfg, inputs)."""
+    from kissmpc_tpu_torch.agent import current_state
+
+    cfg, params = fleet_config()
+    env, obstacles, _ = fleet_worlds(cfg, FLEET_BATCH, 0, "cuda")
+    agent = env.agent
+    kw = dict(sensor_radius=params.sensor_radius, prediction_dt=params.prediction_dt,
+              control_bounds=params.control_bounds, state_bounds=params.state_bounds,
+              inflation_radius=params.inflation_radius,
+              warm_states=agent.states_matrix.to(dtype),
+              warm_controls=agent.controls_matrix.to(dtype),
+              complete_warm_start_states=params.complete_warm_starts, dtype=dtype, device="cuda")
+    return cfg, (current_state(agent).to(dtype), agent.goal_state.to(dtype),
+                 _cast(obstacles, dtype), kw)
+
+
+def build_bound(cfg, inputs, rolled, dtype):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one build of
+    ``inputs`` (`build_inputs`' form) in which ``rolled`` scenarios are
+    rolled out.  Bytes: the start, the goal, the warm start (if given) and
+    the obstacle set read once (a set shared by every scenario once in
+    all), the Problem written once.  Operations per scenario, roughly (an
+    add, multiply, compare-and-select, min, max, abs, division, sqrt, sin,
+    cos or atan2 one, an FMA two): the sensor's distances (9 per obstacle)
+    and a sort's compares (K_all log2 K_all), the tracks (8 per obstacle
+    and stage), each repair pass (12 per obstacle and stage, 45 per
+    stage), the moved test (2 per warm-start value) and, in rolled
+    scenarios only, the rollout (45 per stage, 22 per obstacle and
+    stage).  The kernel computes in double: the float64 peak."""
+    import math
+
+    import torch
+
+    start, _, obstacles, kw = inputs
+    B, N, K = start.shape[0], cfg.horizon, cfg.max_obstacles
+    k_all = obstacles.position.shape[-2]
+    size = 4 if dtype == torch.float32 else 8
+    t1 = N + 1
+    shared = obstacles.radius.stride(0) == 0 and B > 1
+    reads = B * (6 + (3 * t1 + 2 * N if kw.get("warm_states") is not None else 0))
+    reads += 7 * k_all * (1 if shared else B)
+    writes = B * (16 + 2 * K * N + 2 * K + 1 + 3 * t1 + 2 * N)
+    n_bytes = size * (reads + writes)
+    repair = kw.get("repair_warm_start_states", True) and K > 0
+    ops = B * (9 * k_all + k_all * max(1, math.ceil(math.log2(max(k_all, 2))))
+               + 8 * K * N + (3 * N * (12 * K + 45) if repair else 0) + 6 * t1)
+    ops += rolled * N * (45 + 22 * K)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F64_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, ops
+
+
+def once_bound(cfg, batch, dtype, kernel):
+    """(bound ms, "bytes" or "operations", bytes, operations) of the init or
+    diagnostics ``kernel`` for ``batch`` scenarios of ``cfg``.  Bytes: the
+    init reads the bounds, the obstacles, the inflation and the warm
+    start, and writes the slacks, duals, e_ob, reg, sigma and mu; the
+    diagnostics read the problem, the trajectory, the slacks, duals and
+    sigma, and write the six diagnostics (converged one byte).  Operations,
+    roughly (as `split_ops` counts them): the init 6 per box element and 15
+    per obstacle element (its geometry); the diagnostics 12 per box
+    element, 27 per obstacle element (geometry, normal, gradient), and per
+    stage 18 (goal cost and gradient), 14 (control cost and gradient), 8
+    (linearisation with sin and cos), 9 (defect) and 21 (the adjoint
+    step).  Both compute in double: the float64 peak."""
+    import torch
+
+    N, K = cfg.horizon, cfg.max_obstacles
+    size = 4 if dtype == torch.float32 else 8
+    t1 = N + 1
+    box, obst = 4 * N + 6 * t1, N * K
+    traj = 3 * t1 + 2 * N
+    if kernel == "init":
+        n_bytes = size * batch * (10 + 2 * K * N + 2 * K + 1 + traj + 2 * (box + obst) + obst + 3)
+        ops = batch * (6 * box + 15 * obst)
+    else:
+        n_bytes = size * batch * (16 + 2 * K * N + 2 * K + 1 + traj + 2 * (box + obst) + 1 + 5)
+        n_bytes += batch
+        ops = batch * (12 * box + 27 * obst + t1 * 18 + N * (14 + 8 + 9 + 21))
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F64_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, ops
+
+
+def phase_build_once(split_cfgs, pools):
+    """Phase 18: the problem build kernel against `build_plain`
+    (`build_kernel_check`) on the pool's inputs (K=8, N=50, B=POOL), the
+    fleet loop's first tick (B=4096), the node's (N=7, B=1, 6 obstacles
+    for 4 slots, a warm start through them) and NODE_BUILD_BATCH
+    node-shaped scenarios (where one discrete flip is not the whole batch);
+    the init and diagnostics
+    kernels against `ipm.init_plain` and `ipm.diagnostics_plain`
+    (`once_kernels_check`, the diagnostics on the iterate after
+    SPLIT_CHECK_ITERATIONS plain iterations) at k8_dyn2's B=8192 and the
+    refine stages' 1024, 328 and 164, k8_dyn2_elastic and mehrotra "pc",
+    the node and NODE_BUILD_BATCH node-shaped problems; float32 and float64.  Each kernel timed by `kernel_ms`
+    (20 launches in a CUDA graph) beside its bound and its plain version.
+    Returns the three kernels' rows of the ``kernels`` line, launches
+    filled in later."""
+    import torch
+
+    from kissmpc_tpu_torch.ops import ipm_split, problem_build
+    from kissmpc_tpu_torch.scenarios import obstacle_problems
+    from kissmpc_tpu_torch.solver import ipm
+    from kissmpc_tpu_torch.solver.problem import Problem, gather
+
+    # The stream is read at each call: kernel_ms captures the calls on a
+    # stream of its own.
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    k8, node = split_cfgs["k8_dyn2"], node_config()
+    blib, slib = problem_build._library(), ipm_split._library()
+    build_rows = []
+    for label, dtype in (("pool", torch.float32), ("pool", torch.float64),
+                         ("fleet", torch.float32), ("fleet", torch.float64),
+                         ("node", torch.float32), ("node", torch.float64),
+                         ("node batch", torch.float32), ("node batch", torch.float64)):
+        options = {}
+        if label == "pool":
+            cfg, inputs = k8, pool_inputs(k8, POOL, 0, dtype)
+        elif label == "fleet":
+            cfg, inputs = fleet_inputs(dtype)
+        else:
+            cfg = node
+            batch = 1 if label == "node" else NODE_BUILD_BATCH
+            inputs = build_inputs(node, batch, 18, k_all=NODE_BUILD_K_ALL, dtype=dtype)
+            options = dict(sensor_radius=5.0, prediction_dt=None)
+        res = build_kernel_check(cfg, inputs, blib, stream(), **options)
+        torch.cuda.synchronize()
+        B = res["B"]
+        log(f"[18] build kernel, {label} {res['dtype']} B={B} N={cfg.horizon} K={cfg.max_obstacles}"
+            f" K_all={inputs[2].position.shape[-2]}: {describe_build_check(res)}")
+        if not res["ok"]:
+            fail(f"the build kernel disagrees with build_plain ({label}, {res['dtype']}, B={B})")
+        start, goal, obstacles, kw = res["launched"]
+        ms = kernel_ms(lambda: problem_build._launch(blib, stream(), cfg, start, goal, obstacles,
+                                                     **kw), reps=20, graph=True)
+        plain_ms = kernel_ms(lambda: problem_build.build_plain(cfg, start, goal, obstacles, **kw),
+                             reps=3, warmup=1)
+        bound_ms, bound_by, n_bytes, ops = build_bound(cfg, inputs, res["rolled"], dtype)
+        build_rows.append({"case": label, "dtype": res["dtype"], "B": B, "N": cfg.horizon,
+                           "flips": res["flips"], "witness_flips": res["plain_flips"],
+                           "allowed_flips": res["allowed"],
+                           "rolled": res["rolled"], "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+                           "ops": ops, "max_abs_err": res["gate"]["err"]})
+        log(f"[18] build kernel, {label} {res['dtype']} B={B}: {ms:.5f} ms, "
+            f"{ms / bound_ms:.2f}x its bound {bound_ms:.5f} ms ({n_bytes} bytes, {ops} "
+            f"operations; {bound_by}); plain version {plain_ms:.4f} ms")
+
+    pc = k8.replace(solver=dataclasses.replace(k8.solver, mehrotra="pc"))
+    cases = [("k8_dyn2", k8, "k8_dyn2", BATCH, torch.float32),
+             ("k8_dyn2", k8, "k8_dyn2", 1024, torch.float32),
+             ("k8_dyn2", k8, "k8_dyn2", 328, torch.float32),
+             ("k8_dyn2", k8, "k8_dyn2", REFINE_CHECK_BATCH, torch.float32),
+             ("k8_dyn2", k8, "k8_dyn2", BATCH, torch.float64),
+             ("k8_dyn2", k8, "k8_dyn2", REFINE_CHECK_BATCH, torch.float64),
+             ("k8_dyn2_elastic", split_cfgs["k8_dyn2_elastic"], "k8_dyn2", BATCH, torch.float32),
+             ("k8_dyn2 pc", pc, "k8_dyn2", REFINE_CHECK_BATCH, torch.float32),
+             ("node", node, None, 1, torch.float32),
+             ("node", node, None, 1, torch.float64),
+             ("node batch", node, None, NODE_BUILD_BATCH, torch.float32),
+             ("node batch", node, None, NODE_BUILD_BATCH, torch.float64)]
+    once_rows = []
+    for label, cfg, pool, B, dtype in cases:
+        if pool is None:
+            problems = obstacle_problems(cfg, B, seed=12, n_dynamic=2)
+        else:
+            problems = gather(pools[pool], torch.arange(B, device="cuda"))
+        problems = Problem(*(x.to(dtype) for x in problems))
+        res = once_kernels_check(cfg, problems, SPLIT_CHECK_ITERATIONS, slib, stream())
+        torch.cuda.synchronize()
+        log(f"[18] init and diagnostics kernels, {label} {res['dtype']} B={B} N={cfg.horizon}: "
+            f"{describe_once_check(res)}")
+        if not res["ok"]:
+            fail(f"the init or diagnostics kernel disagrees with its plain version ({label}, "
+                 f"{res['dtype']}, B={B})")
+        pr, it = res["launched"]
+        row = {"case": label, "dtype": res["dtype"], "B": B, "N": cfg.horizon,
+               "flips": res["flips"], "witness_flips": res["plain_flips"],
+               "allowed_flips": res["allowed"]}
+        for kernel, fn, plain in (
+                ("init", lambda: ipm_split._init(slib, stream(), cfg, pr),
+                 lambda: ipm.init_plain(cfg, pr)),
+                ("diagnostics", lambda: ipm_split._diagnostics(slib, stream(), cfg, pr, it),
+                 lambda: ipm.diagnostics_plain(cfg, pr, it))):
+            ms = kernel_ms(fn, reps=20, graph=True)
+            plain_ms = kernel_ms(plain, reps=3, warmup=1)
+            bound_ms, bound_by, n_bytes, ops = once_bound(cfg, B, dtype, kernel)
+            row[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "bytes": n_bytes, "ops": ops,
+                           "max_abs_err": res["init" if kernel == "init" else "diagnostics"]["err"]}
+            log(f"[18] {kernel} kernel, {label} {res['dtype']} B={B}: {ms:.5f} ms, "
+                f"{ms / bound_ms:.2f}x its bound {bound_ms:.5f} ms ({n_bytes} bytes, {ops} "
+                f"operations; {bound_by}); plain version {plain_ms:.4f} ms")
+        once_rows.append(row)
+
+    main = build_rows[0]
+    build = {"name": "problem_build", "route": "cuda",
+             "source": "kissmpc_tpu_torch/csrc/problem_build.cu",
+             "replaces": "kissmpc_tpu/solver/problem.py:278", "tpu_kernel": None,
+             "replaces_note": "no TPU kernel: XLA's fusion of problem_with_obstacles under the "
+                              "reference's jax.jit",
+             "launches": None, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": None, "cases": build_rows}
+
+    def entry(kernel, name, replaces, what):
+        m = once_rows[0][kernel]
+        return {"name": name, "route": "cuda", "source": "kissmpc_tpu_torch/csrc/ipm_split.cu",
+                "replaces": replaces, "tpu_kernel": None,
+                "replaces_note": f"no TPU kernel: XLA's fusion of {what} under the reference's "
+                                 f"jax.jit",
+                "launches": None, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None,
+                "cases": [{k: r[k] for k in ("case", "dtype", "B", "N", "flips", "witness_flips",
+                                             "allowed_flips")} | r[kernel]
+                          for r in once_rows]}
+
+    return [build,
+            entry("init", "ipm_split_init", "kissmpc_tpu/solver/ipm.py:180",
+                  "_init_state and the first _adaptive_mu"),
+            entry("diagnostics", "ipm_split_diagnostics", "kissmpc_tpu/solver/ipm.py:715",
+                  "_adaptive_mu and _diagnostics")]
 
 
 def phase_probe():
@@ -1358,10 +1878,10 @@ def phase_main_path(backend, cfgs, pools, calls):
         pool = pools[name]
         stages = len(cfg.solver.refine_stages)
         if backend == "fused":
-            expected = {"fused": 1 + stages, "riccati": 0, "condense": 0, "step": 0}
+            expected = expect(fused=1 + stages)
         else:
             its = cfg.solver.iterations + sum(it for _, it, _ in cfg.solver.refine_stages)
-            expected = {"fused": 0, "riccati": its, "condense": its, "step": its}
+            expected = split_solve_launches(its, solves=1 + stages)
         solver = make_batch_solver(cfg)
 
         def call(fn, batch, what):
@@ -1415,7 +1935,7 @@ def phase_main_path(backend, cfgs, pools, calls):
         before = counts()
         prof, _ = profile_call(lambda: solver(batch))
         launched = moved(before)
-        traced = {k: prof[f"{k}_kernels"] for k in launched}
+        traced = traced_launches(lambda: solver(batch))
         if traced != launched or launched != expected:
             fail(f"{backend} {name}: a profiled replay ran {traced} kernels by the trace, "
                  f"counted {launched}, expected {expected}")
@@ -1446,7 +1966,8 @@ def phase_main_path(backend, cfgs, pools, calls):
             fail(f"{backend} {name}: converged fraction "
                  f"{results[name]['converged_fraction']} < {floor}")
     launches = counts()
-    keys = ("fused",) if backend == "fused" else ("riccati", "condense", "step")
+    keys = (("fused",) if backend == "fused"
+            else ("init", "riccati", "condense", "step", "diagnostics"))
     if not all(launches[k] for k in keys):
         fail(f"the {backend} main path never launched one of its kernels: {launches}")
     return results, launches
@@ -1463,7 +1984,8 @@ def phase_mehrotra(cfg, pool):
 
     results = {}
     its = cfg.solver.iterations + sum(it for _, it, _ in cfg.solver.refine_stages)
-    expected = {"fused": 0, "riccati": 2 * its, "condense": 2 * its, "step": its}
+    expected = split_solve_launches(its, solves=1 + len(cfg.solver.refine_stages),
+                                    predictor=True)
     for mode in ("pc", "soc"):
         mcfg = cfg.replace(solver=dataclasses.replace(cfg.solver, mehrotra=mode))
         idx = torch.as_tensor(np.random.default_rng(2).permutation(POOL)[:BATCH], device="cuda")
@@ -1700,6 +2222,7 @@ def phase_fleet():
         f"with every leg reachable {float(reach.all(axis=1).mean()):.5f}")
     circles = static_circles(obstacles)
     expected = 1 + len(cfg.solver.refine_stages)
+    per_tick = expect(fused=expected, build=1)  # the tick's problem build, then its solve
     with sync_checked_programs() as ran:
         fleet_tick(cfg, params, env, obstacles, "cuda")
         torch.cuda.synchronize()
@@ -1723,15 +2246,15 @@ def phase_fleet():
             replan_s = time.perf_counter() - t0
             log(f"[7] replan at tick {tick} from the current poses: {replan_s:.3f} s, "
                 f"reachable {float(replan_reach.mean()):.5f}")
-        before = solve_batch_fused.launches
+        before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         env, obstacles, info = fleet_tick(cfg, params, env, obstacles, "cuda")
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-        launched = solve_batch_fused.launches - before
-        if launched != expected:
-            fail(f"fleet tick {tick}: {launched} fused launches, expected {expected}")
+        launched = moved(before)
+        if launched != per_tick:
+            fail(f"fleet tick {tick}: launches {launched}, expected {per_tick}")
         if tick < FLEET_EAGER_TICKS:
             t0 = time.perf_counter()
             with graph.eager():
@@ -1760,8 +2283,9 @@ def phase_fleet():
     # One replayed tick under the profiler: the fused stages' share of it
     # (CUDA events cannot be recorded inside a captured tick).
     prof, _ = profile_call(lambda: fleet_tick(cfg, params, env, obstacles, "cuda"))
-    if prof["fused_kernels"] != expected:
-        fail(f"a profiled fleet tick ran {prof['fused_kernels']} fused kernels")
+    traced = traced_launches(lambda: fleet_tick(cfg, params, env, obstacles, "cuda"))
+    if traced != per_tick:
+        fail(f"a profiled fleet tick ran {traced} kernels by the trace, expected {per_tick}")
     if solve_lqr_cuda.launches:
         fail("the fused fleet loop launched the Riccati kernel")
     fused_launches = solve_batch_fused.launches
@@ -1787,6 +2311,7 @@ def phase_fleet():
         "final_goal_reached_fraction": float(ever_final.float().mean()),
         "min_clearance_m": min(clear),
         "fused_launches_per_tick": expected,
+        "launches_per_tick": per_tick,
         "fused_launches": fused_launches,
         "replay_profiled": prof,
         "fused_stage_share": prof["fused_ms"] / prof["wall_ms"],
@@ -2239,11 +2764,11 @@ def compare_pipelines(card, cpu, tol=PERCEPTION_TOL):
     return int(ok.sum()), torch.nonzero(~ok).flatten().tolist(), worst
 
 
-def trace_kernels(prof):
-    """The card's kernels in a profile (copies and fills apart), in the
-    order they ran."""
+def trace_kernels(prof, copies=False):
+    """The card's kernels in a profile (with ``copies`` its copies and
+    fills too, else without), in the order they ran."""
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
-               and not e.name.startswith(("Memcpy", "Memset"))]
+               and (copies or not e.name.startswith(("Memcpy", "Memset")))]
     return sorted(kernels, key=lambda e: e.time_range.start)
 
 
@@ -2255,12 +2780,13 @@ def find_run(kernels, run):
     return [i for i in range(len(names) - len(want) + 1) if names[i:i + len(want)] == want]
 
 
-def marked_runs(fn, runs):
-    """The card's kernels of ``runs`` calls of ``fn`` under one profile, a
-    list for each call whose kernels lie between two recorded marker
-    kernels (`torch.cuda._sleep`'s `spin_kernel`).  The profiler can lose
-    the first kernels of a trace, so a long spin leads, and a call that
-    begins before the first recorded marker is left out."""
+def marked_runs(fn, runs, copies=False):
+    """The card's kernels (with ``copies`` its copies and fills too) of
+    ``runs`` calls of ``fn`` under one profile, a list for each call whose
+    kernels lie between two recorded marker kernels (`torch.cuda._sleep`'s
+    `spin_kernel`).  The profiler can lose the first kernels of a trace, so
+    a long spin leads, and a call that begins before the first recorded
+    marker is left out: every list is a whole call."""
     import torch
 
     def marked():
@@ -2271,7 +2797,7 @@ def marked_runs(fn, runs):
         torch.cuda._sleep(1000)
 
     _, prof = profile_call(marked)
-    kernels = trace_kernels(prof)
+    kernels = trace_kernels(prof, copies)
     cuts = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
     return [kernels[a + 1:b] for a, b in zip(cuts, cuts[1:]) if b > a + 1]
 
@@ -2310,6 +2836,7 @@ def phase_perception(tmpdir):
                                                                device="cuda")
     tcfg = tracker.TrackerConfig()
     expected = 1 + len(cfg.solver.refine_stages)
+    per_tick = expect(fused=expected, build=1)  # the tick's problem build, then its solve
 
     def tick(variant, env, pstate, f):
         frame = torch.full((1,), f, dtype=torch.int64, device="cuda")
@@ -2341,13 +2868,13 @@ def phase_perception(tmpdir):
         and the next PERCEPTION_EAGER_TICKS also eagerly from the eager
         copy of the state, held bitwise to the replay."""
         s = st[name]
-        before = solve_batch_fused.launches
+        before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s["e"], s["p"], s["info"], s["tracked"] = tick(name, s["e"], s["p"], f)
         s["conv"] = float(s["info"].diagnostics.converged.float().mean())
         ms = (time.perf_counter() - t0) * 1e3
-        s["launches"].append(solve_batch_fused.launches - before)
+        s["launches"].append(moved(before))
         if s["calls"]:
             s["lat"].append(ms)
         else:
@@ -2380,14 +2907,17 @@ def phase_perception(tmpdir):
         fail("the perception tick did not run as one CUDA graph per variant")
     results, traces = {}, {}
     for name, s in st.items():
-        if set(s["launches"]) != {expected}:
-            fail(f"{name}: fused launches per tick {sorted(set(s['launches']))}, "
-                 f"expected {expected}")
+        wrong = [n for n in s["launches"] if n != per_tick]
+        if wrong:
+            fail(f"{name}: launches per tick {wrong[0]} ({len(wrong)} ticks), expected "
+                 f"{per_tick}")
         if len(set(s["compared"])) < PERCEPTION_COMPARED_FRAMES:
             fail(f"{name}: replays held to the eager tick at frames {s['compared']} only")
         prof, traces[name] = profile_call(lambda: tick(name, s["e"], s["p"], s["f"]))
-        if prof["fused_kernels"] != expected:
-            fail(f"{name}: a profiled replay ran {prof['fused_kernels']} fused kernels")
+        traced = traced_launches(lambda: tick(name, s["e"], s["p"], s["f"]))
+        if traced != per_tick:
+            fail(f"{name}: a profiled replay ran {traced} kernels by the trace, expected "
+                 f"{per_tick}")
         lat = np.asarray(s["lat"])
         p50 = float(np.percentile(lat, 50))
         results[name] = {
@@ -2399,8 +2929,9 @@ def phase_perception(tmpdir):
             "converged": s["conv"],
             "tracked_total": (float(s["tracked"].active.sum()) if s["tracked"] is not None
                               else 0.0),
-            "fused_launches_per_tick": expected,
+            "fused_launches_per_tick": expected, "launches_per_tick": per_tick,
             "replay_kernels": prof["kernels"], "replay_fused_kernels": prof["fused_kernels"],
+            "replay_build_ms": prof["build_ms"],
             "replay_busy_ms": prof["busy_ms"], "replay_fused_ms": prof["fused_ms"],
             "replay_idle_share": 1.0 - prof["busy_ms"] / p50}
         log(f"[11] {name}: " + json.dumps(results[name]))
@@ -2548,10 +3079,13 @@ def bitwise_equal(a, b):
 def profile_call(fn):
     """One call of ``fn`` under `torch.profiler`, ended by a synchronise.
     Returns its wall ms, the card's events (kernels apart from copies and
-    fills), busy ms and idle share, the Riccati, fused, split condensation
-    and split step kernels and their ms, the host's synchronisations (`cudaStreamSynchronize` and synchronous
+    fills), busy ms and idle share, the Riccati, fused, split init,
+    condensation, step and diagnostics kernels and the build kernel, and
+    their ms, the host's synchronisations (`cudaStreamSynchronize` and synchronous
     `cudaMemcpy`; the closing `torch.cuda.synchronize` is not one of them)
-    and every CUDA runtime call by name; and the profiler."""
+    and every CUDA runtime call by name; and the profiler.  The profiler
+    can lose a trace's first kernels: hold a call's counted kernels
+    against its counters with `traced_launches`."""
     import collections
 
     import torch
@@ -2564,35 +3098,76 @@ def profile_call(fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    device = [e for e in events if e.device_type.name == "CUDA"]
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
-    riccati = [e for e in kernels if "riccati_kernel" in e.name]
-    fused = [e for e in kernels if "ipm_fused_kernel" in e.name]
-    condense = [e for e in kernels if "condense_kernel" in e.name]
-    step = [e for e in kernels if "step_kernel" in e.name]
+    stats = run_stats([e for e in events if e.device_type.name == "CUDA"])
     runtime = collections.Counter(e.name for e in events
                                   if e.device_type.name == "CPU" and e.name.startswith("cuda"))
-    busy_ms = sum(e.device_time for e in device) / 1e3
-    return {"wall_ms": wall_ms, "device_events": len(device), "kernels": len(kernels),
-            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-            "riccati_kernels": len(riccati),
-            "riccati_ms": sum(e.device_time for e in riccati) / 1e3,
-            "fused_kernels": len(fused), "fused_ms": sum(e.device_time for e in fused) / 1e3,
-            "condense_kernels": len(condense),
-            "condense_ms": sum(e.device_time for e in condense) / 1e3,
-            "step_kernels": len(step), "step_ms": sum(e.device_time for e in step) / 1e3,
+    return {"wall_ms": wall_ms, **stats, "idle_share": 1.0 - stats["busy_ms"] / wall_ms,
             "host_syncs": runtime["cudaStreamSynchronize"] + runtime["cudaMemcpy"],
             "runtime_calls": dict(runtime)}, prof
 
 
+def run_stats(device):
+    """Of a list of the card's events (copies and fills among them): their
+    number, the kernels' (copies and fills apart), busy ms (all of them),
+    and each counted kernel's (`KERNEL_NAMES`) launches and ms."""
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    stats = {"device_events": len(device), "kernels": len(kernels),
+             "busy_ms": sum(e.device_time for e in device) / 1e3}
+    for key, name in KERNEL_NAMES.items():
+        mine = [e for e in kernels if name in e.name]
+        stats[f"{key}_kernels"] = len(mine)
+        stats[f"{key}_ms"] = sum(e.device_time for e in mine) / 1e3
+    return stats
+
+
 def _counters():
-    """The launch counters of the card's kernels on the solve paths."""
-    from kissmpc_tpu_torch.ops import ipm_split
+    """The launch counters of the card's kernels on the solve paths: the
+    fused kernel; the Riccati kernel and the split kernels (init,
+    condensation, step, diagnostics); the problem build."""
+    from kissmpc_tpu_torch.ops import ipm_split, problem_build
     from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
     from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
 
     return {"fused": solve_batch_fused, "riccati": solve_lqr_cuda,
-            "condense": ipm_split.condense_cuda, "step": ipm_split.step_cuda}
+            "condense": ipm_split.condense_cuda, "step": ipm_split.step_cuda,
+            "init": ipm_split.init_cuda, "diagnostics": ipm_split.diagnostics_cuda,
+            "build": problem_build.build_cuda}
+
+
+# The counted kernels' names in a trace, by their counters' names.
+KERNEL_NAMES = {"fused": "ipm_fused_kernel", "riccati": "riccati_kernel",
+                "condense": "condense_kernel", "step": "step_kernel", "init": "init_kernel",
+                "diagnostics": "diagnostics_kernel", "build": "build_kernel"}
+
+
+def traced_launches(fn):
+    """The counted kernels of one call of ``fn`` by the profiler's trace, per
+    counter (`_counters`): the last of two calls between recorded marker
+    kernels (`marked_runs`).  The profiler can lose a trace's first
+    kernels, and a call's first kernel is often a counted one (a tick's
+    build kernel)."""
+    runs = marked_runs(fn, 2)
+    if not runs:
+        fail("no call of a marked profile lies between two recorded markers")
+    return {k: sum(1 for e in runs[-1] if name in e.name) for k, name in KERNEL_NAMES.items()}
+
+
+def expect(**n):
+    """Launches per counter of `_counters`: the given ones, 0 elsewhere."""
+    unknown = set(n) - set(_counters())
+    if unknown:
+        raise KeyError(f"no launch counter named {sorted(unknown)}")
+    return {k: n.get(k, 0) for k in _counters()}
+
+
+def split_solve_launches(iterations, solves=1, predictor=False):
+    """Launches of ``solves`` split `ipm.solve` calls of ``iterations`` IPM
+    iterations in all: per solve one init and one diagnostics launch, per
+    iteration one condensation, one Riccati and one step launch (and one
+    more condensation and Riccati solve for Mehrotra's predictor)."""
+    extra = iterations if predictor else 0
+    return expect(init=solves, diagnostics=solves, condense=iterations + extra,
+                  riccati=iterations + extra, step=iterations)
 
 
 def zero_counts():
@@ -2694,7 +3269,7 @@ def phase_node(tmpdir):
     torch.cuda.synchronize()
     model = loop.model
     iters = model.cfg.solver.iterations
-    per_tick = {"fused": 0, "riccati": iters, "condense": iters, "step": iters}
+    per_tick = split_solve_launches(iters) | {"build": 1}
     tick_counts, new_graphs = counts(), graph.captured() - graphs
     launches = tick_counts["riccati"]
     if tick_counts != {k: n * NODE_TICKS for k, n in per_tick.items()}:
@@ -2747,26 +3322,49 @@ def phase_node(tmpdir):
     with graph.eager():
         eager_prof, prof = profile_call(eager_loop.tick)
     by_op = launches_by_op(prof)
+    # Each replayed tick's wall time and host synchronisations, one profile
+    # each; its kernels and device time from whole ticks between recorded
+    # markers (a profile of one tick can lose its first kernels, the
+    # build's among them).
     replayed = []
     for k in range(NODE_PROFILED):
         odom.publish(poses[-1 - k])
         before = counts()
         stats, _ = profile_call(loop.tick)
-        stats["counted"] = counted = moved(before)
-        stats["ipm_loop_kernels"] = sum(stats[f"{k}_kernels"] for k in ("condense", "riccati",
-                                                                        "step"))
-        replayed.append(stats)
-        log(f"[12] replayed node tick {k} under the profiler: {json.dumps(stats)}")
-        traced = {k: stats[f"{k}_kernels"] for k in per_tick}
-        if not traced == counted == per_tick:
-            fail(f"node: a replayed tick ran {traced} kernels by the trace and {counted} by "
-                 f"the counter, expected {per_tick}")
+        counted = moved(before)
+        replayed.append({key: stats[key] for key in ("wall_ms", "host_syncs", "runtime_calls")}
+                        | {"counted": counted})
+        if counted != per_tick:
+            fail(f"node: a replayed tick ran {counted} kernels by the counter, expected "
+                 f"{per_tick}")
         if stats["host_syncs"] > NODE_LEAVES_READ:
             fail(f"node: a replayed tick synchronised {stats['host_syncs']} times, more than "
                  f"the {NODE_LEAVES_READ} leaves it reads back")
+    poses_left = iter(poses[::-1])
+
+    def marked_tick():
+        odom.publish(next(poses_left))
+        return loop.tick()
+
+    runs = marked_runs(marked_tick, NODE_PROFILED + 1, copies=True)
+    if len(runs) < NODE_PROFILED:
+        fail(f"node: {len(runs)} whole replayed ticks between recorded markers, expected "
+             f"{NODE_PROFILED}")
+    for k, run in enumerate(runs[-NODE_PROFILED:]):
+        stats = run_stats(run)
+        stats["ipm_loop_kernels"] = sum(stats[f"{n}_kernels"] for n in ("condense", "riccati",
+                                                                        "step"))
+        replayed[k].update(stats)
+        log(f"[12] replayed node tick {k} under the profiler: {json.dumps(replayed[k])}")
+        traced = {n: stats[f"{n}_kernels"] for n in KERNEL_NAMES}
+        if traced != per_tick:
+            fail(f"node: a replayed tick ran {traced} kernels by the trace, expected "
+                 f"{per_tick}")
     rep = {key: float(np.median([r[key] for r in replayed]))
-           for key in ("wall_ms", "kernels", "busy_ms", "idle_share", "riccati_ms",
-                       "condense_ms", "step_ms", "ipm_loop_kernels", "host_syncs")}
+           for key in ("wall_ms", "kernels", "busy_ms", "riccati_ms", "condense_ms", "step_ms",
+                       "build_ms", "init_ms", "diagnostics_ms", "ipm_loop_kernels",
+                       "host_syncs")}
+    rep["idle_share"] = 1.0 - rep["busy_ms"] / rep["wall_ms"]
     # Kernels a tick could keep and fit the period, at its mean kernel time.
     keep = int(rep["kernels"] * NODE_PERIOD_MS / rep["busy_ms"])
     result.update(eager_profiled=eager_prof, eager_kernels_per_iteration=
@@ -2782,7 +3380,9 @@ def phase_node(tmpdir):
         f"{rep['idle_share']:.5f}; against the unprofiled p50 "
         f"{result['idle_share_at_p50']:.5f}), {rep['host_syncs']:.0f} host syncs; the IPM "
         f"loop {rep['ipm_loop_kernels']:.0f} kernels: condensation {rep['condense_ms']:.4f} "
-        f"ms, Riccati {rep['riccati_ms']:.4f} ms, step {rep['step_ms']:.4f} ms; at the mean "
+        f"ms, Riccati {rep['riccati_ms']:.4f} ms, step {rep['step_ms']:.4f} ms; build "
+        f"{rep['build_ms']:.4f} ms, init {rep['init_ms']:.4f} ms, diagnostics "
+        f"{rep['diagnostics_ms']:.4f} ms; at the mean "
         f"kernel time {keep} kernels fit the {NODE_PERIOD_MS} ms period; replayed tick p50 "
         f"{p50:.3f} ms, p99 {p99:.3f} ms against it")
 
@@ -3108,7 +3708,8 @@ def phase_utils_cli(tmpdir, cfg, pool):
         # demo solves split (agent.step's program, one CUDA graph), lab
         # through fleet_step (one CUDA graph of the tick, 3 fused launches
         # per replay; its world build's planner fields are graphs too).
-        kernels = {"demo": ("riccati", "condense", "step"), "lab": ("fused",)}.get(name, ())
+        kernels = {"demo": ("build", "init", "riccati", "condense", "step", "diagnostics"),
+                   "lab": ("build", "fused")}.get(name, ())
         if not all(launches[k] for k in kernels):
             fail(f"cli {name} never launched one of the kernels {kernels}: {launches}")
         if name == "demo" and result["demo_graphs"] != 1:
@@ -3274,13 +3875,13 @@ def phase_captured_solver(cfg, pool):
         replay_ms.append(ms)
         equal.append(same(sol))
     launches = counts()
-    per_call = {"fused": 0, "riccati": iters, "condense": iters, "step": iters}
+    per_call = split_solve_launches(iters)
     expected = {k: n * (1 + 2 * CAPTURED_CALLS) for k, n in per_call.items()}
     unchanged = all(bitwise_equal(a, b) for a, b in zip(leaves(first), kept))
     before = counts()
     stats, _ = profile_call(lambda: solve(batch))
     counted = moved(before)
-    traced = {k: stats[f"{k}_kernels"] for k in per_call}
+    traced = traced_launches(lambda: solve(batch))
     result = {"batch": BATCH, "horizon": N, "iterations": iters,
               "graphs_captured": graph.captured() - graphs, "first_call_ms": first_ms,
               "eager_p50_ms": float(np.percentile(eager_ms, 50)),
@@ -3339,6 +3940,9 @@ def main():
     t0 = time.perf_counter()
     split_condense, split_step = phase_split_kernels(split_cfgs, pools)
     log(f"phase 17 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    build, split_init, split_diag = phase_build_once(split_cfgs, pools)
+    log(f"phase 18 took {time.perf_counter() - t0:.3f} s")
     probe = phase_probe()
     fused = phase_fused_kernel(fused_cfgs, pools)
     fused_stages = phase_fused_stages(fused_cfgs, pools)
@@ -3352,6 +3956,8 @@ def main():
     riccati["launches"] = split_launches["riccati"]
     split_condense["launches"] = split_launches["condense"]
     split_step["launches"] = split_launches["step"]
+    split_init["launches"] = split_launches["init"]
+    split_diag["launches"] = split_launches["diagnostics"]
     mehrotra = phase_mehrotra(split_cfgs["free"], pools["free"])
     for name, cfg in fused_cfgs.items():
         idx = torch.as_tensor(np.random.default_rng(1).permutation(POOL)[:BATCH], device="cuda")
@@ -3373,10 +3979,18 @@ def main():
         node = phase_node(tmpdir)
     riccati.update(node_launches_per_tick=node["riccati_launches_per_tick"],
                    node_launches=node["riccati_launches_per_tick"] * node["ticks"])
-    for entry, key in ((split_condense, "condense"), (split_step, "step")):
+    for entry, key in ((split_condense, "condense"), (split_step, "step"), (split_init, "init"),
+                       (split_diag, "diagnostics")):
         entry.update(node_launches_per_tick=node["launches_per_tick"][key],
                      node_launches=node["launches_per_tick"][key] * node["ticks"],
                      mehrotra_launches={m: r["launches"][key] for m, r in mehrotra.items()})
+    # The build's main path is the node tick (this slice's path): one launch
+    # per tick; the fleet and perception ticks build once per tick too.
+    build.update(launches=node["launches_per_tick"]["build"] * node["ticks"],
+                 node_launches_per_tick=node["launches_per_tick"]["build"],
+                 fleet_launches_per_tick=fleet["launches_per_tick"]["build"],
+                 perception_launches_per_tick=perception["with_perception"][
+                     "launches_per_tick"]["build"])
     t0 = time.perf_counter()
     data_parallel = phase_data_parallel(fused_cfgs["k8_dyn2"], pools["k8_dyn2"])
     data_parallel["phase_s"] = t1 = time.perf_counter() - t0
@@ -3392,7 +4006,8 @@ def main():
         f"{captured['phase_s']:.3f} s")
     riccati.update(cli_demo_launches=utils_cli["demo_launches"]["riccati"],
                    captured_solver_launches=captured["riccati_launches"])
-    for entry, key in ((split_condense, "condense"), (split_step, "step")):
+    for entry, key in ((split_condense, "condense"), (split_step, "step"), (split_init, "init"),
+                       (split_diag, "diagnostics"), (build, "build")):
         entry.update(cli_demo_launches=utils_cli["demo_launches"][key],
                      captured_solver_launches=captured["launches"][key])
 
@@ -3420,7 +4035,8 @@ def main():
                     "data_parallel": data_parallel, "lqr_pt": lqr_pt, "utils_cli": utils_cli,
                     "captured_solver": captured,
                     "total_s": time.perf_counter() - t_start}))
-    kernels = [riccati, probe, fused_k8, split_condense, split_step]
+    kernels = [riccati, probe, fused_k8, split_condense, split_step, build, split_init,
+               split_diag]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for entry in kernels:

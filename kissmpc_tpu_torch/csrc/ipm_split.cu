@@ -1,15 +1,19 @@
-// The split IPM iteration around the Riccati kernel, for Hopper (sm_90a):
-// the condensation kernel before the Newton-KKT solve and the step kernel
-// after it.
+// The split IPM solve around the Riccati kernel, for Hopper (sm_90a): the
+// init kernel, per iteration the condensation kernel before the Newton-KKT
+// solve and the step kernel after it, and the diagnostics kernel.
 //
 // Replaces: no TPU kernel.  The reference compiles its split IPM under
 // jax.jit, and XLA fuses the loop body of kissmpc_tpu/solver/ipm.py:407
 // (`_iteration`: `_build_lqr` at :328, the Riccati solve, the steps, the
 // fraction to the boundary, the penalty weight's adjoint sweep, the merit
-// line search and the update) into a few kernels per iteration.  These two
-// kernels are the port's counterpart of that fusion: an iteration is the
-// condensation kernel, csrc/riccati.cu and the step kernel.  Contract: the
-// plain halves `condense_plain` and `step_plain` of
+// line search and the update) into a few kernels per iteration, and the
+// init (`_init_state` at :180 and the first mu) and the diagnostics
+// (`_adaptive_mu` at :817, `_diagnostics` at :715 with its adjoint scan)
+// into a few more per solve.  These four kernels are the port's
+// counterpart of that fusion: a solve is the init kernel, per iteration
+// the condensation kernel, csrc/riccati.cu and the step kernel, then the
+// diagnostics kernel.  Contract: `init_plain`, the plain halves
+// `condense_plain` and `step_plain`, and `diagnostics_plain` of
 // kissmpc_tpu_torch/solver/ipm.py, which each kernel follows step by step.
 // They follow solver/ipm.py, not csrc/ipm_fused.cu: the merit is evaluated
 // anew at alpha = 0, box consistency is evaluated along the step, and the
@@ -49,6 +53,14 @@
 // thread's sums in shared memory and adds them in thread order; so every
 // thread holds the same bits.
 //
+// init_kernel and diagnostics_kernel: one warp per scenario, 4 per block,
+// lanes over stages (a stage's box entries and obstacle constraints); the
+// diagnostics' adjoint sweep on lane 0, chunk by chunk of 32 stages the
+// lanes wrote to shared memory.  Both read the iterate once and write a
+// few values per scenario (init: its slacks, duals and e), bytes-bound
+// in principle; the sweep's chain of N dependent steps bounds the
+// diagnostics at small batches.
+//
 // What bounds them: by bytes, device memory at the batches of the
 // benchmark (a few hundred bytes per element; the card's balance is ~10
 // double operations per byte).  In practice the latency of one scenario's
@@ -65,7 +77,7 @@
 // instance evaluates in float only the merit's transcendentals of float32
 // data, as step_plain does (`Trans`): the log of a trial slack and the
 // trial point's obstacle distance.  sin and cos are this file's own
-// (`sincos_rd`, in double for both).  K (0 included), N, ls_iters
+// (`sincos_rd`, csrc/device_math.cuh, in double for both).  K (0 included), N, ls_iters
 // (1..kMaxLs), the cost modes and the curvature term are runtime
 // parameters, and the Mehrotra correction rows are nullable pointers (all
 // five, or none).  Compiled without fast math: max, min and clip propagate
@@ -77,6 +89,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "device_math.cuh"
+
 // The launchers' argument structs (outside the anonymous namespace, so the
 // extern "C" launchers that take them are exported).
 
@@ -87,6 +101,7 @@ struct SplitParams {
   double dt, tau, ls_backtrack, merit_penalty, reg, rho_e;
   double w0, w1, w2, w_neg, w_pos, w_ang;
   double mu_init, mu_floor, mu_sigma, sigma_cap;
+  double kkt_tol, comp_tol;  // the diagnostics' thresholds, the dtype's floor applied
 };
 
 // The Problem's first ten leaves, in its field order.
@@ -110,6 +125,11 @@ struct CorrPtrs {
   const void *cl, *cu, *xl, *xu, *ob;
 };
 
+// Diagnostics' leaves, in its field order (converged is bool, one byte).
+struct DiagPtrs {
+  void *converged, *stationarity, *feasibility, *complementarity, *final_cost, *final_mu;
+};
+
 // The step's outputs besides the iterate: the next mu and the step length;
 // the merits at alpha = 0 and at each candidate ([B, 1 + ls_iters]) and
 // rho ([B]), both null on the main path (the gates ask for them); the
@@ -120,8 +140,6 @@ struct StepOut {
 
 namespace {
 
-constexpr int kLanes = 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 4;           // warps per scenario of the step kernel at most
 constexpr int kCondenseThreads = 128;  // stages per block of the condensation
 constexpr int kMaxLs = 8;              // line-search candidates at most
@@ -155,67 +173,6 @@ template <> struct Trans<double> {
   __device__ static double log(double x) { return ::log(x); }
   __device__ static double sqrt(double x) { return ::sqrt(x); }
 };
-
-__device__ __forceinline__ double maxp(double a, double b) { return (a > b || a != a) ? a : b; }
-__device__ __forceinline__ double minp(double a, double b) { return (a < b || a != a) ? a : b; }
-__device__ __forceinline__ double clipp(double x, double lo, double hi) {
-  return minp(maxp(x, lo), hi);
-}
-__device__ __forceinline__ bool isfin(double x) { return fabs(x) <= Num<double>::big(); }
-
-// sin and cos of x: a two-part Cody-Waite reduction by pi/2 with FMA, then
-// fdlibm's kernels on [-pi/4, pi/4]; within an ulp or two of the true
-// values for |x| below ~1e15, NaN for |x| >= 5e18, inf and NaN.  CUDA's
-// sin and cos keep a Payne-Hanek reduction for huge arguments in a stack
-// frame; this keeps none.
-__device__ __forceinline__ void sincos_rd(double x, double& s, double& c) {
-  if (!(fabs(x) < 5e18)) {
-    s = c = x - x;  // NaN (inf - inf, or NaN itself)
-    return;
-  }
-  const double k = rint(x * 0.63661977236758134308);
-  double r = fma(-k, 1.5707963267948966, x);
-  r = fma(-k, 6.123233995736766e-17, r);
-  const double z = r * r;
-  const double ps = z * (-1.66666666666666324348e-01 +
-                         z * (8.33333333332248946124e-03 +
-                              z * (-1.98412698298579493134e-04 +
-                                   z * (2.75573137070700676789e-06 +
-                                        z * (-2.50507602534068634195e-08 +
-                                             z * 1.58969099521155010221e-10)))));
-  const double sn = fma(r, ps, r);
-  const double pc = z * (4.16666666666666019037e-02 +
-                         z * (-1.38888888888741095749e-03 +
-                              z * (2.48015872894767294178e-05 +
-                                   z * (-2.75573143513906633035e-07 +
-                                        z * (2.08757232129817482790e-09 +
-                                             z * -1.13596475577881948265e-11)))));
-  const double hz = 0.5 * z, w = 1.0 - hz;
-  const double cs = w + (((1.0 - w) - hz) + z * pc);
-  switch (static_cast<int>(static_cast<long long>(k) & 3)) {
-    case 0: s = sn; c = cs; break;
-    case 1: s = cs; c = -sn; break;
-    case 2: s = -sn; c = -cs; break;
-    default: s = -cs; c = sn; break;
-  }
-}
-
-// Butterfly sum, max and min: every lane ends with the same bits.
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-__device__ __forceinline__ double warp_max(double v) {
-#pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1) v = maxp(v, __shfl_xor_sync(kFull, v, o));
-  return __shfl_sync(kFull, v, 0);
-}
-__device__ __forceinline__ double warp_min(double v) {
-#pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1) v = minp(v, __shfl_xor_sync(kFull, v, o));
-  return __shfl_sync(kFull, v, 0);
-}
 
 // A bound entry: its value with +-inf read as 0, and its finiteness mask.
 struct Bound {
@@ -348,13 +305,6 @@ __device__ __forceinline__ void stage(D* dst, const D* src, long long n, int tid
 template <typename D>
 __device__ __forceinline__ void store_rows(D* dst, const D* src, long long n, int tid, int nthr) {
   for (long long i = tid; i < n; i += nthr) dst[i] = src[i];
-}
-
-template <typename D> __device__ __forceinline__ const D* at(const void* ptr, long long off) {
-  return static_cast<const D*>(ptr) + off;
-}
-template <typename D> __device__ __forceinline__ D* put(void* ptr, long long off) {
-  return static_cast<D*>(ptr) + off;
 }
 
 // ---------------------------------------------------------------------------
@@ -1077,6 +1027,254 @@ step_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
   // Phase clocks: pass 3.
 }
 
+// ---------------------------------------------------------------------------
+// Init and diagnostics, once per solve: one warp per scenario, kOnceWarps
+// scenarios per block.  Lanes take stages (a stage's box entries, its
+// obstacle constraints, its cost and defect); the sums and extremes reduce
+// by a butterfly, so every lane holds the same bits.
+
+constexpr int kOnceWarps = 4;
+// Values of a stage that the diagnostics' lanes hand lane 0's adjoint
+// sweep: gx_L (3), gu_L (2), and of A_t and B_t the entries that are
+// neither 0 nor 1: cos dt, sin dt, -v sin dt, v cos dt.
+constexpr int kSweepValues = 9;
+
+// One slack and dual of the first iterate (solver/ipm.py::_init_state):
+// where the constraint is on, s at its value floored at 1e-2 and nu =
+// mu0 / s, else 1 and 0; both rounded to D as the iterate holds them, and
+// their product and the mask added to the mean complementarity's sums.
+// Returns s.
+template <typename D>
+__device__ __forceinline__ double init_pair(double c, double mask, double mu0, void* s_row,
+                                            void* nu_row, long long off, double& tot,
+                                            double& cnt) {
+  const D s = static_cast<D>(mask > 0.0 ? maxp(c, 1e-2) : 1.0);
+  const D nu = static_cast<D>(mask > 0.0 ? mu0 / static_cast<double>(s) : 0.0);
+  *put<D>(s_row, off) = s;
+  *put<D>(nu_row, off) = nu;
+  tot += mask * static_cast<double>(s) * static_cast<double>(nu);
+  cnt += mask;
+  return s;
+}
+
+// solver/ipm.py::init_plain: the first iterate's slacks, duals, e_ob, reg
+// and sigma, and the first mu (adaptive, or the raw mean complementarity
+// under "pc").  The trajectory is the warm start's, which `it` points at.
+template <typename D>
+__global__ void __launch_bounds__(kOnceWarps * kLanes)
+init_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
+            D* __restrict__ mu_out) {
+  const int lane = threadIdx.x % kLanes;
+  const int b = blockIdx.x * kOnceWarps + threadIdx.x / kLanes;
+  if (b >= p.B) return;  // the whole warp: nothing below waits on it
+  const int N = p.N, K = p.K, T1 = N + 1;
+  const double mu0 = p.mu_init;
+  const D* X = at<D>(it.states, static_cast<long long>(b) * T1 * 3);
+  const D* U = at<D>(it.controls, static_cast<long long>(b) * N * 2);
+  const double infl = *at<D>(pr.infl, b);
+  double tot = 0.0, cnt = 0.0;
+  for (int t = lane; t < T1; t += kLanes) {
+    if (t < N) {
+      const long long urow = (static_cast<long long>(b) * N + t) * 2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const Bound lo = bound(*at<D>(pr.cl, b * 2 + j)), hi = bound(*at<D>(pr.cu, b * 2 + j));
+        const double u = U[t * 2 + j];
+        init_pair<D>(masked(u - lo.val, lo.mask), lo.mask, mu0, it.s_cl, it.nu_cl, urow + j, tot,
+                     cnt);
+        init_pair<D>(masked(hi.val - u, hi.mask), hi.mask, mu0, it.s_cu, it.nu_cu, urow + j, tot,
+                     cnt);
+      }
+    }
+    const long long xrow = (static_cast<long long>(b) * T1 + t) * 3;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const Bound lo = bound(*at<D>(pr.xl, b * 3 + i)), hi = bound(*at<D>(pr.xu, b * 3 + i));
+      const double x = X[t * 3 + i];
+      init_pair<D>(masked(x - lo.val, lo.mask), lo.mask, mu0, it.s_xl, it.nu_xl, xrow + i, tot,
+                   cnt);
+      init_pair<D>(masked(hi.val - x, hi.mask), hi.mask, mu0, it.s_xu, it.nu_xu, xrow + i, tot,
+                   cnt);
+    }
+    if (t >= 1) {
+      const long long orow = (static_cast<long long>(b) * N + t - 1) * K;
+      for (int k = 0; k < K; ++k) {
+        const D* ctr = at<D>(pr.centers, ((static_cast<long long>(b) * K + k) * N + t - 1) * 2);
+        const Ob o = obstacle(X[t * 3], X[t * 3 + 1], ctr[0], ctr[1], *at<D>(pr.radii, b * K + k),
+                              infl, *at<D>(pr.omask, b * K + k));
+        const double s = init_pair<D>(o.c, o.mask, mu0, it.s_ob, it.nu_ob, orow + k, tot, cnt);
+        // Elastic: e solves c + e = s where violated, else sits at mu0 / rho_e.
+        *put<D>(it.e_ob, orow + k) =
+            p.elastic && o.mask > 0.0 ? maxp(s - o.c, mu0 / p.rho_e) : 1.0;
+      }
+    }
+  }
+  tot = warp_sum(tot);
+  cnt = warp_sum(cnt);
+  if (lane == 0) {
+    const D sigma = static_cast<D>(p.mu_sigma);
+    *put<D>(it.reg, b) = static_cast<D>(p.reg);
+    *put<D>(it.sigma, b) = sigma;
+    const double comp = tot / maxp(cnt, 1.0);
+    mu_out[b] = p.raw_mu ? comp : clipp(static_cast<double>(sigma) * comp, p.mu_floor, p.mu_init);
+  }
+}
+
+// A constraint entry's share of the diagnostics: |nu| and the mask for
+// the scaling s_d (the mask also counts the mean complementarity), s nu,
+// the violation and the complementarity.
+struct DiagSums {
+  double nu_sum, cnt, tot, viol, comp;
+};
+__device__ __forceinline__ void diag_entry(double c, double s, double nu, double mask,
+                                           DiagSums& a) {
+  a.nu_sum += mask * fabs(nu);
+  a.cnt += mask;
+  a.tot += mask * s * nu;
+  a.viol = maxp(a.viol, mask * maxp(-c, 0.0));
+  a.comp = maxp(a.comp, mask * fabs(s * nu));
+}
+
+// solver/ipm.py::diagnostics_plain: the final mu (`_adaptive_mu`) and the
+// KKT residuals with adjoint-estimated dynamics multipliers
+// (`_diagnostics`).  The lanes take the stages from the last one down in
+// chunks of 32: each writes its stage's gradients of the Lagrangian and
+// linearisation into the warp's rows in shared memory, then lane 0 carries
+// the adjoint lam through the chunk (r_u = gu_L + B' lam, lam = gx_L +
+// A' lam), in double.  The sums and extremes (s_d's dual sum, the mean
+// complementarity, violation, complementarity, defects, pin, cost) are
+// taken on the way, in double.
+template <typename D>
+__global__ void __launch_bounds__(kOnceWarps * kLanes)
+diagnostics_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
+                   const DiagPtrs out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int b = blockIdx.x * kOnceWarps + warp;
+  if (b >= p.B) return;  // the whole warp: nothing below waits on it
+  double* const rows = reinterpret_cast<double*>(smem) + warp * kLanes * kSweepValues;
+  const int N = p.N, K = p.K, T1 = N + 1;
+  const D* X = at<D>(it.states, static_cast<long long>(b) * T1 * 3);
+  const D* U = at<D>(it.controls, static_cast<long long>(b) * N * 2);
+  const D* goal = at<D>(pr.goal, b * 3);
+  const double infl = *at<D>(pr.infl, b), dt = p.dt;
+  const double w[3] = {p.w0, p.w1, p.w2};
+  DiagSums a{0.0, 0.0, 0.0, 0.0, 0.0};
+  double cost = 0.0, resid = 0.0;  // the objective; the largest defect and pin entry
+  double l0 = 0.0, l1 = 0.0, l2 = 0.0, r_max = 0.0;  // lane 0's adjoint sweep
+  for (int top = N; top >= 0; top -= kLanes) {
+    const int t = top - lane;
+    if (t >= 0) {
+      double* const r = rows + lane * kSweepValues;
+      const double gm = goal_row(t, N, p.exclude_terminal) ? 1.0 : 0.0;
+      const long long xrow = (static_cast<long long>(b) * T1 + t) * 3;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const Bound lo = bound(*at<D>(pr.xl, b * 3 + i)), hi = bound(*at<D>(pr.xu, b * 3 + i));
+        const double x = X[t * 3 + i];
+        const double nu_lo = *at<D>(it.nu_xl, xrow + i), nu_hi = *at<D>(it.nu_xu, xrow + i);
+        diag_entry(masked(x - lo.val, lo.mask), *at<D>(it.s_xl, xrow + i), nu_lo, lo.mask, a);
+        diag_entry(masked(hi.val - x, hi.mask), *at<D>(it.s_xu, xrow + i), nu_hi, hi.mask, a);
+        const double err = x - goal[i];
+        cost += gm * (err * err) * w[i];
+        r[i] = 2.0 * gm * w[i] * err - lo.mask * nu_lo + hi.mask * nu_hi;
+      }
+      if (t >= 1 && K > 0) {
+        const long long orow = (static_cast<long long>(b) * N + t - 1) * K;
+        double gx0 = 0.0, gx1 = 0.0;
+        for (int k = 0; k < K; ++k) {
+          const D* ctr = at<D>(pr.centers, ((static_cast<long long>(b) * K + k) * N + t - 1) * 2);
+          const Ob o = obstacle(X[t * 3], X[t * 3 + 1], ctr[0], ctr[1],
+                                *at<D>(pr.radii, b * K + k), infl, *at<D>(pr.omask, b * K + k));
+          const double nu = *at<D>(it.nu_ob, orow + k);
+          diag_entry(o.c, *at<D>(it.s_ob, orow + k), nu, o.mask, a);
+          gx0 += o.nx * (o.mask * nu);
+          gx1 += o.ny * (o.mask * nu);
+        }
+        r[0] -= gx0;
+        r[1] -= gx1;
+      }
+      if (t < N) {
+        const long long urow = (static_cast<long long>(b) * N + t) * 2;
+        const double v = U[t * 2], om = U[t * 2 + 1];
+        double gu0 = p.reverse_squared ? 2.0 * p.w_neg * minp(v, 0.0)
+                                       : p.w_neg * (v < 0.0 ? 1.0 : 0.0);
+        gu0 = gu0 + 2.0 * p.w_pos * maxp(v, 0.0);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const Bound lo = bound(*at<D>(pr.cl, b * 2 + j)), hi = bound(*at<D>(pr.cu, b * 2 + j));
+          const double u = U[t * 2 + j];
+          const double nu_lo = *at<D>(it.nu_cl, urow + j), nu_hi = *at<D>(it.nu_cu, urow + j);
+          diag_entry(masked(u - lo.val, lo.mask), *at<D>(it.s_cl, urow + j), nu_lo, lo.mask, a);
+          diag_entry(masked(hi.val - u, hi.mask), *at<D>(it.s_cu, urow + j), nu_hi, hi.mask, a);
+          r[3 + j] = (j == 0 ? gu0 : 2.0 * p.w_ang * om) - lo.mask * nu_lo + hi.mask * nu_hi;
+        }
+        const double nv = minp(v, 0.0), pv = maxp(v, 0.0);
+        cost += p.reverse_squared ? p.w_neg * (nv * nv) : p.w_neg * nv;
+        cost += p.w_pos * (pv * pv) + p.w_ang * (om * om);
+        double sth, cth;
+        sincos_rd(X[t * 3 + 2], sth, cth);
+        r[5] = cth * dt;
+        r[6] = sth * dt;
+        r[7] = -v * sth * dt;
+        r[8] = v * cth * dt;
+        const D* X1 = X + (t + 1) * 3;
+        resid = maxp(resid, fabs(X[t * 3] + v * cth * dt - X1[0]));
+        resid = maxp(resid, fabs(X[t * 3 + 1] + v * sth * dt - X1[1]));
+        resid = maxp(resid, fabs(X[t * 3 + 2] + om * dt - X1[2]));
+      }
+      if (t == 0) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          resid = maxp(resid, fabs(static_cast<double>(*at<D>(pr.x0, b * 3 + i)) - X[i]));
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      for (int j = 0; j < kLanes && top - j >= 0; ++j) {
+        const double* r = rows + j * kSweepValues;
+        if (top - j == N) {
+          l0 = r[0];
+          l1 = r[1];
+          l2 = r[2];
+          continue;
+        }
+        const double ru0 = r[3] + (r[5] * l0 + r[6] * l1);
+        const double ru1 = r[4] + dt * l2;
+        r_max = maxp(r_max, maxp(fabs(ru0), fabs(ru1)));
+        const double n2 = r[2] + (r[7] * l0 + r[8] * l1 + l2);
+        l0 = r[0] + l0;
+        l1 = r[1] + l1;
+        l2 = n2;
+      }
+    }
+    __syncwarp();  // the rows are free for the next chunk
+  }
+  a.nu_sum = warp_sum(a.nu_sum);
+  a.cnt = warp_sum(a.cnt);
+  a.tot = warp_sum(a.tot);
+  cost = warp_sum(cost);
+  a.viol = warp_max(a.viol);
+  a.comp = warp_max(a.comp);
+  resid = warp_max(resid);
+  if (lane == 0) {
+    const double sigma = *at<D>(it.sigma, b);
+    const double mu = clipp(sigma * (a.tot / maxp(a.cnt, 1.0)), p.mu_floor, p.mu_init);
+    // IPOPT-style scaling of the dual residual (its s_d, s_max = 100).
+    const double s_d = maxp(a.nu_sum / maxp(a.cnt, 1.0), 100.0) / 100.0;
+    const D stat = static_cast<D>(r_max / s_d);
+    const D feas = static_cast<D>(maxp(resid, a.viol));
+    const D comp_scaled = static_cast<D>(a.comp / s_d);
+    *put<unsigned char>(out.converged, b) =
+        stat < p.kkt_tol && feas < p.kkt_tol && comp_scaled < p.comp_tol ? 1 : 0;
+    *put<D>(out.stationarity, b) = stat;
+    *put<D>(out.feasibility, b) = feas;
+    *put<D>(out.complementarity, b) = static_cast<D>(a.comp);
+    *put<D>(out.final_cost, b) = static_cast<D>(cost);
+    *put<D>(out.final_mu, b) = static_cast<D>(mu);
+  }
+}
+
 template <typename T, bool EL>
 cudaError_t launch_condense(const SplitParams& p, const ProblemPtrs& pr, const IteratePtrs& it,
                             const void* mu, const CorrPtrs& corr, const LqrPtrs& out,
@@ -1162,6 +1360,31 @@ int step(const SplitParams* params, const ProblemPtrs* pr, const IteratePtrs* it
 }
 
 template <typename T>
+int init(const SplitParams* params, const ProblemPtrs* pr, const IteratePtrs* it, void* mu,
+         void* stream) {
+  const SplitParams p = *params;
+  if (p.B <= 0) return 0;
+  const int blocks = (p.B + kOnceWarps - 1) / kOnceWarps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  init_kernel<T><<<blocks, kOnceWarps * kLanes, 0, s>>>(p, *pr, *it, static_cast<T*>(mu));
+  const cudaError_t err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int diagnostics(const SplitParams* params, const ProblemPtrs* pr, const IteratePtrs* it,
+                const DiagPtrs* out, void* stream) {
+  const SplitParams p = *params;
+  if (p.B <= 0) return 0;
+  const int blocks = (p.B + kOnceWarps - 1) / kOnceWarps;
+  const size_t bytes = sizeof(double) * kOnceWarps * kLanes * kSweepValues;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  diagnostics_kernel<T><<<blocks, kOnceWarps * kLanes, bytes, s>>>(p, *pr, *it, *out);
+  const cudaError_t err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+template <typename T>
 int step_occupancy(const SplitParams* params, int corr, int* out) {
   const SplitParams p = *params;
   StepFn<T> fn;
@@ -1215,6 +1438,28 @@ extern "C" int kissmpc_split_step_f64(const SplitParams* p, const ProblemPtrs* p
                                       const CorrPtrs* corr, const IteratePtrs* out,
                                       const StepOut* so, void* stream) {
   return step<double>(p, pr, it, mu, qx, A, dx, du, corr, out, so, stream);
+}
+
+extern "C" int kissmpc_split_init_f32(const SplitParams* p, const ProblemPtrs* pr,
+                                      const IteratePtrs* it, void* mu, void* stream) {
+  return init<float>(p, pr, it, mu, stream);
+}
+
+extern "C" int kissmpc_split_init_f64(const SplitParams* p, const ProblemPtrs* pr,
+                                      const IteratePtrs* it, void* mu, void* stream) {
+  return init<double>(p, pr, it, mu, stream);
+}
+
+extern "C" int kissmpc_split_diagnostics_f32(const SplitParams* p, const ProblemPtrs* pr,
+                                             const IteratePtrs* it, const DiagPtrs* out,
+                                             void* stream) {
+  return diagnostics<float>(p, pr, it, out, stream);
+}
+
+extern "C" int kissmpc_split_diagnostics_f64(const SplitParams* p, const ProblemPtrs* pr,
+                                             const IteratePtrs* it, const DiagPtrs* out,
+                                             void* stream) {
+  return diagnostics<double>(p, pr, it, out, stream);
 }
 
 // Bytes of global scratch per scenario that a step launch of (N, K,

@@ -37,8 +37,9 @@ def _nvcc() -> str:
 
 def build(source: Path, name: str, build_dir: Path = BUILD_DIR,
           flags: tuple[str, ...] = ()) -> Path:
-    """Compile ``source`` (once per source content and ``flags``, extra
-    nvcc options after NVCC_FLAGS) to ``build_dir/lib<name>-<hash>.so``.
+    """Compile ``source`` (once per content of the source and of the
+    headers beside it, and per ``flags``, extra nvcc options after
+    NVCC_FLAGS) to ``build_dir/lib<name>-<hash>.so``.
 
     The library name carries a hash of the source and the flags, so an
     edited kernel is rebuilt and a stale one is never loaded.  The compiler's register and
@@ -46,7 +47,10 @@ def build(source: Path, name: str, build_dir: Path = BUILD_DIR,
     appears by an atomic rename, so concurrent builds never load half a
     file.
     """
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    # The shared headers (csrc/*.cuh) count as part of every source.
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    key = source.read_bytes() + headers + " ".join(flags).encode()
+    digest = hashlib.sha256(key).hexdigest()[:12]
     lib = build_dir / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib

@@ -1,23 +1,27 @@
-"""The split IPM iteration's two CUDA kernels (`csrc/ipm_split.cu`).
+"""The split IPM solve's four CUDA kernels (`csrc/ipm_split.cu`).
 
-On the card every split iteration is three launches: `condense_cuda` (the
-condensed LQR model of the iterate), the Riccati kernel
-(`ops/riccati.py::solve_lqr_cuda`) and `step_cuda` (steps, fraction to the
-boundary, penalty weight, merit line search, update, next mu).  The step
+On the card a split solve is `init_cuda` (the first iterate and mu), then
+per iteration three launches: `condense_cuda` (the condensed LQR model of
+the iterate), the Riccati kernel (`ops/riccati.py::solve_lqr_cuda`) and
+`step_cuda` (steps, fraction to the boundary, penalty weight, merit line
+search, update, next mu), then `diagnostics_cuda` (the final mu and the
+KKT residuals): 1 + 3 x iterations + 1 launches.  The step
 kernel runs one block per scenario, of `step_warps(B, N, K)` warps: one
 where the batch fills the card with small scenarios, four where scenarios
 are large (K=8 at N=50) or the batch is small (the refine batches, the
 node's batch of one).  They are
 the port's counterpart of what XLA fuses of the reference's split
-iteration under `jax.jit` (`kissmpc_tpu/solver/ipm.py:407-714`); there is
-no TPU kernel behind them.  Their plain versions are
-`solver/ipm.py::condense_plain` and `step_plain`.
+solve under `jax.jit` (`kissmpc_tpu/solver/ipm.py:180`, `:407-714`,
+`:715`); there is no TPU kernel behind them.  Their plain versions are
+`solver/ipm.py::init_plain`, `condense_plain`, `step_plain` and
+`diagnostics_plain`.  The init and diagnostics kernels run one warp per
+scenario.
 
 For tensors on the CPU each wrapper runs its plain version; for CUDA
-tensors it launches its kernel or raises, and counts each launch in
-``condense_cuda.launches`` / ``step_cuda.launches`` (registered with
-`graph.counter`, so a replay moves them by the captured count).  The card
-path is `_condense(lib, stream, ...)` / `_step(lib, stream, ...)`: every
+tensors it launches its kernel or raises, and counts each launch in its
+``.launches`` (registered with `graph.counter`, so a replay moves them by
+the captured count).  The card path is `_init`, `_condense`, `_step` and
+`_diagnostics` (each ``(lib, stream, ...)``): every
 host value reaches the kernel as a launch argument made from ``cfg`` and
 the shapes alone, so a CUDA graph captures it, and a CPU test can drive
 it through a stand-in launcher or the g++ build of
@@ -38,7 +42,7 @@ import torch
 from . import _build
 from ..config import MPCConfig
 from ..solver import graph, ipm
-from ..solver.problem import Problem
+from ..solver.problem import Diagnostics, Problem
 from .lqr import LQRData, LQRSolution
 
 SOURCE = _build.CSRC / "ipm_split.cu"
@@ -60,6 +64,7 @@ class _Params(ctypes.Structure):
     )] + [(name, ctypes.c_double) for name in (
         "dt", "tau", "ls_backtrack", "merit_penalty", "reg", "rho_e", "w0", "w1", "w2",
         "w_neg", "w_pos", "w_ang", "mu_init", "mu_floor", "mu_sigma", "sigma_cap",
+        "kkt_tol", "comp_tol",
     )]
 
 
@@ -72,6 +77,7 @@ _IteratePtrs = _pointers("_IteratePtrs", ITERATE_FIELDS)
 _LqrPtrs = _pointers("_LqrPtrs", LQRData._fields)
 _CorrPtrs = _pointers("_CorrPtrs", CORR_FIELDS)
 _StepOut = _pointers("_StepOut", ("mu", "alpha", "merit", "rho", "scratch"))
+_DiagPtrs = _pointers("_DiagPtrs", Diagnostics._fields)
 
 # Warps per scenario of the step kernel: one where the batch fills the card
 # (ONE_WARP_MIN_BATCH: 8 one-warp blocks on each of the 132 SMs) and one
@@ -106,6 +112,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                        + [ctypes.c_void_p] * 5
                        + [ptr(_CorrPtrs), ptr(_IteratePtrs), ptr(_StepOut), ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"kissmpc_split_init_{dt}")
+        fn.argtypes = [ptr(_Params), ptr(_ProblemPtrs), ptr(_IteratePtrs), ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"kissmpc_split_diagnostics_{dt}")
+        fn.argtypes = [ptr(_Params), ptr(_ProblemPtrs), ptr(_IteratePtrs), ptr(_DiagPtrs),
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.kissmpc_split_step_scratch_bytes.argtypes = [ctypes.c_int] * 7
     lib.kissmpc_split_step_scratch_bytes.restype = ctypes.c_longlong
     lib.kissmpc_split_step_occupancy.argtypes = [ptr(_Params), ctypes.c_int, ctypes.c_int,
@@ -135,6 +149,7 @@ def _params(cfg: MPCConfig, B: int, dtype: torch.dtype, warps: int = 1) -> _Para
     warps per scenario alone."""
     sc, cc = cfg.solver, cfg.cost
     w0, w1, w2 = cc.goal_weights
+    kkt_tol, comp_tol = ipm._kkt_tols(cfg, dtype)
     return _Params(
         B=B, N=cfg.horizon, K=cfg.max_obstacles, ls_iters=sc.ls_iters, warps=warps,
         exclude_terminal=int(cc.goal_cost_mode == "exclude_terminal"),
@@ -149,6 +164,7 @@ def _params(cfg: MPCConfig, B: int, dtype: torch.dtype, warps: int = 1) -> _Para
         w_pos=cc.positive_velocity_weight, w_ang=cc.angular_velocity_weight,
         mu_init=sc.mu_init, mu_floor=ipm._mu_floor(cfg, dtype), mu_sigma=sc.mu_sigma,
         sigma_cap=max(sc.mu_sigma_max, sc.mu_sigma),
+        kkt_tol=kkt_tol, comp_tol=comp_tol,
     )
 
 
@@ -161,34 +177,56 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(cfg: MPCConfig, problem: Problem, it, mu, corr) -> tuple:
-    """Validate what both kernels read; return (B, dtype, device)."""
+def _check_problem(cfg: MPCConfig, problem: Problem, B: int, dtype, device,
+                   warm: bool = False) -> None:
+    """Validate the Problem's leaves the kernels read (with ``warm``, the
+    warm start too)."""
     N, K = cfg.horizon, cfg.max_obstacles
-    B = it.states.shape[0]
-    dtype, device = it.states.dtype, it.states.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"the split kernels run on CUDA or CPU tensors, got {device}")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the split kernels take float32 or float64, got {dtype}")
-    if not 1 <= cfg.solver.ls_iters <= MAX_LS_ITERS:
-        raise ValueError(f"the step kernel takes 1 to {MAX_LS_ITERS} line-search candidates, "
-                         f"got ls_iters={cfg.solver.ls_iters}")
-    row = {"cl": (B, N, 2), "cu": (B, N, 2), "xl": (B, N + 1, 3), "xu": (B, N + 1, 3),
-           "ob": (B, N, K)}
     problem_shapes = {
         "initial_state": (B, 3), "goal_state": (B, 3), "control_lower": (B, 2),
         "control_upper": (B, 2), "state_lower": (B, 3), "state_upper": (B, 3),
         "obstacle_centers": (B, K, N, 2), "obstacle_radii": (B, K), "obstacle_mask": (B, K),
         "inflation_radius": (B,),
     }
+    if warm:
+        problem_shapes.update(warm_states=(B, N + 1, 3), warm_controls=(B, N, 2))
     for name, shape in problem_shapes.items():
         _check(f"Problem.{name}", getattr(problem, name), shape, dtype, device)
+
+
+def _family_shapes(cfg: MPCConfig, B: int) -> dict:
+    """Shape of each constraint family's rows (slacks, duals, corrections)."""
+    N, K = cfg.horizon, cfg.max_obstacles
+    return {"cl": (B, N, 2), "cu": (B, N, 2), "xl": (B, N + 1, 3), "xu": (B, N + 1, 3),
+            "ob": (B, N, K)}
+
+
+def _check_iterate(cfg: MPCConfig, it, B: int, dtype, device) -> None:
+    N, K = cfg.horizon, cfg.max_obstacles
+    row = _family_shapes(cfg, B)
     state_shapes = {"states": (B, N + 1, 3), "controls": (B, N, 2), "e_ob": (B, N, K),
                     "reg": (B,), "sigma": (B,),
                     **{f"s_{f}": row[f] for f in CORR_FIELDS},
                     **{f"nu_{f}": row[f] for f in CORR_FIELDS}}
     for name, shape in state_shapes.items():
         _check(f"IPMState.{name}", getattr(it, name), shape, dtype, device)
+
+
+def _check_inputs(cfg: MPCConfig, problem: Problem, it, mu, corr) -> tuple:
+    """Validate what the condensation and the step read; return (B, dtype,
+    device)."""
+    B = it.states.shape[0]
+    dtype, device = it.states.dtype, it.states.device
+    _check_problem(cfg, problem, B, dtype, device)
+    if not 1 <= cfg.solver.ls_iters <= MAX_LS_ITERS:
+        raise ValueError(f"the step kernel takes 1 to {MAX_LS_ITERS} line-search candidates, "
+                         f"got ls_iters={cfg.solver.ls_iters}")
+    row = _family_shapes(cfg, B)
+    _check_iterate(cfg, it, B, dtype, device)
     _check("mu", mu, (B,), dtype, device)
     if corr is not None:
         for f in CORR_FIELDS:
@@ -298,6 +336,72 @@ def _step(lib, stream: int, cfg: MPCConfig, problem: Problem, it, mu, data: LQRD
     return (out, ipm.Merits(merit, rho)) if merits else out
 
 
+def init_cuda(cfg: MPCConfig, problem: Problem):
+    """The solve's first iterate and mu from the warm start of ``problem``:
+    the init kernel for CUDA tensors, `ipm.init_plain` on the CPU.  Returns
+    (`ipm.IPMState`, mu [B]); the iterate's trajectory is the warm start's
+    tensors, as `ipm.init_plain`'s is."""
+    B = problem.initial_state.shape[0]
+    dtype, device = problem.initial_state.dtype, problem.initial_state.device
+    _check_problem(cfg, problem, B, dtype, device, warm=True)
+    if device.type == "cpu":
+        return ipm.init_plain(cfg, problem)
+    with torch.cuda.device(device):
+        return _init(_library(), torch.cuda.current_stream(device).cuda_stream, cfg, problem)
+
+
+def _init(lib, stream: int, cfg: MPCConfig, problem: Problem):
+    """Allocate the first iterate and mu and launch the init on ``stream``
+    through ``lib``."""
+    B, dtype = problem.initial_state.shape[0], problem.initial_state.dtype
+    N, K = cfg.horizon, cfg.max_obstacles
+    kw = dict(dtype=dtype, device=problem.initial_state.device)
+    row = lambda *shape: torch.empty((B, *shape), **kw)  # noqa: E731
+    it = ipm.IPMState(problem.warm_states, problem.warm_controls,
+                      row(N, 2), row(N, 2), row(N + 1, 3), row(N + 1, 3), row(N, K),
+                      row(N, 2), row(N, 2), row(N + 1, 3), row(N + 1, 3), row(N, K),
+                      row(N, K), row(), row())
+    mu = row()
+    pr, ip, _ = _structs(problem, it, None)
+    fn = lib.kissmpc_split_init_f32 if dtype == torch.float32 else lib.kissmpc_split_init_f64
+    err = fn(ctypes.byref(_params(cfg, B, dtype)), ctypes.byref(pr), ctypes.byref(ip),
+             mu.data_ptr(), stream)
+    _build.check_launch(lib, err, "split init kernel")
+    init_cuda.launches += 1
+    return it, mu
+
+
+def diagnostics_cuda(cfg: MPCConfig, problem: Problem, it) -> Diagnostics:
+    """The solve's `Diagnostics` at the last iterate ``it`` (the final mu and
+    the KKT residuals): the diagnostics kernel for CUDA tensors,
+    `ipm.diagnostics_plain` on the CPU."""
+    B, dtype, device = it.states.shape[0], it.states.dtype, it.states.device
+    _check_problem(cfg, problem, B, dtype, device)
+    _check_iterate(cfg, it, B, dtype, device)
+    if device.type == "cpu":
+        return ipm.diagnostics_plain(cfg, problem, it)
+    with torch.cuda.device(device):
+        return _diagnostics(_library(), torch.cuda.current_stream(device).cuda_stream, cfg,
+                            problem, it)
+
+
+def _diagnostics(lib, stream: int, cfg: MPCConfig, problem: Problem, it) -> Diagnostics:
+    """Allocate the Diagnostics and launch the diagnostics on ``stream``
+    through ``lib``."""
+    B, dtype = it.states.shape[0], it.states.dtype
+    kw = dict(dtype=dtype, device=it.states.device)
+    out = Diagnostics(torch.empty((B,), dtype=torch.bool, device=it.states.device),
+                      *(torch.empty((B,), **kw) for _ in range(5)))
+    pr, ip, _ = _structs(problem, it, None)
+    fn = (lib.kissmpc_split_diagnostics_f32 if dtype == torch.float32
+          else lib.kissmpc_split_diagnostics_f64)
+    err = fn(ctypes.byref(_params(cfg, B, dtype)), ctypes.byref(pr), ctypes.byref(ip),
+             ctypes.byref(_DiagPtrs(*(x.data_ptr() for x in out))), stream)
+    _build.check_launch(lib, err, "split diagnostics kernel")
+    diagnostics_cuda.launches += 1
+    return out
+
+
 def step_occupancy(cfg: MPCConfig, B: int, dtype: torch.dtype = torch.float32,
                    corr: bool = False, warps: int | None = None) -> dict:
     """The launch shape of a step of ``B`` scenarios of ``cfg`` on the
@@ -317,5 +421,7 @@ def step_occupancy(cfg: MPCConfig, B: int, dtype: torch.dtype = torch.float32,
             "scenarios_per_sm": blocks, "registers": regs, "local_bytes": local}
 
 
+graph.counter(init_cuda)
 graph.counter(condense_cuda)
 graph.counter(step_cuda)
+graph.counter(diagnostics_cuda)

@@ -17,8 +17,10 @@ step kernels of `ops/ipm_split.py` around the Riccati kernel
 (`ops/riccati.solve_lqr_cuda`), three launches and no host work between
 them, the counterpart of what XLA fuses of the reference's iteration under
 `jax.jit`; on CPU tensors the plain halves and `ops/lqr.py`.
-`solve_plain` runs the plain halves on any device.  Init and diagnostics,
-once per solve, are plain PyTorch.  ``mehrotra`` "pc" (affine probe, then
+`solve_plain` runs the plain halves on any device.  Init (`init_plain`)
+and the diagnostics (`diagnostics_plain`), once per solve, are two more
+kernels of `ops/ipm_split.py` on the card, the counterpart of what XLA
+fuses of the reference's init and diagnostics.  ``mehrotra`` "pc" (affine probe, then
 the corrected solve at sigma = (mu_aff / mu)^3) and "soc" (the centred
 solve, then one corrected re-solve at the same mu) add one condensation
 and one Riccati solve per iteration (`_predictor`, whose glue is plain
@@ -641,14 +643,9 @@ def _diagnostics(cfg: MPCConfig, problem: Problem, it: IPMState, mu) -> Diagnost
     feasibility = torch.maximum(
         torch.maximum(_amax(torch.abs(d)), _amax(torch.abs(pin))), viol
     )
-    eps = torch.finfo(it.states.dtype).eps
-    tol = max(cfg.solver.kkt_tol, 50.0 * eps ** 0.5)
+    tol, comp_tol = _kkt_tols(cfg, it.states.dtype)
     comp_scaled = comp / s_d
-    converged = (
-        (stationarity < tol)
-        & (feasibility < tol)
-        & (comp_scaled < max(10.0 * cfg.solver.mu_min, tol))
-    )
+    converged = (stationarity < tol) & (feasibility < tol) & (comp_scaled < comp_tol)
     final_cost = costs.total_cost(cfg.cost, it.states, it.controls, problem.goal_state)
     return Diagnostics(
         converged=converged,
@@ -670,6 +667,13 @@ def _mean_complementarity(it: IPMState, masks: _Masks) -> torch.Tensor:
     return total / torch.clamp(count, min=1.0)
 
 
+def _kkt_tols(cfg: MPCConfig, dtype) -> tuple[float, float]:
+    """`converged`'s thresholds: (stationarity and feasibility, scaled
+    complementarity), no tighter than 50 sqrt(eps) of ``dtype``."""
+    tol = max(cfg.solver.kkt_tol, 50.0 * torch.finfo(dtype).eps ** 0.5)
+    return tol, max(10.0 * cfg.solver.mu_min, tol)
+
+
 def _mu_floor(cfg: MPCConfig, dtype) -> float:
     """The barrier floor respects the dtype (50 eps), as in the reference."""
     return max(cfg.solver.mu_min, 50.0 * torch.finfo(dtype).eps)
@@ -689,37 +693,56 @@ def _next_mu(cfg: MPCConfig, it: IPMState, masks: _Masks) -> torch.Tensor:
     return _adaptive_mu(cfg, it, masks)
 
 
+def init_plain(cfg: MPCConfig, problem: Problem):
+    """The solve's first iterate and mu: `_init_state` (slacks at the warm
+    start's constraint values floored at 1e-2, duals on the central path,
+    e_ob for elastic obstacles, reg and sigma at their settings) and the
+    first `_next_mu`.  The plain version of the init kernel
+    (`ops/ipm_split.py`).  Returns (IPMState, mu [B])."""
+    it = _init_state(cfg, problem)
+    return it, _next_mu(cfg, it, _constraint_masks(cfg, problem, it.states.dtype))
+
+
+def diagnostics_plain(cfg: MPCConfig, problem: Problem, it: IPMState) -> Diagnostics:
+    """The solve's `Diagnostics` at its last iterate: `_adaptive_mu` (the
+    final mu, adaptive under every ``mehrotra`` mode) and `_diagnostics`.
+    The plain version of the diagnostics kernel (`ops/ipm_split.py`)."""
+    masks = _constraint_masks(cfg, problem, it.states.dtype)
+    return _diagnostics(cfg, problem, it, _adaptive_mu(cfg, it, masks))
+
+
 def _contiguous(problem: Problem) -> Problem:
     return Problem(*(x.contiguous() for x in problem))
 
 
-def _solve(cfg: MPCConfig, problem: Problem, condense, lqr, step) -> Solution:
+def _solve(cfg: MPCConfig, problem: Problem, condense, lqr, step, init=init_plain,
+           diagnostics=diagnostics_plain) -> Solution:
     _check_supported(cfg)
     pin_full_f32()
     with torch.no_grad():
-        it = _init_state(cfg, problem)
-        masks = _constraint_masks(cfg, problem, it.states.dtype)
-        mu = _next_mu(cfg, it, masks)
+        it, mu = init(cfg, problem)
         for _ in range(cfg.solver.iterations):
             it, mu, _ = _iteration(cfg, problem, it, mu, condense, lqr, step)
-        diag = _diagnostics(cfg, problem, it, _adaptive_mu(cfg, it, masks))
+        diag = diagnostics(cfg, problem, it)
     return Solution(states=it.states, controls=it.controls, diagnostics=diag)
 
 
 def solve(cfg: MPCConfig, problem: Problem) -> Solution:
     """Solve a batch of MPC scenarios ([B] leading axis on every leaf) on
-    the device its tensors lie on, in their dtype.  Each iteration is the
-    condensation, the Newton-KKT solve and the step: on the card the two
-    kernels of `ops/ipm_split.py` around the Riccati kernel
-    (`ops/riccati.py`), three launches; on the CPU their plain versions
-    (`condense_plain`, `ops/lqr.py`, `step_plain`), as the wrappers decide
-    by device.  Float32 matrix products on the card are pinned to full
-    float32 (no TF32)."""
+    the device its tensors lie on, in their dtype.  On the card the solve
+    is the init kernel, per iteration the condensation, the Riccati kernel
+    (`ops/riccati.py`) and the step, then the diagnostics kernel: 1 + 3 x
+    iterations launches (`ops/ipm_split.py`; Mehrotra's predictor adds its
+    condensation, Riccati solve and plain glue).  On the CPU the wrappers
+    run their plain versions (`init_plain`, `condense_plain`, `ops/lqr.py`,
+    `step_plain`, `diagnostics_plain`), as they decide by device.  Float32
+    matrix products on the card are pinned to full float32 (no TF32)."""
     return _solve(cfg, _contiguous(problem), ipm_split.condense_cuda, solve_lqr_cuda,
-                  ipm_split.step_cuda)
+                  ipm_split.step_cuda, ipm_split.init_cuda, ipm_split.diagnostics_cuda)
 
 
 def solve_plain(cfg: MPCConfig, problem: Problem) -> Solution:
-    """`solve` by the plain halves and the plain `ops/lqr.py::solve_lqr`, on
+    """`solve` by the plain versions (`init_plain`, `condense_plain`, the
+    plain `ops/lqr.py::solve_lqr`, `step_plain`, `diagnostics_plain`), on
     any device: the plain version of the whole split solve."""
     return _solve(cfg, problem, condense_plain, solve_lqr, step_plain)

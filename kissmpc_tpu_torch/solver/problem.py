@@ -16,6 +16,15 @@ import torch
 from .._device import constant, resolve_device
 from ..config import MPCConfig
 
+# `default_problem`'s bounds (`EgoAgent`'s, `mpc/agent.py:104-105`): the
+# control box ((v_lb, v_ub), (omega_lb, omega_ub)) and the state box on x
+# (and y).  `problem_with_obstacles`' sensor radius and completion
+# threshold.  The build kernel's card path takes its defaults from here.
+CONTROL_BOUNDS = ((-0.2, 0.5), (-0.5, 0.5))
+STATE_BOUNDS = (-20.0, 20.0)
+SENSOR_RADIUS = 5.0
+COMPLETION_THRESHOLD = 0.05
+
 
 class Problem(NamedTuple):
     """A batch of MPC scenarios (leading axis B on every leaf)."""
@@ -230,8 +239,8 @@ def default_problem(
     initial_state,
     goal_state,
     *,
-    control_bounds=((-0.2, 0.5), (-0.5, 0.5)),
-    state_bounds=(-20.0, 20.0),
+    control_bounds=CONTROL_BOUNDS,
+    state_bounds=STATE_BOUNDS,
     obstacle_centers=None,
     obstacle_radii=None,
     obstacle_mask=None,
@@ -302,87 +311,31 @@ def problem_with_obstacles(
     goal_state,
     obstacles,
     *,
-    sensor_radius: float = 5.0,
+    sensor_radius: float = SENSOR_RADIUS,
     prediction_dt: float | None = None,
     repair_warm_start_states: bool = True,
     complete_warm_start_states: bool = True,
-    completion_threshold: float = 0.05,
+    completion_threshold: float = COMPLETION_THRESHOLD,
     **kwargs,
 ) -> Problem:
     """Build a batch of Problems from a batched `ObstacleSet` ([B, K_all]
-    leaves): sensor top-K filter, constant-velocity track prediction,
-    warm-start repair, and the feasibility rollout where the repair moved
-    the warm start by more than ``completion_threshold`` (see the
-    reference docstring for why the threshold matters).
+    leaves, or a shared set broadcast to B): sensor top-K filter,
+    constant-velocity track prediction, warm-start repair, and the
+    feasibility rollout where the repair moved the warm start by more than
+    ``completion_threshold`` (see the reference docstring for why the
+    threshold matters).  ``kwargs`` are `default_problem`'s (bounds,
+    inflation, warm start, dtype, device).  On the card one launch of the
+    build kernel (`ops/problem_build.py::build_cuda`), on the CPU its plain
+    version `build_plain`, by ``device`` as the other wrappers decide.
     """
-    from ..obstacles import obstacles as obs_mod
+    from ..ops import problem_build
 
-    dtype = kwargs.get("dtype", torch.float32)
-    dev = resolve_device(kwargs.get("device"))
-    initial_state = torch.as_tensor(initial_state, dtype=dtype, device=dev).reshape(-1, 3)
-    nearest = obs_mod.select_nearest(
-        obstacles, initial_state[:, :2], sensor_radius, cfg.max_obstacles
-    )
-    dt = obs_mod.PREDICTION_DT if prediction_dt is None else prediction_dt
-    tracks = obs_mod.predict_tracks(nearest, cfg.horizon, dt)
-    problem = default_problem(
-        cfg,
-        initial_state,
-        goal_state,
-        obstacle_centers=tracks,
-        obstacle_radii=nearest.radius,
-        obstacle_mask=nearest.active,
+    return problem_build.build_cuda(
+        cfg, initial_state, goal_state, obstacles,
+        sensor_radius=sensor_radius,
+        prediction_dt=prediction_dt,
+        repair_warm_start_states=repair_warm_start_states,
+        complete_warm_start_states=complete_warm_start_states,
+        completion_threshold=completion_threshold,
         **kwargs,
-    )
-    if cfg.max_obstacles == 0 or not (
-        repair_warm_start_states or complete_warm_start_states
-    ):
-        return problem
-    if repair_warm_start_states:
-        repaired = repair_warm_start(
-            problem.warm_states,
-            problem.obstacle_centers,
-            problem.obstacle_radii,
-            problem.obstacle_mask,
-            problem.inflation_radius,
-        )
-    else:
-        repaired = problem.warm_states
-    if not complete_warm_start_states:
-        return problem._replace(warm_states=repaired)
-    if repair_warm_start_states:
-        moved = torch.amax(torch.abs(repaired - problem.warm_states), dim=(1, 2))
-    else:
-        diff = problem.warm_states[:, 1:, None, :2] - problem.obstacle_centers.transpose(1, 2)
-        dist = torch.sqrt(torch.sum(diff * diff, dim=-1))  # [B, N, K]
-        intrusion = (
-            problem.obstacle_radii[:, None, :]
-            + problem.inflation_radius[:, None, None]
-            - dist
-        )
-        moved = torch.amax(
-            torch.where(
-                problem.obstacle_mask[:, None, :] > 0.5,
-                intrusion,
-                torch.zeros_like(intrusion),
-            ),
-            dim=(1, 2),
-        )
-    rolled_states, rolled_controls = complete_warm_start(
-        repaired,
-        problem.initial_state,
-        problem.control_lower,
-        problem.control_upper,
-        problem.obstacle_centers,
-        problem.obstacle_radii,
-        problem.obstacle_mask,
-        problem.inflation_radius,
-        cfg.time_step,
-    )
-    roll = moved > completion_threshold
-    return problem._replace(
-        warm_states=torch.where(roll[:, None, None], rolled_states, repaired),
-        warm_controls=torch.where(
-            roll[:, None, None], rolled_controls, problem.warm_controls
-        ),
     )

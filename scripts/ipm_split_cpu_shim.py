@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""The split iteration's kernels run on the CPU, one thread per CUDA
-thread, against their plain halves; optionally under AddressSanitizer or
-ThreadSanitizer.
+"""The split solve's kernels and the problem build run on the CPU, one
+thread per CUDA thread, against their plain versions; optionally under
+AddressSanitizer or ThreadSanitizer.
 
     python3 scripts/ipm_split_cpu_shim.py [--sanitize address|thread]
 
 No GPU and no nvcc are needed, only g++ (C++20).  The script compiles
-`kissmpc_tpu_torch/csrc/ipm_split.cu` into a temporary directory with a
+`kissmpc_tpu_torch/csrc/ipm_split.cu` and `csrc/problem_build.cu` into a
+temporary directory with a
 small header in place of `cuda_runtime.h`: every CUDA thread is a
 `std::thread`; the lanes of a warp exchange shuffled values through the
-warp's slots between two waits on its `std::barrier`; a launch runs the
+warp's slots between two waits on its `std::barrier` (`__syncwarp` waits
+on it once); a launch runs the
 blocks one after another with `blockIdx`, `threadIdx` and `blockDim` set;
 `__syncthreads()` waits on the block's `std::barrier`, and the block's
 dynamic shared memory is exactly the launch's bytes, filled with NaN.
@@ -27,8 +29,15 @@ Each case runs in the wrapper's layout for its batch (a block of several
 warps per scenario); cases at N=7 and N=40 also force one warp per
 scenario and a block of 2 warps, and one at N=400 takes the step's arena
 in global scratch.
-Last, a whole split solve through the shim kernels is held against
-`ipm.solve_plain` at a few iterations (float64).
+The init and diagnostics kernels are held against `ipm.init_plain` and
+`ipm.diagnostics_plain` by chip_smoke.py's `once_kernels_check` (cases as
+CASES, one at N=40 for two chunks of the diagnostics' sweep), and the
+build kernel against `ops/problem_build.py::build_plain` by its
+`build_kernel_check` (repair and completion on and off, K=0, K_all > K, a
+shared stride-0 set, the start tiled; one case at N=50, K=8).  Last, a
+whole split solve through the shim kernels (init, iterations,
+diagnostics) is held against `ipm.solve_plain` at a few iterations
+(float64).
 
 With ``--sanitize address`` the build and the run use AddressSanitizer: a
 read or write past an input or output row is reported.  With ``--sanitize
@@ -67,6 +76,7 @@ SHIM = r"""
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
+using std::atan2;
 using std::fabs;
 using std::fma;
 using std::pow;
@@ -94,6 +104,8 @@ template <class F> int cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
   a->localSizeBytes = 0;
   return 0;
 }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "shim"; }
 struct ShimWarp {
@@ -104,6 +116,7 @@ thread_local ShimWarp* shim_warp;
 thread_local std::barrier<>* shim_block;
 thread_local unsigned char* shim_smem;
 inline void __syncthreads() { shim_block->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp->bar.arrive_and_wait(); }
 template <class V> V shim_exchange(V v, int src) {
   static_assert(sizeof(V) <= sizeof(unsigned long long));
   const int lane = static_cast<int>(threadIdx.x) % 32;
@@ -146,32 +159,50 @@ void shim_launch(Kern kernel, int blocks, int threads, size_t bytes, cudaStream_
 SMEM = "  extern __shared__ __align__(16) unsigned char smem[];\n"
 
 
-def shim_source(text):
+# Per source: (kernels with dynamic shared memory, kernel launches).
+SOURCES = {"ipm_split.cu": (3, 4), "problem_build.cu": (0, 1)}
+
+
+def shim_source(text, name="ipm_split.cu"):
     """The kernels' source with the shim in place of the CUDA runtime."""
+    smem, launches = SOURCES[name]
     if text.count("#include <cuda_runtime.h>\n") != 1:
-        raise SystemExit("ipm_split_cpu_shim: cuda_runtime.h is not included once")
+        raise SystemExit(f"ipm_split_cpu_shim: cuda_runtime.h is not included once in {name}")
     text = text.replace("#include <cuda_runtime.h>\n", SHIM)
-    if text.count(SMEM) != 2:
-        raise SystemExit("ipm_split_cpu_shim: the two kernels' shared memory is not declared once each")
+    if text.count(SMEM) != smem:
+        raise SystemExit(f"ipm_split_cpu_shim: {name} does not declare {smem} kernels' shared "
+                         f"memory once each")
     text = text.replace(SMEM, "  unsigned char* const smem = shim_smem;\n")
     text, n = re.subn(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", r"shim_launch(\1, \2, ", text)
-    if n != 2:
-        raise SystemExit(f"ipm_split_cpu_shim: {n} kernel launches in ipm_split.cu, expected 2")
+    if n != launches:
+        raise SystemExit(f"ipm_split_cpu_shim: {n} kernel launches in {name}, expected {launches}")
     return text
 
 
-def build(tmp, sanitize=None):
-    from kissmpc_tpu_torch.ops import ipm_split
-
-    src = Path(tmp) / "ipm_split_shim.cpp"
-    src.write_text(shim_source(ipm_split.SOURCE.read_text()))
-    out = Path(tmp) / "libipm_split_shim.so"
+def _compile(tmp, source, sanitize):
+    src = Path(tmp) / f"{source.stem}_shim.cpp"
+    src.write_text(shim_source(source.read_text(), source.name))
+    out = Path(tmp) / f"lib{source.stem}_shim.so"
     flags = ["-std=c++20", "-O1", "-g", "-pthread", "-shared", "-fPIC", "-w",
-             "-fno-strict-aliasing"]
+             "-fno-strict-aliasing", f"-I{source.parent}"]  # csrc's shared headers
     if sanitize:
         flags.append(f"-fsanitize={sanitize}")
     subprocess.run(["g++", *flags, str(src), "-o", str(out)], check=True)
-    return ipm_split.bind(ctypes.CDLL(str(out)))
+    return ctypes.CDLL(str(out))
+
+
+def build(tmp, sanitize=None):
+    """The g++ build of `csrc/ipm_split.cu` (its launchers bound)."""
+    from kissmpc_tpu_torch.ops import ipm_split
+
+    return ipm_split.bind(_compile(tmp, ipm_split.SOURCE, sanitize))
+
+
+def build_problem(tmp, sanitize=None):
+    """The g++ build of `csrc/problem_build.cu` (its launchers bound)."""
+    from kissmpc_tpu_torch.ops import problem_build
+
+    return problem_build.bind(_compile(tmp, problem_build.SOURCE, sanitize))
 
 
 # (name, N, K, batch, iterations before the checked one, solver fields,
@@ -225,7 +256,6 @@ def run_cases(lib, cases=CASES, dtypes=None, warps=None):
     wrapper's choice if None): (ok, a line for the log) per case."""
     import torch
 
-    sys.path.insert(0, str(ROOT))
     import chip_smoke
 
     out = []
@@ -240,11 +270,86 @@ def run_cases(lib, cases=CASES, dtypes=None, warps=None):
     return out
 
 
+# The init and diagnostics kernels, as CASES (the diagnostics on the iterate
+# after the given plain iterations): hard and elastic, K=0 and K=4,
+# Mehrotra "pc" (whose first mu is the raw mean complementarity), both cost
+# modes; each in float32 and float64.
+ONCE_CASES = (
+    ("free", 12, 0, 5, 4, {}, {}),
+    ("k4", 12, 4, 9, 4, {"mu_sigma_max": 0.7}, {}),
+    ("k4_elastic", 12, 4, 9, 4, {"elastic_obstacles": True}, {}),
+    ("k4_pc", 12, 4, 6, 3, {"mehrotra": "pc"}, {}),
+    ("k4_exclude_linear", 10, 4, 6, 3, {},
+     {"goal_cost_mode": "exclude_terminal", "reverse_penalty_mode": "linear"}),
+)
+# Run by the script alone: 41 stages, two chunks of the diagnostics' sweep.
+ONCE_LONG_CASES = (("k3_n40", 40, 3, 3, 3, {"mu_sigma_max": 0.7}, {}),)
+
+# The build kernel: (name, N, K, batch, obstacles per scenario K_all, one set
+# shared by all, a warm start along the segment, keywords): repair and
+# completion on and off, K_all > K, a shared stride-0 set, the start tiled
+# with the default prediction dt, a zero completion threshold, K=0.  The
+# plan's step is BUILD_DT, so that the warm path crosses the circles and
+# most scenarios are rolled out.
+BUILD_DT = 0.5
+BUILD_CASES = (
+    ("k4", 12, 4, 8, 4, False, True, {}),
+    ("k4_kall7", 12, 4, 8, 7, False, True, {}),
+    ("k4_shared", 12, 4, 8, 6, True, True, {}),
+    ("k4_no_repair", 12, 4, 8, 4, False, True, {"repair_warm_start_states": False}),
+    ("k4_no_completion", 12, 4, 8, 4, False, True, {"complete_warm_start_states": False}),
+    ("k4_neither", 12, 4, 8, 4, False, True,
+     {"repair_warm_start_states": False, "complete_warm_start_states": False}),
+    ("k4_cold", 12, 4, 8, 5, False, False, {"prediction_dt": None}),
+    ("k4_threshold0", 10, 4, 6, 4, False, True, {"completion_threshold": 0.0}),
+    ("k0", 12, 0, 8, 3, False, True, {}),
+)
+BUILD_LONG_CASES = (("k8_n50", 50, 8, 6, 10, False, True, {}),)
+
+
+def run_once_cases(lib, cases=ONCE_CASES, dtypes=None):
+    """The init and diagnostics kernels on each case in each dtype: (ok, a
+    line for the log) per case."""
+    import torch
+
+    import chip_smoke
+
+    out = []
+    for name, n, K, batch, iters, solver, cost in cases:
+        cfg = config(n, K, solver, cost)
+        for dtype in dtypes or (torch.float32, torch.float64):
+            res = chip_smoke.once_kernels_check(cfg, problems(cfg, batch, dtype), iters, lib, 0)
+            label = f"{name} N={n} K={K} B={batch} {str(dtype)[6:]}"
+            out.append((res["ok"], f"{label}: {chip_smoke.describe_once_check(res)}"))
+    return out
+
+
+def run_build_cases(lib, cases=BUILD_CASES, dtypes=None, seed=7):
+    """The build kernel on each case in each dtype: (ok, a line) per case."""
+    import torch
+
+    import chip_smoke
+
+    out = []
+    for name, n, K, batch, k_all, shared, warm, options in cases:
+        cfg = config(n, K, {}, {}).replace(time_step=BUILD_DT)
+        for dtype in dtypes or (torch.float32, torch.float64):
+            inputs = chip_smoke.build_inputs(cfg, batch, seed, k_all=k_all, shared=shared,
+                                             warm=warm, dtype=dtype, device="cpu")
+            res = chip_smoke.build_kernel_check(cfg, inputs, lib, 0, **options)
+            label = f"build {name} N={n} K={K} K_all={k_all} B={batch} {str(dtype)[6:]}"
+            out.append((res["ok"], f"{label}: {chip_smoke.describe_build_check(res)}"))
+    return out
+
+
 def solve_through(lib, cfg, pr):
     """The split solve with the shim build's kernels in place of the card's."""
     from kissmpc_tpu_torch.ops import ipm_split
     from kissmpc_tpu_torch.ops.lqr import solve_lqr
     from kissmpc_tpu_torch.solver import ipm
+
+    def init(cfg, problem):
+        return ipm_split._init(lib, 0, cfg, problem)
 
     def condense(cfg, problem, it, mu, corr=None):
         return ipm_split._condense(lib, 0, cfg, problem, it, mu, corr)
@@ -252,12 +357,16 @@ def solve_through(lib, cfg, pr):
     def step(cfg, problem, it, mu, data, sol, corr=None):
         return ipm_split._step(lib, 0, cfg, problem, it, mu, data, sol, corr)
 
-    return ipm._solve(cfg, ipm._contiguous(pr), condense, solve_lqr, step)
+    def diagnostics(cfg, problem, it):
+        return ipm_split._diagnostics(lib, 0, cfg, problem, it)
+
+    return ipm._solve(cfg, ipm._contiguous(pr), condense, solve_lqr, step, init, diagnostics)
 
 
 def check_solve(lib, name="k4", iterations=6):
-    """A whole float64 solve through the shim kernels against `solve_plain`:
-    states and controls within 1e-7."""
+    """A whole float64 solve through the shim kernels (init, the iterations,
+    diagnostics) against `solve_plain`: states, controls and every
+    diagnostic within 1e-7 of its scale (at least 1), converged equal."""
     import torch
 
     from kissmpc_tpu_torch.solver import ipm
@@ -266,11 +375,14 @@ def check_solve(lib, name="k4", iterations=6):
     cfg = config(n, K, {**solver, "iterations": iterations}, cost)
     pr = problems(cfg, batch, torch.float64)
     got, ref = solve_through(lib, cfg, pr), ipm.solve_plain(cfg, pr)
-    err = max(float((got.states - ref.states).abs().max()),
-              float((got.controls - ref.controls).abs().max()))
-    ok = err <= 1e-7
+    pairs = [(got.states, ref.states), (got.controls, ref.controls)]
+    pairs += list(zip(got.diagnostics[1:], ref.diagnostics[1:]))
+    err = max(float(((g - r).abs() / r.abs().clamp(min=1.0)).max()) for g, r in pairs)
+    same = bool(torch.equal(got.diagnostics.converged, ref.diagnostics.converged))
+    ok = err <= 1e-7 and same
     return ok, (f"solve {name} float64, {iterations} iterations: max|shim-plain| {err:.3e} "
-                f"(limit 1e-7) {'passes' if ok else 'FAILS'}")
+                f"of the scale (limit 1e-7), converged {'equal' if same else 'DIFFERS'} "
+                f"{'passes' if ok else 'FAILS'}")
 
 
 def main():
@@ -295,6 +407,9 @@ def main():
         for warps in LAYOUTS:
             results += run_cases(lib, LAYOUT_CASES + LONG_CASES, warps=warps)
         results += run_cases(lib, GLOBAL_CASES)
+        results += run_once_cases(lib, ONCE_CASES + ONCE_LONG_CASES)
+        results += run_build_cases(build_problem(tmp, args.sanitize),
+                                   BUILD_CASES + BUILD_LONG_CASES)
         for ok, line in results + [check_solve(lib)]:
             print(line, flush=True)
             if not ok:

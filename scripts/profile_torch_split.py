@@ -21,13 +21,18 @@ The script wraps the split IPM's functions from outside, by replacing the
 attributes of `kissmpc_tpu_torch.solver.ipm` with `record_function` ranges
 around them (the program itself carries no tracing), and splits each
 call's kernels and device milliseconds by the innermost range that
-launched them: the problem build (the tick outside `ipm.solve`), init
-(`_init_state`), mu (`_adaptive_mu`, `_mean_complementarity`),
-condensation (`condense_cuda`, or `_build_lqr` where the tree has it),
-Riccati (`solve_lqr_cuda`), step (`step_cuda`), the rest of an iteration
+launched them: the problem build (`ops/problem_build.py::build_cuda`, its
+kernel; on a tree without it, the tick outside `ipm.solve`,
+"outside_solve"), init (`init_cuda`, its kernel and the first mu; or
+`_init_state`), mu (`_adaptive_mu`, `_mean_complementarity`, on a tree
+whose init and diagnostics are plain PyTorch), condensation
+(`condense_cuda`, or `_build_lqr` where the tree has it), Riccati
+(`solve_lqr_cuda`), step (`step_cuda`), the rest of an iteration
 (`_iteration` outside those: on a tree without `step_cuda` it holds the
 whole step, on one with it the Mehrotra glue), diagnostics
-(`_diagnostics`) and the rest of the solve.  It prints one JSON line per
+(`diagnostics_cuda`, or `_diagnostics`) and the rest of the solve.  Run
+it from another tree's root (a copy of the script in its `scripts/`) to
+profile that tree: the ranges it lacks are skipped.  It prints one JSON line per
 cell: the card, the call's wall ms, the card's busy ms and idle share, the
 kernel count, the split, and the kernels that take the most device time.
 With ``--replays R`` each cell then runs as its CUDA graph: the first call
@@ -49,20 +54,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # Range label -> the attributes it wraps, "module:name" (those the tree has;
 # `solver.ipm` calls each through its module).
 RANGES = {
+    "build": ("ops.problem_build:build_cuda",),
     "solve": ("solver.ipm:solve",),
-    "init": ("solver.ipm:_init_state",),
+    "init": ("ops.ipm_split:init_cuda", "solver.ipm:_init_state"),
     "mu": ("solver.ipm:_adaptive_mu", "solver.ipm:_mean_complementarity"),
     "iteration_rest": ("solver.ipm:_iteration",),
     "condensation": ("ops.ipm_split:condense_cuda", "solver.ipm:_build_lqr"),
     "riccati": ("solver.ipm:solve_lqr_cuda",),
     "step": ("ops.ipm_split:step_cuda",),
-    "diagnostics": ("solver.ipm:_diagnostics",),
+    "diagnostics": ("ops.ipm_split:diagnostics_cuda", "solver.ipm:_diagnostics"),
 }
 PREFIX = "split::"
 # The profiler does not always link a kernel launched through ctypes to
 # the range around its launch; such kernels go to their range by name.
 BY_NAME = {"riccati_kernel": "riccati", "condense_kernel": "condensation",
-           "step_kernel": "step"}
+           "step_kernel": "step", "build_kernel": "build", "init_kernel": "init",
+           "diagnostics_kernel": "diagnostics"}
 
 
 def wrap_ipm():

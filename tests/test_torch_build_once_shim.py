@@ -1,0 +1,91 @@
+"""The problem build, init and diagnostics kernels, rehearsed on the CPU from
+their own sources.
+
+`scripts/ipm_split_cpu_shim.py` compiles `kissmpc_tpu_torch/csrc/ipm_split.cu`
+and `csrc/problem_build.cu` with g++ behind a header that stands in for the
+CUDA runtime (a `std::thread` per CUDA thread, a `std::barrier` per warp
+around each shuffle and `__syncwarp`, the blocks of a launch one after
+another).  Here the wrappers' own card paths (`ops/ipm_split.py::_init`,
+`_diagnostics`, `ops/problem_build.py::_launch`) drive those builds on CPU
+tensors, held against the plain versions by chip_smoke.py's gates:
+
+- init and diagnostics (`once_kernels_check`): hard and elastic, K=0 and
+  K=4, "pc", both cost modes; every field of each scenario within 1e-4 of
+  its scale plus twice the plain version's own f32-vs-f64 gap in float32,
+  1e-9 of its scale in float64; ``converged`` differs on at most
+  `chip_smoke.allowed_flips` scenarios: twice the plain version's own
+  flips an ulp away (with the initial state moved one ulp either way; on
+  these CPU tensors its CPU evaluation is the one held to), at most a
+  quarter of the batch;
+- the build (`build_kernel_check`): repair and completion on and off, a
+  zero completion threshold, K=0 and K=4, K_all > K, one set shared by
+  every scenario at stride 0, the start tiled with the default prediction
+  dt; every Problem field by the same gate, a scenario outside it counted
+  as a discrete flip, at most `chip_smoke.allowed_flips` by the same
+  witness (the start moved one ulp);
+- a whole float64 split solve through the shim kernels (init, the
+  iterations' condensation and step around the plain Riccati solve,
+  diagnostics) within 1e-7 of `ipm.solve_plain`, elastic and "pc".
+
+The tests skip where g++ is missing; they cannot see what only the card
+shows (ptxas, a refused launch, speed).
+"""
+
+import importlib.util
+import shutil
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tests run beside others in parallel
+    workers, where many threads per worker only contend for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _shim_module():
+    spec = importlib.util.spec_from_file_location(
+        "ipm_split_cpu_shim", ROOT / "scripts" / "ipm_split_cpu_shim.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def shim(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (C++20) to compile the kernels' sources for the CPU")
+    module = _shim_module()
+    tmp = tmp_path_factory.mktemp("build_once_shim")
+    return module, module.build(tmp), module.build_problem(tmp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", _shim_module().ONCE_CASES, ids=lambda c: c[0])
+def test_shim_init_and_diagnostics_match_plain(shim, case, dtype):
+    module, lib, _ = shim
+    [(ok, line)] = module.run_once_cases(lib, cases=(case,), dtypes=(dtype,))
+    assert ok, line
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", _shim_module().BUILD_CASES, ids=lambda c: c[0])
+def test_shim_build_matches_plain(shim, case, dtype):
+    module, _, lib = shim
+    [(ok, line)] = module.run_build_cases(lib, cases=(case,), dtypes=(dtype,))
+    assert ok, line
+
+
+@pytest.mark.parametrize("name", ["k4_elastic", "k4_pc"])
+def test_shim_solve_matches_solve_plain(shim, name):
+    module, lib, _ = shim
+    ok, line = module.check_solve(lib, name)
+    assert ok, line
