@@ -932,6 +932,29 @@ def describe_split_check(res):
             f"{'passes' if res['ok'] else 'FAILS'}")
 
 
+def init_gate(cfg, problems, lib, stream):
+    """The init kernel, launched through ``lib`` on ``stream`` by the
+    wrapper's card path (`ops/ipm_split.py::_init`), on the warm start of
+    ``problems`` against `ipm.init_plain`: the new iterate's slacks, duals,
+    e_ob, reg, sigma and the first mu, each field of each scenario by
+    `split_field_gate`.  Returns the gate, with the kernel's mu ("mu")."""
+    import torch
+
+    from kissmpc_tpu_torch.ops import ipm_split
+    from kissmpc_tpu_torch.solver import ipm
+
+    problems = ipm._contiguous(problems)
+    f32 = problems.initial_state.dtype == torch.float32
+    other = torch.float64 if f32 else torch.float32
+    with torch.no_grad():
+        got_it, got_mu = ipm_split._init(lib, stream, cfg, problems)
+        ref_it, ref_mu = ipm.init_plain(cfg, problems)
+        oth_it, oth_mu = ipm.init_plain(cfg, _cast(problems, other))
+    fields = [(f, getattr(got_it, f), getattr(ref_it, f), getattr(oth_it, f))
+              for f in ref_it._fields[2:]]
+    return {**split_field_gate(fields + [("mu", got_mu, ref_mu, oth_mu)], f32), "mu": got_mu}
+
+
 def once_kernels_check(cfg, problems, iterations, lib, stream):
     """The split solve's init and diagnostics kernels, launched through
     ``lib`` on ``stream`` by the wrapper's card path
@@ -963,13 +986,8 @@ def once_kernels_check(cfg, problems, iterations, lib, stream):
     dtype = problems.initial_state.dtype
     f32 = dtype == torch.float32
     other = torch.float64 if f32 else torch.float32
+    igate = init_gate(cfg, problems, lib, stream)
     with torch.no_grad():
-        got_it, got_mu = ipm_split._init(lib, stream, cfg, problems)
-        ref_it, ref_mu = ipm.init_plain(cfg, problems)
-        oth_it, oth_mu = ipm.init_plain(cfg, _cast(problems, other))
-        fields = [(f, getattr(got_it, f), getattr(ref_it, f), getattr(oth_it, f))
-                  for f in ref_it._fields[2:]]
-        igate = split_field_gate(fields + [("mu", got_mu, ref_mu, oth_mu)], f32)
         it, _ = split_iterate(cfg, problems, iterations)
         got_d = ipm_split._diagnostics(lib, stream, cfg, problems, it)
         ref_d = ipm.diagnostics_plain(cfg, problems, it)
@@ -1000,7 +1018,7 @@ def describe_once_check(res):
 
 
 def build_inputs(cfg, batch, seed, *, k_all=None, shared=False, warm=True, n_dynamic=2,
-                 dtype=None, device="cuda"):
+                 tie=None, dtype=None, device="cuda"):
     """Inputs of `problem_with_obstacles` from a numpy seed: starts and goals
     (`scenarios.sample_endpoints`), ``k_all`` circles per scenario
     straddling the start-goal segment (`scenarios.sample_obstacle_field`,
@@ -1009,7 +1027,10 @@ def build_inputs(cfg, batch, seed, *, k_all=None, shared=False, warm=True, n_dyn
     `agent.build_problem` passes it) with ``shared``, and with ``warm`` a
     warm start along the straight segment through the circles (which the
     repair pushes out and the completion rolls out) and random controls.
-    Returns (initial_state, goal_state, obstacles, keywords)."""
+    With ``tie`` obstacle 1 of every scenario takes obstacle 0's position
+    and radius ("keys": the sensor's keys tie, the tracks differ) or every
+    leaf ("caps": the rollout's speed caps tie too).  Returns
+    (initial_state, goal_state, obstacles, keywords)."""
     import torch
 
     from kissmpc_tpu_torch.obstacles.obstacles import ObstacleSet
@@ -1027,6 +1048,11 @@ def build_inputs(cfg, batch, seed, *, k_all=None, shared=False, warm=True, n_dyn
     active = (rng.uniform(size=(batch, k_all)) > 0.125).astype(np.float32)
     t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)  # noqa: E731
     leaves = [t(centers), t(radii), t(orient), t(v), t(turn), t(active)]
+    if tie not in (None, "keys", "caps"):
+        raise ValueError(f"unknown tie {tie!r}")
+    for i, x in enumerate(leaves if tie else ()):
+        if tie == "caps" or i < 2:  # position and radius; or every leaf
+            x[:, 1] = x[:, 0]
     if shared:
         leaves = [x[0].expand((batch,) + x.shape[1:]) for x in leaves]
     kw = dict(sensor_radius=2.5, prediction_dt=cfg.time_step, inflation_radius=0.25,
@@ -1377,6 +1403,30 @@ def fleet_inputs(dtype):
                  _cast(obstacles, dtype), kw)
 
 
+def perception_inputs(dtype):
+    """The problem build's inputs at the perception tick's first tick
+    (phase 11's configuration and worlds, B=PERCEPTION_BATCH), in
+    `build_inputs`' form: the agents' plans and the static circles, which
+    the solver-only tick hands `agent.build_problem` as they are and the
+    perception tick with TRACK_CAPACITY tracked slots joined; (cfg,
+    inputs)."""
+    from kissmpc_tpu_torch.agent import current_state
+    from kissmpc_tpu_torch.scenarios import episode_worlds
+
+    cfg, params = perception_config()
+    env, static = episode_worlds(cfg, PERCEPTION_BATCH, n_waypoints=2, seed=0, n_dynamic=0,
+                                 route_around_obstacles=True, router="grid", device="cuda")
+    agent = env.agent
+    kw = dict(sensor_radius=params.sensor_radius, prediction_dt=params.prediction_dt,
+              control_bounds=params.control_bounds, state_bounds=params.state_bounds,
+              inflation_radius=params.inflation_radius,
+              warm_states=agent.states_matrix.to(dtype),
+              warm_controls=agent.controls_matrix.to(dtype),
+              complete_warm_start_states=params.complete_warm_starts, dtype=dtype, device="cuda")
+    return cfg, (current_state(agent).to(dtype), agent.goal_state.to(dtype),
+                 _cast(static, dtype), kw)
+
+
 def build_bound(cfg, inputs, rolled, dtype):
     """(bound ms, "bytes" or "operations", bytes, operations) of one build of
     ``inputs`` (`build_inputs`' form) in which ``rolled`` scenarios are
@@ -1448,10 +1498,11 @@ def once_bound(cfg, batch, dtype, kernel):
 def phase_build_once(split_cfgs, pools):
     """Phase 18: the problem build kernel against `build_plain`
     (`build_kernel_check`) on the pool's inputs (K=8, N=50, B=POOL), the
-    fleet loop's first tick (B=4096), the node's (N=7, B=1, 6 obstacles
-    for 4 slots, a warm start through them) and NODE_BUILD_BATCH
-    node-shaped scenarios (where one discrete flip is not the whole batch);
-    the init and diagnostics
+    fleet loop's first tick (B=4096), the perception tick's (B=2048), the
+    node's (N=7, B=1, 6 obstacles for 4 slots, a warm start through them)
+    and NODE_BUILD_BATCH node-shaped scenarios (where one discrete flip is
+    not the whole batch), each with its launch shape and residency; the
+    init and diagnostics
     kernels against `ipm.init_plain` and `ipm.diagnostics_plain`
     (`once_kernels_check`, the diagnostics on the iterate after
     SPLIT_CHECK_ITERATIONS plain iterations) at k8_dyn2's B=8192 and the
@@ -1475,6 +1526,7 @@ def phase_build_once(split_cfgs, pools):
     build_rows = []
     for label, dtype in (("pool", torch.float32), ("pool", torch.float64),
                          ("fleet", torch.float32), ("fleet", torch.float64),
+                         ("perception", torch.float32), ("perception", torch.float64),
                          ("node", torch.float32), ("node", torch.float64),
                          ("node batch", torch.float32), ("node batch", torch.float64)):
         options = {}
@@ -1482,6 +1534,8 @@ def phase_build_once(split_cfgs, pools):
             cfg, inputs = k8, pool_inputs(k8, POOL, 0, dtype)
         elif label == "fleet":
             cfg, inputs = fleet_inputs(dtype)
+        elif label == "perception":
+            cfg, inputs = perception_inputs(dtype)
         else:
             cfg = node
             batch = 1 if label == "node" else NODE_BUILD_BATCH
@@ -1489,9 +1543,14 @@ def phase_build_once(split_cfgs, pools):
             options = dict(sensor_radius=5.0, prediction_dt=None)
         res = build_kernel_check(cfg, inputs, blib, stream(), **options)
         torch.cuda.synchronize()
-        B = res["B"]
+        B, k_all = res["B"], inputs[2].position.shape[-2]
+        occ = problem_build.occupancy(cfg, k_all, B, dtype)
         log(f"[18] build kernel, {label} {res['dtype']} B={B} N={cfg.horizon} K={cfg.max_obstacles}"
-            f" K_all={inputs[2].position.shape[-2]}: {describe_build_check(res)}")
+            f" K_all={k_all}: {describe_build_check(res)}; {occ['registers']} registers, "
+            f"{occ['local_bytes']} local bytes per thread, {occ['scenarios_per_block']} scenarios "
+            f"and {occ['smem_bytes_per_block']} shared bytes per block"
+            f"{' (rows in global scratch)' if occ['global_rows'] else ''}, "
+            f"{occ['scenarios_per_sm']} scenarios resident per SM")
         if not res["ok"]:
             fail(f"the build kernel disagrees with build_plain ({label}, {res['dtype']}, B={B})")
         start, goal, obstacles, kw = res["launched"]
@@ -1501,6 +1560,7 @@ def phase_build_once(split_cfgs, pools):
                              reps=3, warmup=1)
         bound_ms, bound_by, n_bytes, ops = build_bound(cfg, inputs, res["rolled"], dtype)
         build_rows.append({"case": label, "dtype": res["dtype"], "B": B, "N": cfg.horizon,
+                           "K_all": k_all, "occupancy": occ,
                            "flips": res["flips"], "witness_flips": res["plain_flips"],
                            "allowed_flips": res["allowed"],
                            "rolled": res["rolled"], "ms": ms, "plain_ms": plain_ms,

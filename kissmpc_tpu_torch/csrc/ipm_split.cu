@@ -53,13 +53,18 @@
 // thread's sums in shared memory and adds them in thread order; so every
 // thread holds the same bits.
 //
-// init_kernel and diagnostics_kernel: one warp per scenario, 4 per block,
-// lanes over stages (a stage's box entries and obstacle constraints); the
-// diagnostics' adjoint sweep on lane 0, chunk by chunk of 32 stages the
-// lanes wrote to shared memory.  Both read the iterate once and write a
-// few values per scenario (init: its slacks, duals and e), bytes-bound
-// in principle; the sweep's chain of N dependent steps bounds the
-// diagnostics at small batches.
+// init_kernel: one block of kInitWarps warps per scenario, so that a
+// refine stage's grid covers the card; the threads take each family's
+// entries by flat index, so every store of a warp covers consecutive
+// values.  It reads the warm start and writes the slacks, duals and e of
+// every entry: bytes-bound.
+//
+// diagnostics_kernel: one warp per scenario, 4 per block, lanes over
+// stages (a stage's box entries and obstacle constraints); the adjoint
+// sweep on lane 0, chunk by chunk of 32 stages the lanes wrote to shared
+// memory.  It reads the iterate once and writes a few values per
+// scenario, bytes-bound in principle; the sweep's chain of N dependent
+// steps bounds it at small batches.
 //
 // What bounds them: by bytes, device memory at the batches of the
 // benchmark (a few hundred bytes per element; the card's balance is ~10
@@ -249,55 +254,6 @@ __device__ __forceinline__ void elastic_step(const Elastic& el, double mask, dou
 // The goal cost's row mask: states 1..N ("full") or 1..N-1.
 __device__ __forceinline__ bool goal_row(int t, int N, int exclude_terminal) {
   return t >= 1 && (!exclude_terminal || t <= N - 1);
-}
-
-// One value, or 16 bytes, from global memory to dst: ASYNC by cp.async into
-// shared memory (the block waits with copies_done), else a load and a
-// store (a global arena).
-template <bool ASYNC, typename D> __device__ __forceinline__ void copy_one(D* dst, const D* src) {
-#ifdef __CUDA_ARCH__
-  if (ASYNC) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                 "l"(src), "n"(sizeof(D)));
-    return;
-  }
-#endif
-  *dst = *src;
-}
-template <bool ASYNC, typename D> __device__ __forceinline__ void copy_vec(D* dst, const D* src) {
-#ifdef __CUDA_ARCH__
-  if (ASYNC) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                 "l"(src));
-    return;
-  }
-#endif
-  memcpy(dst, src, 16);
-}
-__device__ __forceinline__ void copies_done() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
-
-// The block's threads copy n values from global memory to dst: in 16-byte
-// copies where dst and src lie at the same offset from a 16-byte boundary
-// (the values before the first boundary and after the last one alone),
-// value by value otherwise.
-template <bool ASYNC, typename D>
-__device__ __forceinline__ void stage(D* dst, const D* src, long long n, int tid, int nthr) {
-  constexpr int V = 16 / sizeof(D);
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  const bool vec = ((reinterpret_cast<uintptr_t>(dst) ^ a) & 15) == 0;
-  long long head = vec ? static_cast<long long>((16 - a % 16) % 16 / sizeof(D)) : n;
-  if (head > n) head = n;
-  const long long nv = (n - head) / V;
-  for (long long i = tid; i < head; i += nthr) copy_one<ASYNC>(dst + i, src + i);
-  for (long long i = tid; i < nv; i += nthr)
-    copy_vec<ASYNC>(dst + head + i * V, src + head + i * V);
-  for (long long i = head + nv * V + tid; i < n; i += nthr) copy_one<ASYNC>(dst + i, src + i);
 }
 
 // The block's threads copy n values to global memory: consecutive threads
@@ -1028,90 +984,109 @@ step_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
 }
 
 // ---------------------------------------------------------------------------
-// Init and diagnostics, once per solve: one warp per scenario, kOnceWarps
-// scenarios per block.  Lanes take stages (a stage's box entries, its
-// obstacle constraints, its cost and defect); the sums and extremes reduce
-// by a butterfly, so every lane holds the same bits.
+// Init and diagnostics, once per solve.  The diagnostics: one warp per
+// scenario, kOnceWarps scenarios per block; lanes take stages (a stage's
+// box entries, its obstacle constraints, its cost and defect); the sums
+// and extremes reduce by a butterfly, so every lane holds the same bits.
 
 constexpr int kOnceWarps = 4;
 // Values of a stage that the diagnostics' lanes hand lane 0's adjoint
 // sweep: gx_L (3), gu_L (2), and of A_t and B_t the entries that are
 // neither 0 nor 1: cos dt, sin dt, -v sin dt, v cos dt.
 constexpr int kSweepValues = 9;
+// The init's warps per scenario, at every batch.
+constexpr int kInitWarps = 4;
 
 // One slack and dual of the first iterate (solver/ipm.py::_init_state):
 // where the constraint is on, s at its value floored at 1e-2 and nu =
-// mu0 / s, else 1 and 0; both rounded to D as the iterate holds them, and
-// their product and the mask added to the mean complementarity's sums.
-// Returns s.
+// mu0 / s, else 1 and 0; both rounded to D as the iterate holds them.
+// Returns s; adds mask * s * nu to ``tot``.
 template <typename D>
 __device__ __forceinline__ double init_pair(double c, double mask, double mu0, void* s_row,
-                                            void* nu_row, long long off, double& tot,
-                                            double& cnt) {
+                                            void* nu_row, long long off, double& tot) {
   const D s = static_cast<D>(mask > 0.0 ? maxp(c, 1e-2) : 1.0);
   const D nu = static_cast<D>(mask > 0.0 ? mu0 / static_cast<double>(s) : 0.0);
   *put<D>(s_row, off) = s;
   *put<D>(nu_row, off) = nu;
   tot += mask * static_cast<double>(s) * static_cast<double>(nu);
-  cnt += mask;
   return s;
 }
 
 // solver/ipm.py::init_plain: the first iterate's slacks, duals, e_ob, reg
 // and sigma, and the first mu (adaptive, or the raw mean complementarity
 // under "pc").  The trajectory is the warm start's, which `it` points at.
+//
+// One block of kInitWarps warps per scenario.  The threads take the
+// scenario's entries by flat index, family by family (the controls' box
+// entries, [N, 2]; the states', [N+1, 3]; the obstacle constraints,
+// [N, K]), so consecutive threads read and store consecutive values of
+// every row.  The obstacle constraints read their centers ([K, N, 2]) in
+// (stage, obstacle) order, 2 N values apart across a warp: a scenario's
+// centers are a few KB that the block reads whole, so L1 serves all but
+// the first read of each sector (a copy into shared memory first was
+// slower, PERF.md section 6).  Each thread sums its entries' shares of
+// the complementarity in registers; a butterfly within each warp and the
+// warps' partials in warp order give the sum, in one fixed order for the
+// block.  The count of constraints that are on follows from the bounds'
+// finiteness and the mask alone.
 template <typename D>
-__global__ void __launch_bounds__(kOnceWarps * kLanes)
+__global__ void __launch_bounds__(kInitWarps * kLanes)
 init_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
             D* __restrict__ mu_out) {
-  const int lane = threadIdx.x % kLanes;
-  const int b = blockIdx.x * kOnceWarps + threadIdx.x / kLanes;
-  if (b >= p.B) return;  // the whole warp: nothing below waits on it
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* const part = reinterpret_cast<double*>(smem);  // [kInitWarps]
+  constexpr int nthr = kInitWarps * kLanes;
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.x;
   const int N = p.N, K = p.K, T1 = N + 1;
+  const int n_u = 2 * N, n_x = 3 * T1;
   const double mu0 = p.mu_init;
-  const D* X = at<D>(it.states, static_cast<long long>(b) * T1 * 3);
-  const D* U = at<D>(it.controls, static_cast<long long>(b) * N * 2);
+  const D* X = at<D>(it.states, b * T1 * 3);
+  const D* U = at<D>(it.controls, b * n_u);
   const double infl = *at<D>(pr.infl, b);
-  double tot = 0.0, cnt = 0.0;
-  for (int t = lane; t < T1; t += kLanes) {
-    if (t < N) {
-      const long long urow = (static_cast<long long>(b) * N + t) * 2;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const Bound lo = bound(*at<D>(pr.cl, b * 2 + j)), hi = bound(*at<D>(pr.cu, b * 2 + j));
-        const double u = U[t * 2 + j];
-        init_pair<D>(masked(u - lo.val, lo.mask), lo.mask, mu0, it.s_cl, it.nu_cl, urow + j, tot,
-                     cnt);
-        init_pair<D>(masked(hi.val - u, hi.mask), hi.mask, mu0, it.s_cu, it.nu_cu, urow + j, tot,
-                     cnt);
-      }
-    }
-    const long long xrow = (static_cast<long long>(b) * T1 + t) * 3;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const Bound lo = bound(*at<D>(pr.xl, b * 3 + i)), hi = bound(*at<D>(pr.xu, b * 3 + i));
-      const double x = X[t * 3 + i];
-      init_pair<D>(masked(x - lo.val, lo.mask), lo.mask, mu0, it.s_xl, it.nu_xl, xrow + i, tot,
-                   cnt);
-      init_pair<D>(masked(hi.val - x, hi.mask), hi.mask, mu0, it.s_xu, it.nu_xu, xrow + i, tot,
-                   cnt);
-    }
-    if (t >= 1) {
-      const long long orow = (static_cast<long long>(b) * N + t - 1) * K;
-      for (int k = 0; k < K; ++k) {
-        const D* ctr = at<D>(pr.centers, ((static_cast<long long>(b) * K + k) * N + t - 1) * 2);
-        const Ob o = obstacle(X[t * 3], X[t * 3 + 1], ctr[0], ctr[1], *at<D>(pr.radii, b * K + k),
-                              infl, *at<D>(pr.omask, b * K + k));
-        const double s = init_pair<D>(o.c, o.mask, mu0, it.s_ob, it.nu_ob, orow + k, tot, cnt);
-        // Elastic: e solves c + e = s where violated, else sits at mu0 / rho_e.
-        *put<D>(it.e_ob, orow + k) =
-            p.elastic && o.mask > 0.0 ? maxp(s - o.c, mu0 / p.rho_e) : 1.0;
-      }
-    }
+  double tot = 0.0;  // this thread's entries' shares
+  // Init family: controls.
+  for (int g = tid; g < n_u; g += nthr) {
+    const Bound lo = bound(*at<D>(pr.cl, b * 2 + g % 2)), hi = bound(*at<D>(pr.cu, b * 2 + g % 2));
+    const double u = U[g];
+    const long long off = b * n_u + g;
+    init_pair<D>(masked(u - lo.val, lo.mask), lo.mask, mu0, it.s_cl, it.nu_cl, off, tot);
+    init_pair<D>(masked(hi.val - u, hi.mask), hi.mask, mu0, it.s_cu, it.nu_cu, off, tot);
+  }
+  // Init family: states.
+  for (int e = tid; e < n_x; e += nthr) {
+    const Bound lo = bound(*at<D>(pr.xl, b * 3 + e % 3)), hi = bound(*at<D>(pr.xu, b * 3 + e % 3));
+    const double x = X[e];
+    const long long off = b * n_x + e;
+    init_pair<D>(masked(x - lo.val, lo.mask), lo.mask, mu0, it.s_xl, it.nu_xl, off, tot);
+    init_pair<D>(masked(hi.val - x, hi.mask), hi.mask, mu0, it.s_xu, it.nu_xu, off, tot);
+  }
+  // Init family: obstacles.
+  for (int e = tid; e < N * K; e += nthr) {
+    const int t = e / K + 1, k = e % K;
+    const D* c = at<D>(pr.centers, ((b * K + k) * N + t - 1) * 2);
+    const Ob o = obstacle(X[t * 3], X[t * 3 + 1], c[0], c[1], *at<D>(pr.radii, b * K + k), infl,
+                          *at<D>(pr.omask, b * K + k));
+    const long long off = b * N * K + e;
+    const double s = init_pair<D>(o.c, o.mask, mu0, it.s_ob, it.nu_ob, off, tot);
+    // Elastic: e solves c + e = s where violated, else sits at mu0 / rho_e.
+    *put<D>(it.e_ob, off) = p.elastic && o.mask > 0.0 ? maxp(s - o.c, mu0 / p.rho_e) : 1.0;
   }
   tot = warp_sum(tot);
-  cnt = warp_sum(cnt);
-  if (lane == 0) {
+  if (tid % kLanes == 0) part[tid / kLanes] = tot;
+  __syncthreads();  // the warps' partials are in
+  if (tid == 0) {
+    tot = part[0];
+    for (int w = 1; w < kInitWarps; ++w) tot += part[w];
+    // The constraints that are on: the finite bounds at every stage, the
+    // masked obstacles at stages 1..N.
+    double cnt = 0.0;
+    for (int j = 0; j < 2; ++j)
+      cnt += N * (bound(*at<D>(pr.cl, b * 2 + j)).mask + bound(*at<D>(pr.cu, b * 2 + j)).mask);
+    for (int i = 0; i < 3; ++i)
+      cnt += T1 * (bound(*at<D>(pr.xl, b * 3 + i)).mask + bound(*at<D>(pr.xu, b * 3 + i)).mask);
+    for (int k = 0; k < K; ++k)
+      cnt += static_cast<double>(*at<D>(pr.omask, b * K + k)) > 0.5 ? N : 0.0;
     const D sigma = static_cast<D>(p.mu_sigma);
     *put<D>(it.reg, b) = static_cast<D>(p.reg);
     *put<D>(it.sigma, b) = sigma;
@@ -1364,9 +1339,9 @@ int init(const SplitParams* params, const ProblemPtrs* pr, const IteratePtrs* it
          void* stream) {
   const SplitParams p = *params;
   if (p.B <= 0) return 0;
-  const int blocks = (p.B + kOnceWarps - 1) / kOnceWarps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  init_kernel<T><<<blocks, kOnceWarps * kLanes, 0, s>>>(p, *pr, *it, static_cast<T*>(mu));
+  init_kernel<T><<<p.B, kInitWarps * kLanes, sizeof(double) * kInitWarps, s>>>(
+      p, *pr, *it, static_cast<T*>(mu));
   const cudaError_t err = cudaGetLastError();
   return static_cast<int>(err);
 }

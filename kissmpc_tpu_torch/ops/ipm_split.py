@@ -14,8 +14,8 @@ the port's counterpart of what XLA fuses of the reference's split
 solve under `jax.jit` (`kissmpc_tpu/solver/ipm.py:180`, `:407-714`,
 `:715`); there is no TPU kernel behind them.  Their plain versions are
 `solver/ipm.py::init_plain`, `condense_plain`, `step_plain` and
-`diagnostics_plain`.  The init and diagnostics kernels run one warp per
-scenario.
+`diagnostics_plain`.  The init kernel runs one block of four warps per
+scenario; the diagnostics kernel one warp per scenario.
 
 For tensors on the CPU each wrapper runs its plain version; for CUDA
 tensors it launches its kernel or raises, and counts each launch in its

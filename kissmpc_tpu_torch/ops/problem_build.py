@@ -78,6 +78,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [ptr(_Params), ptr(_Inputs), ptr(_Strides), ptr(_Outputs), ctypes.c_void_p,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.kissmpc_build_scratch_bytes.argtypes = [ptr(_Params), ctypes.c_int]
+    lib.kissmpc_build_scratch_bytes.restype = ctypes.c_longlong
+    lib.kissmpc_build_occupancy.argtypes = [ptr(_Params), ctypes.c_int, ptr(ctypes.c_int)]
+    lib.kissmpc_build_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -255,8 +259,10 @@ def _launch(lib, stream: int, cfg, initial_state, goal_state, obstacles: Obstacl
         obstacle_mask=torch.empty((B, K), **kw), inflation_radius=torch.empty((B,), **kw),
         warm_states=torch.empty((B, N + 1, 3), **kw), warm_controls=torch.empty((B, N, 2), **kw),
     )
-    scratch = (torch.empty((B, N + 1, 3), **kw)
-               if repair_warm_start_states and K > 0 else None)
+    # Global scratch only where one scenario's rows pass the card's shared
+    # memory (long horizons).
+    n_scratch = lib.kissmpc_build_scratch_bytes(ctypes.byref(params), out.initial_state.element_size())
+    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=device) if n_scratch else None
     fn = lib.kissmpc_build_f32 if dtype == torch.float32 else lib.kissmpc_build_f64
     err = fn(ctypes.byref(params), ctypes.byref(inputs),
              ctypes.byref(_Strides(*(strides[name] for name in STRIDED))),
@@ -264,6 +270,24 @@ def _launch(lib, stream: int, cfg, initial_state, goal_state, obstacles: Obstacl
     _build.check_launch(lib, err, "problem build kernel")
     build_cuda.launches += 1
     return out
+
+
+def occupancy(cfg, K_all: int, B: int = 1, dtype: torch.dtype = torch.float32) -> dict:
+    """The build's launch shape on the current card for ``cfg`` and
+    ``K_all`` obstacles per scenario: scenarios (warps) per block, dynamic
+    shared bytes per block, whether the rows take the global scratch,
+    resident scenarios per SM, registers and local (stack and spill) bytes
+    per thread.  Builds the kernel; needs CUDA."""
+    lib = _library()
+    params = _Params(B=B, N=cfg.horizon, K=cfg.max_obstacles, K_all=K_all)
+    out = (ctypes.c_int * 6)()
+    elem = 4 if dtype == torch.float32 else 8
+    _build.check_launch(lib, lib.kissmpc_build_occupancy(ctypes.byref(params), elem, out),
+                        "problem build occupancy query")
+    warps, smem, glob, blocks, regs, local = out
+    return {"scenarios_per_block": warps, "smem_bytes_per_block": smem,
+            "global_rows": bool(glob), "scenarios_per_sm": blocks * warps, "registers": regs,
+            "local_bytes": local}
 
 
 graph.counter(build_cuda)

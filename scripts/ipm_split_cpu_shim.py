@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The split solve's kernels and the problem build run on the CPU, one
-thread per CUDA thread, against their plain versions; optionally under
+context per CUDA thread, against their plain versions; optionally under
 AddressSanitizer or ThreadSanitizer.
 
     python3 scripts/ipm_split_cpu_shim.py [--sanitize address|thread]
@@ -8,13 +8,14 @@ AddressSanitizer or ThreadSanitizer.
 No GPU and no nvcc are needed, only g++ (C++20).  The script compiles
 `kissmpc_tpu_torch/csrc/ipm_split.cu` and `csrc/problem_build.cu` into a
 temporary directory with a
-small header in place of `cuda_runtime.h`: every CUDA thread is a
-`std::thread`; the lanes of a warp exchange shuffled values through the
-warp's slots between two waits on its `std::barrier` (`__syncwarp` waits
-on it once); a launch runs the
-blocks one after another with `blockIdx`, `threadIdx` and `blockDim` set;
-`__syncthreads()` waits on the block's `std::barrier`, and the block's
-dynamic shared memory is exactly the launch's bytes, filled with NaN.
+small header in place of `cuda_runtime.h`: every CUDA thread of a block
+is a fiber (`scripts/shim_runtime.py`; a `std::thread` under a sanitizer);
+the lanes of a warp exchange shuffled values through the warp's slots
+between two waits on its barrier (`__syncwarp` waits on it once); a launch
+runs the blocks one after another, with `blockIdx`, `threadIdx` and
+`blockDim` set; `__syncthreads()` waits on the block's barrier, and the
+block's dynamic shared memory is exactly the launch's bytes, filled with
+NaN.
 Each case drives the wrapper's own card path (`ops/ipm_split.py::_condense`
 and `_step`) on CPU tensors with the g++ build as the launcher, on a real
 iterate (a few plain iterations from the warm start), and holds the
@@ -58,16 +59,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from shim_runtime import RUNTIME  # noqa: E402
 
 SHIM = r"""
-#include <barrier>
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <limits>
 #include <memory>
-#include <thread>
 #include <vector>
 #define __global__
 #define __device__
@@ -79,13 +82,29 @@ SHIM = r"""
 using std::atan2;
 using std::fabs;
 using std::fma;
+using std::max;
+using std::min;
 using std::pow;
 using std::rint;
 using std::sqrt;
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
 struct ShimDim { unsigned x; };
-thread_local ShimDim threadIdx, blockIdx, blockDim;
+struct ShimWarp;
+// What a CUDA thread keeps to itself (the fibers' runtime swaps it).
+struct ShimTls {
+  ShimDim tid, bid, bdim;
+  ShimWarp* warp;
+  void* block;  // the block's ShimBarrier
+  unsigned char* smem;
+};
+thread_local ShimTls shim_tls;
+#define threadIdx (shim_tls.tid)
+#define blockIdx (shim_tls.bid)
+#define blockDim (shim_tls.bdim)
+#define shim_warp (shim_tls.warp)
+#define shim_smem (shim_tls.smem)
+""" + RUNTIME + r"""
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
@@ -109,13 +128,10 @@ inline double __dmul_rn(double a, double b) { return a * b; }
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "shim"; }
 struct ShimWarp {
-  std::barrier<> bar{32};
+  ShimBarrier bar{32};
   unsigned long long slot[32];
 };
-thread_local ShimWarp* shim_warp;
-thread_local std::barrier<>* shim_block;
-thread_local unsigned char* shim_smem;
-inline void __syncthreads() { shim_block->arrive_and_wait(); }
+inline void __syncthreads() { static_cast<ShimBarrier*>(shim_tls.block)->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp->bar.arrive_and_wait(); }
 template <class V> V shim_exchange(V v, int src) {
   static_assert(sizeof(V) <= sizeof(unsigned long long));
@@ -136,23 +152,21 @@ template <class V> V __shfl_sync(unsigned, V v, int src) { return shim_exchange(
 // that a read before a write shows.
 template <class Kern, class... A>
 void shim_launch(Kern kernel, int blocks, int threads, size_t bytes, cudaStream_t, A... args) {
+  std::vector<double> sm((bytes + 7) / 8);
   for (int blk = 0; blk < blocks; ++blk) {
-    std::vector<double> sm((bytes + 7) / 8, std::numeric_limits<double>::quiet_NaN());
-    std::barrier<> block(threads);
+    std::fill(sm.begin(), sm.end(), std::numeric_limits<double>::quiet_NaN());
+    ShimBarrier block(threads);
     std::vector<std::unique_ptr<ShimWarp>> warps;
     for (int w = 0; w < (threads + 31) / 32; ++w) warps.push_back(std::make_unique<ShimWarp>());
-    std::vector<std::thread> lanes;
-    for (int t = 0; t < threads; ++t)
-      lanes.emplace_back([&, t] {
-        threadIdx.x = static_cast<unsigned>(t);
-        blockIdx.x = static_cast<unsigned>(blk);
-        blockDim.x = static_cast<unsigned>(threads);
-        shim_warp = warps[t / 32].get();
-        shim_block = &block;
-        shim_smem = reinterpret_cast<unsigned char*>(sm.data());
-        kernel(args...);
-      });
-    for (auto& l : lanes) l.join();
+    shim_run_block(threads, [&](int t) {
+      shim_tls.tid.x = static_cast<unsigned>(t);
+      shim_tls.bid.x = static_cast<unsigned>(blk);
+      shim_tls.bdim.x = static_cast<unsigned>(threads);
+      shim_tls.warp = warps[t / 32].get();
+      shim_tls.block = &block;
+      shim_tls.smem = reinterpret_cast<unsigned char*>(sm.data());
+      kernel(args...);
+    });
   }
 }
 """
@@ -160,7 +174,7 @@ SMEM = "  extern __shared__ __align__(16) unsigned char smem[];\n"
 
 
 # Per source: (kernels with dynamic shared memory, kernel launches).
-SOURCES = {"ipm_split.cu": (3, 4), "problem_build.cu": (0, 1)}
+SOURCES = {"ipm_split.cu": (4, 4), "problem_build.cu": (1, 1)}
 
 
 def shim_source(text, name="ipm_split.cu"):
@@ -183,10 +197,12 @@ def _compile(tmp, source, sanitize):
     src = Path(tmp) / f"{source.stem}_shim.cpp"
     src.write_text(shim_source(source.read_text(), source.name))
     out = Path(tmp) / f"lib{source.stem}_shim.so"
-    flags = ["-std=c++20", "-O1", "-g", "-pthread", "-shared", "-fPIC", "-w",
-             "-fno-strict-aliasing", f"-I{source.parent}"]  # csrc's shared headers
-    if sanitize:
-        flags.append(f"-fsanitize={sanitize}")
+    flags = ["-std=c++20", "-pthread", "-shared", "-fPIC", "-w", "-fno-strict-aliasing",
+             f"-I{source.parent}"]  # csrc's shared headers
+    if sanitize:  # a sanitizer follows OS threads, not fibers
+        flags += ["-O1", "-g", f"-fsanitize={sanitize}", "-DSHIM_THREADS"]
+    else:  # the cases run in seconds on fibers: a build in a third of the time
+        flags.append("-O0")
     subprocess.run(["g++", *flags, str(src), "-o", str(out)], check=True)
     return ctypes.CDLL(str(out))
 
@@ -285,12 +301,33 @@ ONCE_CASES = (
 # Run by the script alone: 41 stages, two chunks of the diagnostics' sweep.
 ONCE_LONG_CASES = (("k3_n40", 40, 3, 3, 3, {"mu_sigma_max": 0.7}, {}),)
 
+# The init kernel's layouts: (name, N, K, batch, solver fields).  At a
+# refine stage's batch, hard, elastic and "pc"; and where each thread of
+# the block takes several entries of a family (K=100: 1,200 obstacle
+# constraints; N=200: 603 state entries, 1,600 obstacle constraints).
+# Each is held to `ipm.init_plain` by the gate.
+INIT_LAYOUT_CASES = (
+    ("k4_b164", 12, 4, 164, {"mu_sigma_max": 0.7}),
+    ("k4_elastic_b164", 12, 4, 164, {"elastic_obstacles": True}),
+    ("k4_pc_b164", 12, 4, 164, {"mehrotra": "pc"}),
+    ("k100", 12, 100, 3, {"elastic_obstacles": True}),
+    ("k8_n200", 200, 8, 2, {"mu_sigma_max": 0.7}),
+)
+
 # The build kernel: (name, N, K, batch, obstacles per scenario K_all, one set
 # shared by all, a warm start along the segment, keywords): repair and
-# completion on and off, K_all > K, a shared stride-0 set, the start tiled
-# with the default prediction dt, a zero completion threshold, K=0.  The
-# plan's step is BUILD_DT, so that the warm path crosses the circles and
-# most scenarios are rolled out.
+# completion on and off, K_all > K and K_all > 32 (lanes take several
+# keys), a shared stride-0 set, the start tiled with the default prediction
+# dt, a zero completion threshold, K=0, horizons past a warp's lanes (N=33,
+# 64), and ties ("tie", not a keyword of the build: `chip_smoke.build_inputs`'
+# tied sensor keys, or tied speed caps in the rollout), and rows past the
+# card's 227 KB of shared memory in both dtypes (K=16 from N=668 in
+# float64, 1,336 in float32; K=8 from 1,070 and 2,140), which the build
+# keeps in global scratch (the GLOBAL instance): a case named "_global"
+# must take the scratch, the others must not (its 1,500-step rollout is
+# off here; `check_global_rows` holds the rollout through the scratch to
+# the shared-memory instance).  The plan's step is BUILD_DT, so that the
+# warm path crosses the circles and most scenarios are rolled out.
 BUILD_DT = 0.5
 BUILD_CASES = (
     ("k4", 12, 4, 8, 4, False, True, {}),
@@ -303,7 +340,14 @@ BUILD_CASES = (
     ("k4_cold", 12, 4, 8, 5, False, False, {"prediction_dt": None}),
     ("k4_threshold0", 10, 4, 6, 4, False, True, {"completion_threshold": 0.0}),
     ("k0", 12, 0, 8, 3, False, True, {}),
+    ("k4_kall40", 12, 4, 4, 40, False, True, {}),
+    ("k4_n33", 33, 4, 4, 6, False, True, {}),
+    ("k4_n64", 64, 4, 8, 6, False, True, {}),
+    ("k4_tied_keys", 12, 4, 8, 6, False, True, {"tie": "keys"}),
+    ("k4_tied_caps", 12, 4, 8, 6, False, True, {"tie": "caps"}),
+    ("k16_n1500_global", 1500, 16, 2, 16, False, True, {"complete_warm_start_states": False}),
 )
+# Run by the script alone: the pool's shape.
 BUILD_LONG_CASES = (("k8_n50", 50, 8, 6, 10, False, True, {}),)
 
 
@@ -324,21 +368,98 @@ def run_once_cases(lib, cases=ONCE_CASES, dtypes=None):
     return out
 
 
-def run_build_cases(lib, cases=BUILD_CASES, dtypes=None, seed=7):
-    """The build kernel on each case in each dtype: (ok, a line) per case."""
+def run_init_layouts(lib, cases=INIT_LAYOUT_CASES, dtypes=None):
+    """The init kernel of each case in each dtype: (ok, a line for the log)
+    per case."""
     import torch
 
     import chip_smoke
 
     out = []
+    for name, n, K, batch, solver in cases:
+        cfg = config(n, K, solver, {})
+        for dtype in dtypes or (torch.float32, torch.float64):
+            g = chip_smoke.init_gate(cfg, problems(cfg, batch, dtype), lib, 0)
+            out.append((g["ok"], f"init {name} N={n} K={K} B={batch} {str(dtype)[6:]}: "
+                                 f"max|kernel-plain| {g['err']:.3e}, nearest its limit "
+                                 f"{g['worst']} at {g['fields'][g['worst']]['ratio']:.3f} of it; "
+                                 f"{'passes' if g['ok'] else 'FAILS'}"))
+    return out
+
+
+def run_build_cases(lib, cases=BUILD_CASES, dtypes=None, seed=7):
+    """The build kernel on each case in each dtype: (ok, a line) per case."""
+    import torch
+
+    import chip_smoke
+    from kissmpc_tpu_torch.ops import problem_build
+
+    out = []
     for name, n, K, batch, k_all, shared, warm, options in cases:
         cfg = config(n, K, {}, {}).replace(time_step=BUILD_DT)
+        options = dict(options)
+        tie = options.pop("tie", None)
         for dtype in dtypes or (torch.float32, torch.float64):
             inputs = chip_smoke.build_inputs(cfg, batch, seed, k_all=k_all, shared=shared,
-                                             warm=warm, dtype=dtype, device="cpu")
+                                             warm=warm, tie=tie, dtype=dtype, device="cpu")
             res = chip_smoke.build_kernel_check(cfg, inputs, lib, 0, **options)
+            params = problem_build._Params(B=batch, N=n, K=K, K_all=k_all)
+            scratch = lib.kissmpc_build_scratch_bytes(ctypes.byref(params),
+                                                      torch.finfo(dtype).bits // 8)
+            rows = f"rows in {'global scratch' if scratch else 'shared memory'}"
+            ok = res["ok"] and bool(scratch) == name.endswith("_global")
             label = f"build {name} N={n} K={K} K_all={k_all} B={batch} {str(dtype)[6:]}"
-            out.append((res["ok"], f"{label}: {chip_smoke.describe_build_check(res)}"))
+            out.append((ok, f"{label} ({rows}): {chip_smoke.describe_build_check(res)}"))
+    return out
+
+
+def check_global_rows(lib, tmp, cases=((1500, 16, 2), (700, 16, 3))):
+    """The build's GLOBAL instance (``lib``, the g++ build of the source)
+    against its shared-memory instance: a
+    copy of `csrc/problem_build.cu` whose shared-memory limit is lifted
+    keeps rows that pass 227 KB in shared memory; on the same inputs, with
+    the repair and the rollout on, both must give the same bits in every
+    field.  (ok, a line) per case and dtype."""
+    import torch
+
+    import chip_smoke
+    from kissmpc_tpu_torch.ops import problem_build
+
+    global SHIM
+    old = "constexpr long long kSmemOptin = 232448;"
+    text = problem_build.SOURCE.read_text()
+    if text.count(old) != 1:
+        raise SystemExit("ipm_split_cpu_shim: kSmemOptin is not in problem_build.cu once")
+    lifted = Path(tmp) / "lifted"
+    lifted.mkdir()
+    for header in problem_build.SOURCE.parent.glob("*.cuh"):
+        (lifted / header.name).write_text(header.read_text())
+    (lifted / "problem_build.cu").write_text(text.replace(old, old.replace("232448", "1LL << 40")))
+    shim, SHIM = SHIM, SHIM.replace("bytes <= 232448", "true")
+    try:
+        libs = (lib, problem_build.bind(_compile(lifted, lifted / "problem_build.cu", None)))
+    finally:
+        SHIM = shim
+    out = []
+    for n, K, batch in cases:
+        cfg = config(n, K, {}, {}).replace(time_step=BUILD_DT)
+        for dtype in (torch.float32, torch.float64):
+            params = problem_build._Params(B=batch, N=n, K=K, K_all=K)
+            scratch = [lib.kissmpc_build_scratch_bytes(ctypes.byref(params),
+                                                       torch.finfo(dtype).bits // 8)
+                       for lib in libs]
+            start, goal, obstacles, kw = chip_smoke.build_inputs(cfg, batch, 7, k_all=K,
+                                                                 dtype=dtype, device="cpu")
+            got = [problem_build._launch(lib, 0, cfg, start, goal, obstacles, **kw)
+                   for lib in libs]
+            same = all(torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in zip(*got))
+            rolled = int((got[1].warm_controls != 0).flatten(1).any(1).sum())
+            ok = same and scratch[1] == 0
+            out.append((ok, f"build N={n} K={K} B={batch} {str(dtype)[6:]}: rows in "
+                            f"{'global scratch' if scratch[0] else 'shared memory'} against "
+                            f"shared memory, {rolled} rolled out: "
+                            f"{'the same bits' if same else 'DIFFERENT'}; "
+                            f"{'passes' if ok else 'FAILS'}"))
     return out
 
 
@@ -408,8 +529,11 @@ def main():
             results += run_cases(lib, LAYOUT_CASES + LONG_CASES, warps=warps)
         results += run_cases(lib, GLOBAL_CASES)
         results += run_once_cases(lib, ONCE_CASES + ONCE_LONG_CASES)
-        results += run_build_cases(build_problem(tmp, args.sanitize),
-                                   BUILD_CASES + BUILD_LONG_CASES)
+        results += run_init_layouts(lib)
+        blib = build_problem(tmp, args.sanitize)
+        results += run_build_cases(blib, BUILD_CASES + BUILD_LONG_CASES)
+        if not args.sanitize:  # the copy is built without one
+            results += check_global_rows(blib, tmp)
         for ok, line in results + [check_solve(lib)]:
             print(line, flush=True)
             if not ok:

@@ -40,6 +40,7 @@ summary line with the card's name and power limit.
 import argparse
 import importlib.util
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -145,6 +146,8 @@ def main():
     # variant -> (wrapper module, library, forced warps or None)
     variants, report = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
+        for header in ipm_split.SOURCE.parent.glob("*.cuh"):  # the copies' includes
+            shutil.copy(header, Path(tmp) / header.name)
         for edit, edits in EDITS.items():
             path = Path(tmp) / f"ipm_split_{edit}.cu"
             path.write_text(edited(source, edits))

@@ -29,6 +29,7 @@ chip_smoke.py's gates (`split_kernels_check`).
 import argparse
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -43,8 +44,8 @@ CLOCK = ("long long clk[6] = {0}, clk_t0 = clock64(), clk_mark = clk_t0;\n"
 CLOCK_OUT = ("if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
              "    for (int i = 0; i < 6; ++i) kissmpc_clk[i] = clk[i];\n"
              "    kissmpc_clk[6] = clock64() - clk_t0;\n  }\n")
-GLOBAL = ("namespace {\n\nconstexpr int kLanes = 32;",
-          "__device__ long long kissmpc_clk[7];\n\nnamespace {\n\nconstexpr int kLanes = 32;")
+GLOBAL = ('#include "device_math.cuh"\n',
+          '#include "device_math.cuh"\n\n__device__ long long kissmpc_clk[7];\n')
 GETTER = """
 extern "C" int kissmpc_split_clocks(long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, kissmpc_clk, sizeof(long long) * 7));
@@ -119,6 +120,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "ipm_split_clocks.cu"
         path.write_text(instrumented(ipm_split.SOURCE.read_text()))
+        for header in ipm_split.SOURCE.parent.glob("*.cuh"):  # the copy's includes
+            shutil.copy(header, Path(tmp) / header.name)
         lib = ipm_split.bind(_build.load(path, "ipm_split_clocks", build_dir=Path(tmp)))
         ptxas = [line.strip() for line in
                  next(Path(tmp).glob("libipm_split_clocks-*.log")).read_text().splitlines()

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's split path goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_split.py [--batch 8192] [--cells node,make_solver,solve_batch]
-                                           [--replays 0]
+    python3 scripts/profile_torch_split.py [--batch 8192]
+        [--cells node,make_solver,solve_batch,batch_solver,fleet] [--replays 0]
 
 Each cell runs once as a warm-up and once under `torch.profiler`, eagerly
 (`graph.eager()`: every kernel launched by the host, as the CUDA graphs
@@ -15,7 +15,12 @@ capture them):
   2 dynamic tracks on the "split" backend (N=50, float32, 32 iterations) at
   ``--batch`` scenarios;
 - ``solve_batch``: one "split" `solve_batch` call per benchmark
-  configuration (obstacle-free and K=8, with bench.py's refine stages).
+  configuration (obstacle-free and K=8, with bench.py's refine stages);
+- ``batch_solver``: one "split" `make_batch_solver` call on the K=8 cell
+  with bench.py's refine stages, at ``--batch`` scenarios;
+- ``fleet``: one closed-loop fleet tick, chip_smoke.py's phase 7 (B=4096,
+  grid worlds, the default fused backend, one problem build per tick),
+  on the first tick's state at every call.
 
 The script wraps the split IPM's functions from outside, by replacing the
 attributes of `kissmpc_tpu_torch.solver.ipm` with `record_function` ranges
@@ -37,8 +42,10 @@ cell: the card, the call's wall ms, the card's busy ms and idle share, the
 kernel count, the split, and the kernels that take the most device time.
 With ``--replays R`` each cell then runs as its CUDA graph: the first call
 (warm-up and capture) timed, then R replays, each timed by the host clock
-around a synchronize, p50 and p99 (the node's and `make_solver`'s graphs;
-`solve_batch` has none and is skipped).
+around a synchronize, p50 and p99, and one more replay under the
+profiler (its kernels, busy ms and wall ms) (the node's, `make_solver`'s,
+`make_batch_solver`'s and the fleet tick's graphs; `solve_batch` has none
+and is skipped).
 """
 
 import argparse
@@ -165,6 +172,30 @@ def profiled(fn, top):
                             for k, (ms, n) in ranked]}
 
 
+def replay_kernels(fn, top):
+    """One replay (``fn`` already captured) under the profiler: its wall ms,
+    the card's busy ms and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if is_kernel(e)]
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall_ms, "kernels": len(kernels),
+            "device_busy_ms": sum(e.device_time_total for e in kernels) / 1e3,
+            "top_kernels": [{"name": k[:80], "ms": ms, "launches": n}
+                            for k, (ms, n) in ranked]}
+
+
 def replayed(fn, replays):
     """The first captured call's ms, and p50 / p99 of ``replays`` replays."""
     import numpy as np
@@ -232,6 +263,30 @@ def solve_batch_cells(batch):
                                     f"solve_batch k8_dyn2 split N=50 B={batch}")}
 
 
+def batch_solver_cell(batch):
+    """One split `make_batch_solver` call on the K=8 cell with its refine
+    stages (a graph on the card, the stages' gathers and merges inside)."""
+    from kissmpc_tpu_torch import make_batch_solver
+    from kissmpc_tpu_torch.scenarios import obstacle_problems
+
+    cfg = k8_config(((0.125, 64, 0.2), (0.04, 96, 0.7), (0.02, 128, 0.5)))
+    problems = obstacle_problems(cfg, batch, seed=1, n_dynamic=2)
+    solve = make_batch_solver(cfg)
+    return (lambda: solve(problems)), f"make_batch_solver k8_dyn2 split N=50 B={batch}"
+
+
+def fleet_cell():
+    """One closed-loop fleet tick of chip_smoke.py's phase 7 (B=4096, grid
+    worlds, fused backend; `fleet_step` and `obstacles.advance` as one
+    program), on the first tick's state every call."""
+    import chip_smoke
+
+    cfg, params = chip_smoke.fleet_config()
+    env, obstacles, _ = chip_smoke.fleet_worlds(cfg, chip_smoke.FLEET_BATCH, 0, "cuda")
+    return (lambda: chip_smoke.fleet_tick(cfg, params, env, obstacles, "cuda")), \
+        f"fleet tick B={chip_smoke.FLEET_BATCH} N={cfg.horizon}"
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=8192)
@@ -255,6 +310,10 @@ def main():
         cells["make_solver"] = make_solver_cell(args.batch)
     if "solve_batch" in wanted:
         cells.update(solve_batch_cells(args.batch))
+    if "batch_solver" in wanted:
+        cells["batch_solver"] = batch_solver_cell(args.batch)
+    if "fleet" in wanted:
+        cells["fleet"] = fleet_cell()
     card = torch.cuda.get_device_name(0)
     for name, (fn, what) in cells.items():
         with graph.eager():
@@ -262,6 +321,7 @@ def main():
             out = profiled(fn, args.top)
         if args.replays and not name.startswith("solve_batch"):
             out["replays"] = replayed(fn, args.replays)
+            out["replay_profile"] = replay_kernels(fn, args.top)
         print(json.dumps({"cell": name, "what": what, "device": card, **out}), flush=True)
 
 

@@ -7,8 +7,10 @@ ThreadSanitizer.
 
 No GPU and no nvcc are needed, only g++ (C++20).  The script compiles
 `kissmpc_tpu_torch/csrc/riccati.cu` into a temporary directory with a small
-header in place of `cuda_runtime.h`: every thread of a block is a
-`std::thread`; `__syncthreads()` waits on the block's `std::barrier`; a
+header in place of `cuda_runtime.h`: every thread of a block is a fiber
+(`scripts/shim_runtime.py`; a `std::thread` under a sanitizer, and
+`--drop-barrier` is meant for ThreadSanitizer); `__syncthreads()` waits on
+the block's barrier; a
 `__shfl_sync` writes the lane's value to its warp's slots, waits, reads its
 source lane's slot and waits again; the staging primitives between the
 source's marks become a plain copy for the bulk (TMA) copy and an atomic
@@ -51,16 +53,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from shim_runtime import RUNTIME  # noqa: E402
 
 SHIM = r"""
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <memory>
-#include <thread>
 #include <vector>
 #define __global__
 #define __device__
@@ -68,7 +71,22 @@ SHIM = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 struct ShimDim { unsigned x; };
-thread_local ShimDim threadIdx, blockIdx;
+struct ShimWarp;
+struct ShimBlock;
+// What a CUDA thread keeps to itself (the fibers' runtime swaps it).
+struct ShimTls {
+  ShimDim tid, bid;
+  ShimWarp* warp;
+  ShimBlock* block;
+  unsigned char* smem;
+};
+thread_local ShimTls shim_tls;
+#define threadIdx (shim_tls.tid)
+#define blockIdx (shim_tls.bid)
+#define shim_warp (shim_tls.warp)
+#define shim_block (shim_tls.block)
+#define shim_smem (shim_tls.smem)
+""" + RUNTIME + r"""
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
@@ -91,16 +109,13 @@ inline int cudaGetDevice(int* device) {
 }
 inline const char* cudaGetErrorString(int) { return "shim"; }
 struct ShimWarp {
-  std::barrier<> bar{32};
+  ShimBarrier bar{32};
   double slot[32];
 };
 struct ShimBlock {
   explicit ShimBlock(int n) : bar(n) {}
-  std::barrier<> bar;
+  ShimBarrier bar;
 };
-thread_local ShimWarp* shim_warp;
-thread_local ShimBlock* shim_block;
-thread_local unsigned char* shim_smem;
 inline void __syncthreads() { shim_block->bar.arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp->bar.arrive_and_wait(); }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
@@ -129,17 +144,14 @@ void shim_launch(Kern kernel, int blocks, int threads, size_t bytes, cudaStream_
     ShimBlock block(threads);
     std::vector<std::unique_ptr<ShimWarp>> warps;
     for (int w = 0; w < threads / 32; ++w) warps.push_back(std::make_unique<ShimWarp>());
-    std::vector<std::thread> lanes;
-    for (int t = 0; t < threads; ++t)
-      lanes.emplace_back([&, t] {
-        threadIdx.x = static_cast<unsigned>(t);
-        blockIdx.x = static_cast<unsigned>(blk);
-        shim_warp = warps[t / 32].get();
-        shim_block = &block;
-        shim_smem = reinterpret_cast<unsigned char*>(sm.data());
-        kernel(args...);
-      });
-    for (auto& l : lanes) l.join();
+    shim_run_block(threads, [&](int t) {
+      shim_tls.tid.x = static_cast<unsigned>(t);
+      shim_tls.bid.x = static_cast<unsigned>(blk);
+      shim_tls.warp = warps[t / 32].get();
+      shim_tls.block = &block;
+      shim_tls.smem = reinterpret_cast<unsigned char*>(sm.data());
+      kernel(args...);
+    });
   }
 }
 """
@@ -171,7 +183,7 @@ inline void bar_arrive_expect(unsigned long long* bar, unsigned) {
 }
 inline void bar_wait(unsigned long long* bar, unsigned parity) {
   while ((shim_word(bar, 1).load(std::memory_order_acquire) & 1u) == parity)
-    std::this_thread::yield();
+    shim_yield();
 }
 """
 def warp_edits(warps):
@@ -226,9 +238,11 @@ def build(tmp, sanitize=None, drop_barrier=False, edits=(), name="riccati_shim")
     src = Path(tmp) / f"{name}.cpp"
     src.write_text(shim_source(riccati.SOURCE.read_text(), drop_barrier, edits))
     out = Path(tmp) / f"lib{name}.so"
-    flags = ["-std=c++20", "-O1", "-g", "-pthread", "-shared", "-fPIC", "-w"]
-    if sanitize:
-        flags.append(f"-fsanitize={sanitize}")
+    flags = ["-std=c++20", "-pthread", "-shared", "-fPIC", "-w"]
+    if sanitize:  # a sanitizer follows OS threads, not fibers
+        flags += ["-O1", "-g", f"-fsanitize={sanitize}", "-DSHIM_THREADS"]
+    else:  # the cases run in seconds on fibers: a faster build
+        flags.append("-O0")
     subprocess.run(["g++", *flags, str(src), "-o", str(out)], check=True)
     return riccati.bind(ctypes.CDLL(str(out)))
 

@@ -37,6 +37,15 @@ from kissmpc_tpu_torch.scenarios import episode_worlds as t_episode_worlds
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _cfgs(**kw):
     base = dict(horizon=12, time_step=0.1)
     base.update(kw)

@@ -27,6 +27,15 @@ PACKAGE = Path(kissmpc_tpu_torch.__file__).parent
 STAGES = ((0.5, 16, 0.2), (0.25, 24, 0.7))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _configs(**solver):
     kw = dict(horizon=12, time_step=0.1, max_obstacles=3)
     skw = dict(iterations=6, refine_stages=STAGES, **solver)
@@ -50,7 +59,7 @@ def test_solve_batch_with_refinement_matches_jax(batch):
     refinement stages gather, re-solve and merge real sub-batches."""
     jp, arrays = batch
     jcfg, tcfg = _configs()
-    ref = j_solve_batch(jcfg, jp)
+    ref = jax.jit(lambda p: j_solve_batch(jcfg, p))(jp)  # op by op: 40 s
     base = solution_to_numpy(_dispatch(tcfg, problem_from_numpy(arrays, device="cpu")))
     got = solution_to_numpy(solve_batch(tcfg, problem_from_numpy(arrays, device="cpu"),
                                         device="cpu"))

@@ -12,7 +12,10 @@ repair and completion on and off, a shared stride-0 set, K_all > K; the
 init and
 diagnostics kernels (`csrc/ipm_split.cu`) against `ipm.init_plain` and
 `ipm.diagnostics_plain` by the same gate (``converged`` flips counted as
-the build's); `problem_with_obstacles` as one build launch and a split
+the build's; the init at a refine stage's batch and where each thread
+takes many entries, a second launch the same bits; the
+build past one warp's lanes, at K = 0, with tied sensor keys and tied
+speed caps, and with its rows in global scratch); `problem_with_obstacles` as one build launch and a split
 `ipm.solve` as 1 init + 3 per iteration + 1 diagnostics launches.
 
 Marked ``cuda``: it skips without an NVIDIA GPU (a CUDA kernel has no CPU
@@ -27,8 +30,9 @@ import dataclasses
 import pytest
 import torch
 
-from chip_smoke import (NODE_BUILD_BATCH, NODE_BUILD_K_ALL, build_inputs, build_kernel_check,
-                        describe_build_check, describe_once_check, once_kernels_check)
+from chip_smoke import (NODE_BUILD_BATCH, NODE_BUILD_K_ALL, REFINE_CHECK_BATCH, build_inputs,
+                        build_kernel_check, describe_build_check, describe_once_check, init_gate,
+                        once_kernels_check)
 from kissmpc_tpu_torch import MPCConfig
 from kissmpc_tpu_torch.ops import ipm_split, problem_build
 from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
@@ -68,6 +72,49 @@ def test_build_kernel_matches_plain(cuda, name, k_all, shared, options, dtype):
                              torch.cuda.current_stream().cuda_stream, **options)
     torch.cuda.synchronize()
     assert res["ok"], describe_build_check(res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n,K,k_all,B,tie,options", [
+    (50, 8, 40, 1024, None, {}), (33, 8, 10, 1024, None, {}), (64, 8, 10, 1024, None, {}),
+    (50, 0, 6, 1024, None, {}), (50, 8, 10, 1024, "keys", {}), (50, 8, 10, 1024, "caps", {}),
+    (1500, 16, 16, 256, None, {"complete_warm_start_states": False}),
+], ids=["kall40", "n33", "n64", "k0", "tied_keys", "tied_caps", "n1500_global"])
+def test_build_kernel_layouts(cuda, n, K, k_all, B, tie, options, dtype):
+    """The build's layouts past one warp's lanes (K_all > 32 keys, N = 33
+    and 64 stages), K = 0, tied sensor keys and tied speed caps, and a
+    horizon whose rows pass 227 KB per scenario in both dtypes and take the
+    global scratch (K = 16, N = 1500); the others keep them in shared
+    memory."""
+    cfg = MPCConfig(horizon=n, time_step=0.041, max_obstacles=K)
+    occ = problem_build.occupancy(cfg, k_all, B, dtype)
+    assert occ["global_rows"] == (n == 1500), occ
+    inputs = build_inputs(cfg, B, 9, k_all=k_all, tie=tie, dtype=dtype)
+    res = build_kernel_check(cfg, inputs, problem_build._library(),
+                             torch.cuda.current_stream().cuda_stream, **options)
+    torch.cuda.synchronize()
+    assert res["ok"], describe_build_check(res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n,K,B,solver", [
+    (50, 8, REFINE_CHECK_BATCH, {}), (50, 8, REFINE_CHECK_BATCH, {"elastic_obstacles": True}),
+    (50, 8, REFINE_CHECK_BATCH, {"mehrotra": "pc"}), (400, 8, 64, {}), (12, 100, 64, {}),
+], ids=["k8", "k8_elastic", "k8_pc", "n400", "k100"])
+def test_init_kernel_refine_batch_and_long_rows(cuda, n, K, B, solver, dtype):
+    """The init kernel at a refine stage's batch (hard, elastic, "pc"),
+    and where each of its threads takes many entries of a family (N = 400;
+    K = 100), within the gate; a second launch gives the same bits."""
+    cfg, _ = _config("k8", **solver)
+    cfg = cfg.replace(horizon=n, max_obstacles=K)
+    problems = obstacle_problems(cfg, B, seed=4, n_dynamic=2, dtype=dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    gates = [init_gate(cfg, problems, ipm_split._library(), stream) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert gates[0]["ok"], (gates[0]["worst"], gates[0]["fields"][gates[0]["worst"]])
+    assert torch.equal(gates[0]["mu"], gates[1]["mu"])
 
 
 @pytest.mark.cuda

@@ -3,12 +3,15 @@ their own sources.
 
 `scripts/ipm_split_cpu_shim.py` compiles `kissmpc_tpu_torch/csrc/ipm_split.cu`
 and `csrc/problem_build.cu` with g++ behind a header that stands in for the
-CUDA runtime (a `std::thread` per CUDA thread, a `std::barrier` per warp
-around each shuffle and `__syncwarp`, the blocks of a launch one after
-another).  Here the wrappers' own card paths (`ops/ipm_split.py::_init`,
+CUDA runtime (a fiber per CUDA thread, a barrier per warp around each
+shuffle and `__syncwarp` and one per block, the blocks of a launch one
+after another).  Here the wrappers' own card paths (`ops/ipm_split.py::_init`,
 `_diagnostics`, `ops/problem_build.py::_launch`) drive those builds on CPU
 tensors, held against the plain versions by chip_smoke.py's gates:
 
+- the init in its layouts (`init_gate`): at a refine stage's batch
+  (B=164), hard, elastic and "pc", and where each thread takes several
+  entries of a family (K=100; N=200);
 - init and diagnostics (`once_kernels_check`): hard and elastic, K=0 and
   K=4, "pc", both cost modes; every field of each scenario within 1e-4 of
   its scale plus twice the plain version's own f32-vs-f64 gap in float32,
@@ -18,11 +21,13 @@ tensors, held against the plain versions by chip_smoke.py's gates:
   these CPU tensors its CPU evaluation is the one held to), at most a
   quarter of the batch;
 - the build (`build_kernel_check`): repair and completion on and off, a
-  zero completion threshold, K=0 and K=4, K_all > K, one set shared by
-  every scenario at stride 0, the start tiled with the default prediction
-  dt; every Problem field by the same gate, a scenario outside it counted
+  zero completion threshold, K=0 and K=4, K_all > K and K_all > 32, one
+  set shared by every scenario at stride 0, the start tiled with the
+  default prediction dt, horizons past a warp's lanes (N=33, 64), tied
+  sensor keys and tied speed caps; every Problem field by the same gate, a scenario outside it counted
   as a discrete flip, at most `chip_smoke.allowed_flips` by the same
-  witness (the start moved one ulp);
+  witness (the start moved one ulp); and rows past 227 KB per scenario
+  (K=16, N=1500), which must take the global scratch;
 - a whole float64 split solve through the shim kernels (init, the
   iterations' condensation and step around the plain Riccati solve,
   diagnostics) within 1e-7 of `ipm.solve_plain`, elastic and "pc".
@@ -73,6 +78,14 @@ def shim(tmp_path_factory):
 def test_shim_init_and_diagnostics_match_plain(shim, case, dtype):
     module, lib, _ = shim
     [(ok, line)] = module.run_once_cases(lib, cases=(case,), dtypes=(dtype,))
+    assert ok, line
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", _shim_module().INIT_LAYOUT_CASES, ids=lambda c: c[0])
+def test_shim_init_layouts_match_plain(shim, case, dtype):
+    module, lib, _ = shim
+    [(ok, line)] = module.run_init_layouts(lib, cases=(case,), dtypes=(dtype,))
     assert ok, line
 
 

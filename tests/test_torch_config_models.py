@@ -23,6 +23,15 @@ TOL = 1e-12
 N, B, DT = 9, 5, 0.1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _fields(cls):
     out = []
     for f in dataclasses.fields(cls):

@@ -40,6 +40,15 @@ from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused
 from kissmpc_tpu_torch.solver import ipm as tipm
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _configs(kw, **solver):
     j, t = JConfig(**kw), TConfig(**kw)
     return (j.replace(solver=dataclasses.replace(j.solver, **solver)),

@@ -1,4 +1,4 @@
-"""Port parity: the batched torch IPM against `jax.vmap(ipm.solve)`.
+"""Port parity: the batched torch IPM against `jax.vmap(ipm.solve)`, compiled.
 
 One problem batch per case, built by the JAX package and handed to the port
 through the numpy bridge.  float64: controls to 1e-6 and identical
@@ -34,6 +34,15 @@ PAIRS = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _configs(K, mu_sigma_max):
     kw = dict(horizon=N, time_step=DT, max_obstacles=K)
     skw = dict(iterations=32, mu_sigma_max=mu_sigma_max)
@@ -46,21 +55,34 @@ def _configs(K, mu_sigma_max):
 
 
 def _problems(cfg, K, dynamic, dtype):
-    ps = []
-    for s, g in PAIRS:
-        s, g = jnp.asarray(s, dtype), jnp.asarray(g, dtype)
-        if K == 0:
-            ps.append(default_problem(cfg, s, g, dtype=dtype))
-            continue
-        if dynamic:
-            obs = jobs.dynamic_set([[0.6, 0.05], [0.9, 0.7]], [1.6, -2.0], 0.4,
-                                   radius=0.2, max_obstacles=K, dtype=dtype)
-        else:
-            obs = jobs.static_set([[0.6, 0.05], [2.5, 2.5]], [0.2, 0.2],
-                                  max_obstacles=K, dtype=dtype)
-        ps.append(problem_with_obstacles(cfg, s, g, obs, inflation_radius=0.25,
-                                         prediction_dt=DT, dtype=dtype))
-    return jax.tree.map(lambda *xs: jnp.stack(xs), *ps)
+    """The JAX problems of PAIRS, built once per key, in one compiled call:
+    the JAX build reads only the horizon, the time step, the obstacle slots
+    and ``bound_y`` of ``cfg`` (op by op, its repair and rollout take
+    seconds per problem)."""
+    key = (cfg.horizon, cfg.time_step, cfg.max_obstacles, cfg.bound_y, K, dynamic,
+           jnp.dtype(dtype))
+    if key not in _BUILT:
+        _BUILT[key] = _build_problems(cfg, K, dynamic, dtype)
+    return _BUILT[key]
+
+
+_BUILT = {}
+
+
+def _build_problems(cfg, K, dynamic, dtype):
+    starts = jnp.asarray([s for s, _ in PAIRS], dtype)
+    goals = jnp.asarray([g for _, g in PAIRS], dtype)
+    if K == 0:
+        return jax.jit(jax.vmap(lambda s, g: default_problem(cfg, s, g, dtype=dtype)))(
+            starts, goals)
+    if dynamic:
+        obs = jobs.dynamic_set([[0.6, 0.05], [0.9, 0.7]], [1.6, -2.0], 0.4,
+                               radius=0.2, max_obstacles=K, dtype=dtype)
+    else:
+        obs = jobs.static_set([[0.6, 0.05], [2.5, 2.5]], [0.2, 0.2],
+                              max_obstacles=K, dtype=dtype)
+    return jax.jit(jax.vmap(lambda s, g: problem_with_obstacles(
+        cfg, s, g, obs, inflation_radius=0.25, prediction_dt=DT, dtype=dtype)))(starts, goals)
 
 
 CASES = [
@@ -79,7 +101,7 @@ CASES = [
 def test_ipm_matches_jax(K, dynamic, mu_sigma_max, dtype, tol):
     jcfg, tcfg = _configs(K, mu_sigma_max)
     jp = _problems(jcfg, K, dynamic, getattr(jnp, dtype))
-    ref = jax.vmap(functools.partial(jipm.solve, jcfg))(jp)
+    ref = jax.jit(jax.vmap(functools.partial(jipm.solve, jcfg)))(jp)
     tp = problem_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()},
                             device="cpu")
     got = solution_to_numpy(tipm.solve(tcfg, tp))

@@ -51,6 +51,15 @@ OBST_PAIRS = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _configs(K=0, **solver):
     kw = dict(horizon=N, time_step=DT, max_obstacles=K)
     j, t = JConfig(**kw), TConfig(**kw)
@@ -63,7 +72,22 @@ def _stack(ps):
 
 
 def _problems(jcfg, K, obstacles=None):
-    """JAX Problem batch (f32) of the reference tests' endpoints."""
+    """JAX Problem batch (f32) of the reference tests' endpoints; with the
+    default obstacles built once per key (the JAX build reads only the
+    horizon, the time step, the obstacle slots and ``bound_y`` of
+    ``jcfg``)."""
+    if obstacles is not None:
+        return _build_problems(jcfg, K, obstacles)
+    key = (jcfg.horizon, jcfg.time_step, jcfg.max_obstacles, jcfg.bound_y, K)
+    if key not in _BUILT:
+        _BUILT[key] = _build_problems(jcfg, K)
+    return _BUILT[key]
+
+
+_BUILT = {}
+
+
+def _build_problems(jcfg, K, obstacles=None):
     if K == 0:
         return _stack([
             default_problem(jcfg, jnp.asarray(s, jnp.float32), jnp.asarray(g, jnp.float32),

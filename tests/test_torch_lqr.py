@@ -23,6 +23,15 @@ from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
 from .test_lqr import _random_lqr
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _batch(n, N):
     """The same random LQR batch as numpy arrays (per-scenario seeds)."""
     datas = [_random_lqr(seed, N=N) for seed in range(n)]

@@ -24,6 +24,15 @@ CASES = [(0, 16, 0.0, 1e-9, 1e-7), (1, 16, 0.0, 1e-9, 1e-7), (2, 16, 0.0, 1e-9, 
          (42, 256, 1e-9, 1e-7, 1e-5)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _port(data) -> LQRData:
     """A JAX LQRData of one scenario as the port's batch of one."""
     return LQRData(*(torch.tensor(np.asarray(x))[None] for x in data))

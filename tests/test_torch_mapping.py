@@ -31,6 +31,15 @@ from kissmpc_tpu_torch.obstacles import mapping as t_mapping
 ROOT = t_native.BUILD_DIR.parents[2]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def native_lib():
     if shutil.which("g++") is None:

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from kissmpc_tpu import MPCConfig as JConfig
 from kissmpc_tpu import default_problem, problem_with_obstacles
@@ -21,6 +22,15 @@ from kissmpc_tpu_torch import MPCConfig as TConfig
 from kissmpc_tpu_torch import make_solver
 from kissmpc_tpu_torch.bridge import problem_from_numpy, solution_to_numpy
 from kissmpc_tpu_torch.ops import riccati
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _configs(kw, **solver):

@@ -26,6 +26,15 @@ TOL = 1e-9
 N, DT = 12, 0.1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: small tensors, beside other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _assert_problem_close(tp, jp, tol=TOL):
     for name in jp._fields:
         j = np.asarray(getattr(jp, name))

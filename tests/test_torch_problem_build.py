@@ -132,10 +132,12 @@ def test_problem_with_obstacles_on_the_cpu_is_build_plain(name):
 
 class _Launcher:
     """Stands in for the library: records what the launcher is handed,
-    writes nothing, returns ``err``."""
+    writes nothing, returns ``err``; asks for ``scratch_bytes`` of global
+    scratch (the kernel's rows in global memory, long horizons)."""
 
-    def __init__(self, err=0):
+    def __init__(self, err=0, scratch_bytes=0):
         self.err = err
+        self.scratch_bytes = scratch_bytes
         self.calls = []
 
     def _record(self, kind, params, inputs, strides, outputs, scratch, stream):
@@ -148,6 +150,9 @@ class _Launcher:
 
     def kissmpc_build_f64(self, *a):
         return self._record("f64", *a)
+
+    def kissmpc_build_scratch_bytes(self, params, elem_bytes):
+        return self.scratch_bytes
 
     def kissmpc_cuda_error_string(self, err):
         return b"stand-in failure"
@@ -172,8 +177,9 @@ class _Ops(_SyncOps):
 def test_card_path_hands_the_kernel_cfg_strides_and_pointers(dtype):
     """One launch with the config's and the keywords' numbers, every input
     in place with its batch stride (the shared set at 0, the start a column
-    of the plan), the outputs of the Problem's shapes, the repair's
-    scratch; counted; no host round-trip, nothing but allocation and
+    of the plan), the outputs of the Problem's shapes, a global scratch of
+    the bytes the library asks for (none where the rows fit in shared
+    memory); counted; no host round-trip, nothing but allocation and
     views dispatched."""
     cfg, _, goal, obstacles, kw = _inputs("k4_shared", dtype, B=5)
     plan = kw["warm_states"]
@@ -206,11 +212,13 @@ def test_card_path_hands_the_kernel_cfg_strides_and_pointers(dtype):
               "warm_states": (5, N + 1, 3), "warm_controls": (5, N, 2), "inflation_radius": (5,)}
     for name, shape in shapes.items():
         assert tuple(getattr(out, name).shape) == shape and getattr(out, name).dtype == dtype
-    assert scratch is not None
-    lib = _Launcher()
-    problem_build._launch(lib, 0, cfg, start, goal, obstacles,
-                          **{**kw, "repair_warm_start_states": False})
-    assert lib.calls[0][5] is None and lib.calls[0][1].repair == 0
+    assert scratch is None
+    lib = _Launcher(scratch_bytes=4096)
+    with _Ops() as ops:
+        problem_build._launch(lib, 0, cfg, start, goal, obstacles,
+                              **{**kw, "repair_warm_start_states": False})
+    assert not ops.seen, dict(ops.seen)
+    assert lib.calls[0][5] is not None and lib.calls[0][1].repair == 0
 
 
 def test_card_path_raises():
