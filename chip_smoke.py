@@ -239,11 +239,12 @@ bytes.
    plus twice the plain version's own f32-vs-f64 gap (f64: 1e-9 of its
    scale); a scenario outside it counts as a discrete flip (the sensor's
    order, the repair's deepest obstacle, the roll, a blocked step), at
-   most max(1, twice the plain version's own f32-vs-f64 flips).  Init and
+   most `allowed_flips` (twice its `ulp_witness`'s flips).  Init and
    diagnostics: every field by the same gate, ``converged`` flips counted
    the same way.  Each kernel timed by `kernel_ms` (20 launches in a CUDA
    graph) beside its bound (`build_bound`, `once_bound`) and its plain
-   version.
+   version; the diagnostics with their launch shape
+   (`ops/ipm_split.py::diagnostics_occupancy`).
 
 Every check of a call's counted kernels by the profiler's trace
 (`traced_launches`) reads the last of two calls between recorded marker
@@ -975,8 +976,8 @@ def once_kernels_check(cfg, problems, iterations, lib, stream):
       of every scenario meet the same gate.
 
     Returns {"ok", "init", "diagnostics", "flips", "plain_flips", "allowed",
-    "B", "dtype"} and the inputs of the launches ("launched": the problems
-    and the last iterate)."""
+    "B", "dtype"}, the inputs of the launches ("launched": the problems
+    and the last iterate) and the diagnostics kernel's output ("got")."""
     import torch
 
     from kissmpc_tpu_torch.ops import ipm_split
@@ -1004,7 +1005,8 @@ def once_kernels_check(cfg, problems, iterations, lib, stream):
                               for f in ref_d._fields[1:]], f32)
     return {"ok": igate["ok"] and dgate["ok"] and flips <= allowed, "init": igate,
             "diagnostics": dgate, "flips": flips, "plain_flips": plain_flips,
-            "allowed": allowed, "B": B, "dtype": str(dtype)[6:], "launched": (problems, it)}
+            "allowed": allowed, "B": B, "dtype": str(dtype)[6:], "launched": (problems, it),
+            "got": got_d}
 
 
 def describe_once_check(res):
@@ -1612,9 +1614,16 @@ def phase_build_once(split_cfgs, pools):
             row[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                            "bound_by": bound_by, "bytes": n_bytes, "ops": ops,
                            "max_abs_err": res["init" if kernel == "init" else "diagnostics"]["err"]}
+            shape = ""
+            if kernel == "diagnostics":
+                occ = row[kernel]["occupancy"] = ipm_split.diagnostics_occupancy(cfg, B, dtype)
+                shape = (f"; {occ['chunk_stages']} stages per chunk, {occ['registers']} registers, "
+                         f"{occ['local_bytes']} local bytes per thread, "
+                         f"{occ['smem_bytes_per_block']} shared bytes per block, "
+                         f"{occ['scenarios_per_sm']} scenarios resident per SM")
             log(f"[18] {kernel} kernel, {label} {res['dtype']} B={B}: {ms:.5f} ms, "
                 f"{ms / bound_ms:.2f}x its bound {bound_ms:.5f} ms ({n_bytes} bytes, {ops} "
-                f"operations; {bound_by}); plain version {plain_ms:.4f} ms")
+                f"operations; {bound_by}); plain version {plain_ms:.4f} ms{shape}")
         once_rows.append(row)
 
     main = build_rows[0]

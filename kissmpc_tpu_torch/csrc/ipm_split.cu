@@ -53,18 +53,22 @@
 // thread's sums in shared memory and adds them in thread order; so every
 // thread holds the same bits.
 //
-// init_kernel: one block of kInitWarps warps per scenario, so that a
+// init_kernel: one block of kOnceWarps warps per scenario, so that a
 // refine stage's grid covers the card; the threads take each family's
 // entries by flat index, so every store of a warp covers consecutive
 // values.  It reads the warm start and writes the slacks, duals and e of
 // every entry: bytes-bound.
 //
-// diagnostics_kernel: one warp per scenario, 4 per block, lanes over
-// stages (a stage's box entries and obstacle constraints); the adjoint
-// sweep on lane 0, chunk by chunk of 32 stages the lanes wrote to shared
-// memory.  It reads the iterate once and writes a few values per
-// scenario, bytes-bound in principle; the sweep's chain of N dependent
-// steps bounds it at small batches.
+// diagnostics_kernel: one block of kOnceWarps warps per scenario, as the
+// init.  The stages go from N down in chunks of `diag_chunk` stages, so
+// that its shared memory follows the chunk and K, whatever N: the threads
+// take the chunk's entries (obstacle constraints, box entries) by one flat
+// index, then one thread per stage finishes its rows, and the adjoint
+// sweep runs as block suffix scans over the chunk, with the carry from the
+// chunk above.  It reads the iterate once and writes a few values per
+// scenario: bytes-bound in principle; in practice each scenario's chain
+// of loads, barriers and scans of log2 depth, over the scenarios resident
+// on an SM, sets its time.
 //
 // What bounds them: by bytes, device memory at the batches of the
 // benchmark (a few hundred bytes per element; the card's balance is ~10
@@ -984,18 +988,13 @@ step_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
 }
 
 // ---------------------------------------------------------------------------
-// Init and diagnostics, once per solve.  The diagnostics: one warp per
-// scenario, kOnceWarps scenarios per block; lanes take stages (a stage's
-// box entries, its obstacle constraints, its cost and defect); the sums
-// and extremes reduce by a butterfly, so every lane holds the same bits.
+// Init and diagnostics, once per solve: one block per scenario at every
+// batch.  Each thread keeps its entries' sums and extremes in registers; a
+// butterfly within each warp and the warps' partials in warp order reduce
+// them, in one fixed order for the block.
 
+// The init's and the diagnostics' warps per scenario.
 constexpr int kOnceWarps = 4;
-// Values of a stage that the diagnostics' lanes hand lane 0's adjoint
-// sweep: gx_L (3), gu_L (2), and of A_t and B_t the entries that are
-// neither 0 nor 1: cos dt, sin dt, -v sin dt, v cos dt.
-constexpr int kSweepValues = 9;
-// The init's warps per scenario, at every batch.
-constexpr int kInitWarps = 4;
 
 // One slack and dual of the first iterate (solver/ipm.py::_init_state):
 // where the constraint is on, s at its value floored at 1e-2 and nu =
@@ -1016,7 +1015,7 @@ __device__ __forceinline__ double init_pair(double c, double mask, double mu0, v
 // and sigma, and the first mu (adaptive, or the raw mean complementarity
 // under "pc").  The trajectory is the warm start's, which `it` points at.
 //
-// One block of kInitWarps warps per scenario.  The threads take the
+// One block of kOnceWarps warps per scenario.  The threads take the
 // scenario's entries by flat index, family by family (the controls' box
 // entries, [N, 2]; the states', [N+1, 3]; the obstacle constraints,
 // [N, K]), so consecutive threads read and store consecutive values of
@@ -1030,12 +1029,12 @@ __device__ __forceinline__ double init_pair(double c, double mask, double mu0, v
 // block.  The count of constraints that are on follows from the bounds'
 // finiteness and the mask alone.
 template <typename D>
-__global__ void __launch_bounds__(kInitWarps * kLanes)
+__global__ void __launch_bounds__(kOnceWarps * kLanes)
 init_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
             D* __restrict__ mu_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  double* const part = reinterpret_cast<double*>(smem);  // [kInitWarps]
-  constexpr int nthr = kInitWarps * kLanes;
+  double* const part = reinterpret_cast<double*>(smem);  // [kOnceWarps]
+  constexpr int nthr = kOnceWarps * kLanes;
   const int tid = threadIdx.x;
   const long long b = blockIdx.x;
   const int N = p.N, K = p.K, T1 = N + 1;
@@ -1077,7 +1076,7 @@ init_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
   __syncthreads();  // the warps' partials are in
   if (tid == 0) {
     tot = part[0];
-    for (int w = 1; w < kInitWarps; ++w) tot += part[w];
+    for (int w = 1; w < kOnceWarps; ++w) tot += part[w];
     // The constraints that are on: the finite bounds at every stage, the
     // masked obstacles at stages 1..N.
     double cnt = 0.0;
@@ -1097,155 +1096,289 @@ init_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
 
 // A constraint entry's share of the diagnostics: |nu| and the mask for
 // the scaling s_d (the mask also counts the mean complementarity), s nu,
-// the violation and the complementarity.
+// the violation (feasibility's, beside the defects and the pin) and the
+// complementarity.
 struct DiagSums {
-  double nu_sum, cnt, tot, viol, comp;
+  double nu_sum, tot, feas, comp;
+  int cnt;
 };
 __device__ __forceinline__ void diag_entry(double c, double s, double nu, double mask,
                                            DiagSums& a) {
   a.nu_sum += mask * fabs(nu);
-  a.cnt += mask;
+  a.cnt += mask > 0.0 ? 1 : 0;
   a.tot += mask * s * nu;
-  a.viol = maxp(a.viol, mask * maxp(-c, 0.0));
+  a.feas = maxp(a.feas, mask * maxp(-c, 0.0));
   a.comp = maxp(a.comp, mask * fabs(s * nu));
+}
+
+// Obstacle constraints of a diagnostics chunk at most: the chunk's normal
+// terms fill 2 x 512 doubles of shared memory.
+constexpr int kDiagEntries = 512;
+// What a diagnostics thread sums (|nu|, mask, s nu, cost) and maximises
+// (violation, defect or pin; complementarity; |r_u|).
+constexpr int kDiagSums = 7;
+
+// Stages per chunk of the diagnostics: the largest power of two C no
+// larger than the block's threads with C max(K, 1) <= kDiagEntries, and
+// no larger than the horizon's N + 1 stages need.
+__host__ __device__ inline int diag_chunk(int N, int K) {
+  int c = kOnceWarps * kLanes;
+  while (c > 1 && (c * (K > 1 ? K : 1) > kDiagEntries || c / 2 >= N + 1)) c /= 2;
+  return c;
+}
+// A stage's row of normal terms: K values padded to an odd count, so that
+// the stages' threads read their rows without bank conflicts.
+__host__ __device__ inline int diag_pad(int K) { return K | 1; }
+// The diagnostics' shared memory in doubles: the chunk's box rows of the
+// Lagrangian's gradient (gx_L [3][C], gu_L [2][C]) and the obstacles'
+// normal terms ([2][C][pad]), then the scans' warp totals (lam0 and lam1
+// [2][warps], lam2 [warps]) and the block's partials ([kDiagSums][warps]).
+__host__ __device__ inline long long diag_smem_values(int N, int K) {
+  const long long C = diag_chunk(N, K);
+  return 5 * C + 2 * C * diag_pad(K) + (3 + kDiagSums) * kOnceWarps;
+}
+
+// Prefix sums over the block's threads of NV values each, from `carry`:
+// each v becomes carry plus the values of the threads before it, and each
+// carry becomes carry plus every thread's value.  A scan of shuffles within
+// each warp, then the warps' totals (`tot`, [NV][kOnceWarps]) in warp
+// order: every launch adds in the same order.  One barrier; `tot` is read
+// after it, so it must not be written again before the block's next one.
+template <int NV>
+__device__ __forceinline__ void block_scan(double (&v)[NV], double (&carry)[NV], double* tot,
+                                           int lane, int warp) {
+  double incl[NV];
+#pragma unroll
+  for (int q = 0; q < NV; ++q) incl[q] = v[q];
+#pragma unroll
+  for (int d = 1; d < kLanes; d *= 2) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const double u = __shfl_sync(kFull, incl[q], lane >= d ? lane - d : lane);
+      if (lane >= d) incl[q] += u;
+    }
+  }
+  if (lane == kLanes - 1) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) tot[q * kOnceWarps + warp] = incl[q];
+  }
+  __syncthreads();  // the warps' totals are in
+#pragma unroll
+  for (int q = 0; q < NV; ++q) {
+    const double before = __shfl_sync(kFull, incl[q], lane > 0 ? lane - 1 : 0);
+    double base = carry[q], all = carry[q];
+    for (int w = 0; w < kOnceWarps; ++w) {
+      if (w < warp) base += tot[q * kOnceWarps + w];
+      all += tot[q * kOnceWarps + w];
+    }
+    v[q] = lane > 0 ? base + before : base;
+    carry[q] = all;
+  }
 }
 
 // solver/ipm.py::diagnostics_plain: the final mu (`_adaptive_mu`) and the
 // KKT residuals with adjoint-estimated dynamics multipliers
-// (`_diagnostics`).  The lanes take the stages from the last one down in
-// chunks of 32: each writes its stage's gradients of the Lagrangian and
-// linearisation into the warp's rows in shared memory, then lane 0 carries
-// the adjoint lam through the chunk (r_u = gu_L + B' lam, lam = gx_L +
-// A' lam), in double.  The sums and extremes (s_d's dual sum, the mean
-// complementarity, violation, complementarity, defects, pin, cost) are
-// taken on the way, in double.
+// (`_diagnostics`), in double.
+//
+// One block of kOnceWarps warps per scenario.  The stages go from N down
+// in chunks of C = diag_chunk(N, K).  In a chunk the threads take its
+// entries by one flat index: the obstacle constraints ([N, K] rows), then
+// the states' box entries ([N+1, 3]), then the controls' ([N, 2]), each
+// read in place (consecutive threads, consecutive values); the order runs
+// from the block's last thread, so that the first ones, which take the
+// stage rows, take the fewest entries.  Each entry adds its share of the
+// sums and extremes in the thread's registers, and its gradient of the
+// Lagrangian (the box rows of gx_L and gu_L, the cost's gradient
+// included) or its normal term n (mask nu), as (dx, dy) (mask nu / d),
+// goes to shared memory.  Thread j takes stage t = top - j: before the
+// barrier the linearisation (one sincos_rd), the defects and the pin,
+// after it gx_L less the stage's normal terms in k order.  A_t is the
+// identity but for its third column (-v sin dt, v cos dt, 1), so the
+// adjoint lam_t = gx_L,t + A_t' lam_{t+1} (lam_N = gx_L,N) is three
+// suffix sums: lam0 and lam1 of gx_L's first two components, lam2 of
+// gx_L2,t - v sin dt lam0_{t+1} + v cos dt lam1_{t+1}.  Over the chunk
+// they are prefix sums over the threads (`block_scan`), carried from the
+// chunk above; r_u,t = gu_L,t + B_t' lam_{t+1} follows, and its largest
+// entry.  The scans add in another order than the plain version's
+// sequential sweep (in double, ~1e-16 of the multipliers).  Three barriers
+// a chunk, one at the end.  The launch bounds keep 64 registers, for 8
+// resident blocks per SM: the kernel's time follows the scenarios in
+// flight (fewer with more registers; 1 or 2 warps per scenario are faster
+// at B=8192 alone, PERF.md section 6).
 template <typename D>
-__global__ void __launch_bounds__(kOnceWarps * kLanes)
+__global__ void __launch_bounds__(kOnceWarps * kLanes, 8)
 diagnostics_kernel(const SplitParams p, const ProblemPtrs pr, const IteratePtrs it,
                    const DiagPtrs out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
-  const int b = blockIdx.x * kOnceWarps + warp;
-  if (b >= p.B) return;  // the whole warp: nothing below waits on it
-  double* const rows = reinterpret_cast<double*>(smem) + warp * kLanes * kSweepValues;
+  constexpr int nthr = kOnceWarps * kLanes;
+  const int tid = threadIdx.x, lane = tid % kLanes, warp = tid / kLanes;
+  const long long b = blockIdx.x;
   const int N = p.N, K = p.K, T1 = N + 1;
-  const D* X = at<D>(it.states, static_cast<long long>(b) * T1 * 3);
-  const D* U = at<D>(it.controls, static_cast<long long>(b) * N * 2);
+  const int C = diag_chunk(N, K), Kp = diag_pad(K);
+  double* const gx = reinterpret_cast<double*>(smem);  // [3][C]
+  double* const gu = gx + 3 * C;                         // [2][C]
+  double* const nrm = gu + 2 * C;                        // [2][C][Kp]
+  double* const tot01 = nrm + 2 * C * Kp;                // [2][kOnceWarps]
+  double* const tot2 = tot01 + 2 * kOnceWarps;           // [kOnceWarps]
+  double* const part = tot2 + kOnceWarps;                // [kDiagSums][kOnceWarps]
+  const D* X = at<D>(it.states, b * T1 * 3);
+  const D* U = at<D>(it.controls, b * N * 2);
   const D* goal = at<D>(pr.goal, b * 3);
   const double infl = *at<D>(pr.infl, b), dt = p.dt;
-  const double w[3] = {p.w0, p.w1, p.w2};
-  DiagSums a{0.0, 0.0, 0.0, 0.0, 0.0};
-  double cost = 0.0, resid = 0.0;  // the objective; the largest defect and pin entry
-  double l0 = 0.0, l1 = 0.0, l2 = 0.0, r_max = 0.0;  // lane 0's adjoint sweep
-  for (int top = N; top >= 0; top -= kLanes) {
-    const int t = top - lane;
-    if (t >= 0) {
-      double* const r = rows + lane * kSweepValues;
-      const double gm = goal_row(t, N, p.exclude_terminal) ? 1.0 : 0.0;
-      const long long xrow = (static_cast<long long>(b) * T1 + t) * 3;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const Bound lo = bound(*at<D>(pr.xl, b * 3 + i)), hi = bound(*at<D>(pr.xu, b * 3 + i));
-        const double x = X[t * 3 + i];
-        const double nu_lo = *at<D>(it.nu_xl, xrow + i), nu_hi = *at<D>(it.nu_xu, xrow + i);
-        diag_entry(masked(x - lo.val, lo.mask), *at<D>(it.s_xl, xrow + i), nu_lo, lo.mask, a);
-        diag_entry(masked(hi.val - x, hi.mask), *at<D>(it.s_xu, xrow + i), nu_hi, hi.mask, a);
-        const double err = x - goal[i];
-        cost += gm * (err * err) * w[i];
-        r[i] = 2.0 * gm * w[i] * err - lo.mask * nu_lo + hi.mask * nu_hi;
+  const double sigma = tid == 0 ? static_cast<double>(*at<D>(it.sigma, b)) : 0.0;  // for the end
+  DiagSums a{0.0, 0.0, 0.0, 0.0, 0};
+  double cost = 0.0, r_max = 0.0;             // the objective; the largest |r_u| entry
+  double c01[2] = {0.0, 0.0}, c2[1] = {0.0};  // lam at the stage above the chunk
+  for (int top = N; top >= 0; top -= C) {
+    const int lo = top - C + 1 > 0 ? top - C + 1 : 0;  // the chunk's stages lo..top
+    const int olo = lo > 1 ? lo : 1;  // the chunk's obstacle rows, olo - 1..top - 1
+    const int n_o = (top - olo + 1) * K, n_x = (top - lo + 1) * 3;
+    const int n_ox = n_o + n_x, n_all = n_ox + ((top < N ? top + 1 : N) - lo) * 2;
+    // The chunk's entries by one flat index f: its obstacle constraints,
+    // then its states' box entries, then its controls'.  Thread tid takes
+    // f = nthr - 1 - tid and every nthr-th after it, so that the first
+    // threads, which take the stage rows below, take the fewest entries.
+    for (int f = nthr - 1 - tid; f < n_all; f += nthr) {
+      // Diagnostics family: obstacles.
+      if (f < n_o) {
+        // Row r = t - 1 covers state t; the normal term n (mask nu) as
+        // (dx, dy) (mask nu / d), one division.
+        const int r = olo - 1 + f / K, k = f % K, t = r + 1;
+        const D* c = at<D>(pr.centers, ((b * K + k) * N + r) * 2);
+        const double dx = X[t * 3] - static_cast<double>(c[0]);
+        const double dy = X[t * 3 + 1] - static_cast<double>(c[1]);
+        const double dist = sqrt(dx * dx + dy * dy + 1e-16);
+        const double mask = static_cast<double>(*at<D>(pr.omask, b * K + k)) > 0.5 ? 1.0 : 0.0;
+        const long long off = (b * N + r) * K + k;
+        const double nu = *at<D>(it.nu_ob, off);
+        diag_entry(masked(dist - *at<D>(pr.radii, b * K + k) - infl, mask), *at<D>(it.s_ob, off),
+                   nu, mask, a);
+        const double q = mask * nu / maxp(dist, 1e-2);
+        const int slot = (top - t) * Kp + k;
+        nrm[slot] = dx * q;
+        nrm[C * Kp + slot] = dy * q;
       }
-      if (t >= 1 && K > 0) {
-        const long long orow = (static_cast<long long>(b) * N + t - 1) * K;
-        double gx0 = 0.0, gx1 = 0.0;
-        for (int k = 0; k < K; ++k) {
-          const D* ctr = at<D>(pr.centers, ((static_cast<long long>(b) * K + k) * N + t - 1) * 2);
-          const Ob o = obstacle(X[t * 3], X[t * 3 + 1], ctr[0], ctr[1],
-                                *at<D>(pr.radii, b * K + k), infl, *at<D>(pr.omask, b * K + k));
-          const double nu = *at<D>(it.nu_ob, orow + k);
-          diag_entry(o.c, *at<D>(it.s_ob, orow + k), nu, o.mask, a);
-          gx0 += o.nx * (o.mask * nu);
-          gx1 += o.ny * (o.mask * nu);
+      // Diagnostics family: states.
+      if (f >= n_o && f < n_ox) {
+        const int e = lo * 3 + f - n_o, t = e / 3, i = e - t * 3;
+        const Bound l = bound(*at<D>(pr.xl, b * 3 + i)), h = bound(*at<D>(pr.xu, b * 3 + i));
+        const double x = X[e];
+        const long long off = b * T1 * 3 + e;
+        const double nu_lo = *at<D>(it.nu_xl, off), nu_hi = *at<D>(it.nu_xu, off);
+        diag_entry(masked(x - l.val, l.mask), *at<D>(it.s_xl, off), nu_lo, l.mask, a);
+        diag_entry(masked(h.val - x, h.mask), *at<D>(it.s_xu, off), nu_hi, h.mask, a);
+        const double gm = goal_row(t, N, p.exclude_terminal) ? 1.0 : 0.0;
+        const double w = i == 0 ? p.w0 : (i == 1 ? p.w1 : p.w2);
+        const double err = x - goal[i];
+        cost += gm * (err * err) * w;
+        gx[i * C + top - t] = 2.0 * gm * w * err - l.mask * nu_lo + h.mask * nu_hi;
+      }
+      // Diagnostics family: controls.
+      if (f >= n_ox) {
+        const int g = lo * 2 + f - n_ox, t = g / 2, j = g - t * 2;
+        const Bound l = bound(*at<D>(pr.cl, b * 2 + j)), h = bound(*at<D>(pr.cu, b * 2 + j));
+        const double u = U[g];
+        const long long off = b * N * 2 + g;
+        const double nu_lo = *at<D>(it.nu_cl, off), nu_hi = *at<D>(it.nu_cu, off);
+        diag_entry(masked(u - l.val, l.mask), *at<D>(it.s_cl, off), nu_lo, l.mask, a);
+        diag_entry(masked(h.val - u, h.mask), *at<D>(it.s_cu, off), nu_hi, h.mask, a);
+        double gc;
+        if (j == 0) {  // the speed v
+          const double nv = minp(u, 0.0), pv = maxp(u, 0.0);
+          gc = p.reverse_squared ? 2.0 * p.w_neg * nv : p.w_neg * (u < 0.0 ? 1.0 : 0.0);
+          gc = gc + 2.0 * p.w_pos * pv;
+          cost += p.reverse_squared ? p.w_neg * (nv * nv) : p.w_neg * nv;
+          cost += p.w_pos * (pv * pv);
+        } else {  // the turn rate
+          gc = 2.0 * p.w_ang * u;
+          cost += p.w_ang * (u * u);
         }
-        r[0] -= gx0;
-        r[1] -= gx1;
+        gu[j * C + top - t] = gc - l.mask * nu_lo + h.mask * nu_hi;
+      }
+    }
+    // Thread j takes stage t = top - j.  Before the barrier, what needs no
+    // shared memory: the linearisation (one sincos_rd), the defects and
+    // the pin; after it, gx_L's components and gu_L.
+    const int j = tid, t = top - tid;
+    const bool on = j < C && t >= lo;
+    double cdt = 0.0, sdt = 0.0, v = 0.0;  // cos dt, sin dt and the speed of B_t and A_t
+    // Diagnostics stage rows.
+    if (on && t < N) {
+      const double om = U[t * 2 + 1];
+      double sth, cth;
+      v = U[t * 2];
+      sincos_rd(X[t * 3 + 2], sth, cth);
+      cdt = cth * dt;
+      sdt = sth * dt;
+      const D* X1 = X + (t + 1) * 3;
+      a.feas = maxp(a.feas, fabs(X[t * 3] + v * cth * dt - X1[0]));
+      a.feas = maxp(a.feas, fabs(X[t * 3 + 1] + v * sth * dt - X1[1]));
+      a.feas = maxp(a.feas, fabs(X[t * 3 + 2] + om * dt - X1[2]));
+    }
+    if (on && t == 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        a.feas = maxp(a.feas, fabs(static_cast<double>(*at<D>(pr.x0, b * 3 + i)) - X[i]));
+    }
+    __syncthreads();  // the chunk's rows are in
+    double g[2] = {0.0, 0.0}, h[1] = {0.0}, gu0 = 0.0, gu1 = 0.0;
+    if (on) {
+      g[0] = gx[j];
+      g[1] = gx[C + j];
+      h[0] = gx[2 * C + j];
+      if (t >= 1 && K > 0) {
+        double n0 = 0.0, n1 = 0.0;
+        for (int k = 0; k < K; ++k) {
+          n0 += nrm[j * Kp + k];
+          n1 += nrm[(C + j) * Kp + k];
+        }
+        g[0] -= n0;
+        g[1] -= n1;
       }
       if (t < N) {
-        const long long urow = (static_cast<long long>(b) * N + t) * 2;
-        const double v = U[t * 2], om = U[t * 2 + 1];
-        double gu0 = p.reverse_squared ? 2.0 * p.w_neg * minp(v, 0.0)
-                                       : p.w_neg * (v < 0.0 ? 1.0 : 0.0);
-        gu0 = gu0 + 2.0 * p.w_pos * maxp(v, 0.0);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const Bound lo = bound(*at<D>(pr.cl, b * 2 + j)), hi = bound(*at<D>(pr.cu, b * 2 + j));
-          const double u = U[t * 2 + j];
-          const double nu_lo = *at<D>(it.nu_cl, urow + j), nu_hi = *at<D>(it.nu_cu, urow + j);
-          diag_entry(masked(u - lo.val, lo.mask), *at<D>(it.s_cl, urow + j), nu_lo, lo.mask, a);
-          diag_entry(masked(hi.val - u, hi.mask), *at<D>(it.s_cu, urow + j), nu_hi, hi.mask, a);
-          r[3 + j] = (j == 0 ? gu0 : 2.0 * p.w_ang * om) - lo.mask * nu_lo + hi.mask * nu_hi;
-        }
-        const double nv = minp(v, 0.0), pv = maxp(v, 0.0);
-        cost += p.reverse_squared ? p.w_neg * (nv * nv) : p.w_neg * nv;
-        cost += p.w_pos * (pv * pv) + p.w_ang * (om * om);
-        double sth, cth;
-        sincos_rd(X[t * 3 + 2], sth, cth);
-        r[5] = cth * dt;
-        r[6] = sth * dt;
-        r[7] = -v * sth * dt;
-        r[8] = v * cth * dt;
-        const D* X1 = X + (t + 1) * 3;
-        resid = maxp(resid, fabs(X[t * 3] + v * cth * dt - X1[0]));
-        resid = maxp(resid, fabs(X[t * 3 + 1] + v * sth * dt - X1[1]));
-        resid = maxp(resid, fabs(X[t * 3 + 2] + om * dt - X1[2]));
-      }
-      if (t == 0) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          resid = maxp(resid, fabs(static_cast<double>(*at<D>(pr.x0, b * 3 + i)) - X[i]));
+        gu0 = gu[j];
+        gu1 = gu[C + j];
       }
     }
-    __syncwarp();
-    if (lane == 0) {
-      for (int j = 0; j < kLanes && top - j >= 0; ++j) {
-        const double* r = rows + j * kSweepValues;
-        if (top - j == N) {
-          l0 = r[0];
-          l1 = r[1];
-          l2 = r[2];
-          continue;
-        }
-        const double ru0 = r[3] + (r[5] * l0 + r[6] * l1);
-        const double ru1 = r[4] + dt * l2;
-        r_max = maxp(r_max, maxp(fabs(ru0), fabs(ru1)));
-        const double n2 = r[2] + (r[7] * l0 + r[8] * l1 + l2);
-        l0 = r[0] + l0;
-        l1 = r[1] + l1;
-        l2 = n2;
-      }
+    // The scans: lam0 and lam1 at t + 1, then r_u's first entry and lam2's
+    // term (A_t's third column is (-v sin dt, v cos dt, 1)), then lam2 at
+    // t + 1 and r_u's second entry.
+    block_scan(g, c01, tot01, lane, warp);  // Diagnostics scan.
+    if (on && t < N) {
+      r_max = maxp(r_max, fabs(gu0 + (cdt * g[0] + sdt * g[1])));
+      h[0] = h[0] + (-v * sdt * g[0] + v * cdt * g[1]);
     }
-    __syncwarp();  // the rows are free for the next chunk
+    block_scan(h, c2, tot2, lane, warp);  // Diagnostics scan.
+    if (on && t < N) r_max = maxp(r_max, fabs(gu1 + dt * h[0]));
   }
-  a.nu_sum = warp_sum(a.nu_sum);
-  a.cnt = warp_sum(a.cnt);
-  a.tot = warp_sum(a.tot);
-  cost = warp_sum(cost);
-  a.viol = warp_max(a.viol);
-  a.comp = warp_max(a.comp);
-  resid = warp_max(resid);
+  double s[kDiagSums] = {a.nu_sum, static_cast<double>(a.cnt), a.tot, cost, a.feas, a.comp, r_max};
+#pragma unroll
+  for (int q = 0; q < kDiagSums; ++q) s[q] = q < 4 ? warp_sum(s[q]) : warp_max(s[q]);
   if (lane == 0) {
-    const double sigma = *at<D>(it.sigma, b);
-    const double mu = clipp(sigma * (a.tot / maxp(a.cnt, 1.0)), p.mu_floor, p.mu_init);
+#pragma unroll
+    for (int q = 0; q < kDiagSums; ++q) part[q * kOnceWarps + warp] = s[q];
+  }
+  __syncthreads();  // the warps' partials are in
+  if (tid == 0) {
+#pragma unroll
+    for (int q = 0; q < kDiagSums; ++q) {
+      s[q] = part[q * kOnceWarps];
+      for (int w = 1; w < kOnceWarps; ++w)
+        s[q] = q < 4 ? s[q] + part[q * kOnceWarps + w] : maxp(s[q], part[q * kOnceWarps + w]);
+    }
+    const double nu_sum = s[0], cnt = s[1], tot = s[2], comp = s[5];
+    const double mu = clipp(sigma * (tot / maxp(cnt, 1.0)), p.mu_floor, p.mu_init);
     // IPOPT-style scaling of the dual residual (its s_d, s_max = 100).
-    const double s_d = maxp(a.nu_sum / maxp(a.cnt, 1.0), 100.0) / 100.0;
-    const D stat = static_cast<D>(r_max / s_d);
-    const D feas = static_cast<D>(maxp(resid, a.viol));
-    const D comp_scaled = static_cast<D>(a.comp / s_d);
+    const double s_d = maxp(nu_sum / maxp(cnt, 1.0), 100.0) / 100.0;
+    const D stat = static_cast<D>(s[6] / s_d);
+    const D feas = static_cast<D>(s[4]);
+    const D comp_scaled = static_cast<D>(comp / s_d);
     *put<unsigned char>(out.converged, b) =
         stat < p.kkt_tol && feas < p.kkt_tol && comp_scaled < p.comp_tol ? 1 : 0;
     *put<D>(out.stationarity, b) = stat;
     *put<D>(out.feasibility, b) = feas;
-    *put<D>(out.complementarity, b) = static_cast<D>(a.comp);
-    *put<D>(out.final_cost, b) = static_cast<D>(cost);
+    *put<D>(out.complementarity, b) = static_cast<D>(comp);
+    *put<D>(out.final_cost, b) = static_cast<D>(s[3]);
     *put<D>(out.final_mu, b) = static_cast<D>(mu);
   }
 }
@@ -1340,7 +1473,7 @@ int init(const SplitParams* params, const ProblemPtrs* pr, const IteratePtrs* it
   const SplitParams p = *params;
   if (p.B <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  init_kernel<T><<<p.B, kInitWarps * kLanes, sizeof(double) * kInitWarps, s>>>(
+  init_kernel<T><<<p.B, kOnceWarps * kLanes, sizeof(double) * kOnceWarps, s>>>(
       p, *pr, *it, static_cast<T*>(mu));
   const cudaError_t err = cudaGetLastError();
   return static_cast<int>(err);
@@ -1351,10 +1484,9 @@ int diagnostics(const SplitParams* params, const ProblemPtrs* pr, const IterateP
                 const DiagPtrs* out, void* stream) {
   const SplitParams p = *params;
   if (p.B <= 0) return 0;
-  const int blocks = (p.B + kOnceWarps - 1) / kOnceWarps;
-  const size_t bytes = sizeof(double) * kOnceWarps * kLanes * kSweepValues;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  diagnostics_kernel<T><<<blocks, kOnceWarps * kLanes, bytes, s>>>(p, *pr, *it, *out);
+  const size_t bytes = sizeof(double) * static_cast<size_t>(diag_smem_values(p.N, p.K));
+  diagnostics_kernel<T><<<p.B, kOnceWarps * kLanes, bytes, static_cast<cudaStream_t>(stream)>>>(
+      p, *pr, *it, *out);
   const cudaError_t err = cudaGetLastError();
   return static_cast<int>(err);
 }
@@ -1378,6 +1510,28 @@ int step_occupancy(const SplitParams* params, int corr, int* out) {
   out[0] = p.warps;
   out[1] = static_cast<int>(bytes);
   out[2] = global ? 1 : 0;
+  out[3] = blocks;
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+template <typename T>
+int diagnostics_occupancy(const SplitParams* params, int* out) {
+  const SplitParams p = *params;
+  const size_t bytes = sizeof(double) * static_cast<size_t>(diag_smem_values(p.N, p.K));
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, diagnostics_kernel<T>, kOnceWarps * kLanes, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, diagnostics_kernel<T>);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  out[0] = kOnceWarps;
+  out[1] = diag_chunk(p.N, p.K);
+  out[2] = static_cast<int>(bytes);
   out[3] = blocks;
   out[4] = attr.numRegs;
   out[5] = static_cast<int>(attr.localSizeBytes);
@@ -1456,6 +1610,17 @@ extern "C" int kissmpc_split_step_occupancy(const SplitParams* p, int corr, int 
                                             int* out) {
   return elem_bytes == 8 ? step_occupancy<double>(p, corr, out)
                          : step_occupancy<float>(p, corr, out);
+}
+
+// The launch shape of a diagnostics launch of ``p`` (its N and K, element
+// bytes from ``elem_bytes``): out = {warps per scenario, stages per chunk,
+// dynamic shared bytes per block, resident blocks (scenarios) per SM,
+// registers per thread, local (stack and spill) bytes per thread}.
+// Returns a cudaError_t.
+extern "C" int kissmpc_split_diagnostics_occupancy(const SplitParams* p, int elem_bytes,
+                                                   int* out) {
+  return elem_bytes == 8 ? diagnostics_occupancy<double>(p, out)
+                         : diagnostics_occupancy<float>(p, out);
 }
 
 extern "C" const char* kissmpc_cuda_error_string(int code) {

@@ -14,8 +14,10 @@ the port's counterpart of what XLA fuses of the reference's split
 solve under `jax.jit` (`kissmpc_tpu/solver/ipm.py:180`, `:407-714`,
 `:715`); there is no TPU kernel behind them.  Their plain versions are
 `solver/ipm.py::init_plain`, `condense_plain`, `step_plain` and
-`diagnostics_plain`.  The init kernel runs one block of four warps per
-scenario; the diagnostics kernel one warp per scenario.
+`diagnostics_plain`.  The init and diagnostics kernels run one block of
+four warps per scenario at every batch; the diagnostics take the stages
+in chunks of a fixed size whatever the horizon, and its adjoint sweep runs
+as suffix scans over each chunk (`diagnostics_occupancy`).
 
 For tensors on the CPU each wrapper runs its plain version; for CUDA
 tensors it launches its kernel or raises, and counts each launch in its
@@ -125,6 +127,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kissmpc_split_step_occupancy.argtypes = [ptr(_Params), ctypes.c_int, ctypes.c_int,
                                                  ctypes.c_void_p]
     lib.kissmpc_split_step_occupancy.restype = ctypes.c_int
+    lib.kissmpc_split_diagnostics_occupancy.argtypes = [ptr(_Params), ctypes.c_int,
+                                                        ctypes.c_void_p]
+    lib.kissmpc_split_diagnostics_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -418,6 +423,22 @@ def step_occupancy(cfg: MPCConfig, B: int, dtype: torch.dtype = torch.float32,
     _build.check_launch(lib, err, "split step occupancy query")
     w, smem, glob, blocks, regs, local = out
     return {"warps_per_scenario": w, "smem_bytes_per_block": smem, "global_arena": bool(glob),
+            "scenarios_per_sm": blocks, "registers": regs, "local_bytes": local}
+
+
+def diagnostics_occupancy(cfg: MPCConfig, B: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The launch shape of a diagnostics launch of ``B`` scenarios of
+    ``cfg`` on the current card: warps per scenario, stages per chunk,
+    dynamic shared bytes per block, resident blocks per SM (each block one
+    scenario), registers and local (stack and spill) bytes per thread.
+    Builds the kernel; needs CUDA."""
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    err = lib.kissmpc_split_diagnostics_occupancy(ctypes.byref(_params(cfg, B, dtype)),
+                                                  4 if dtype == torch.float32 else 8, out)
+    _build.check_launch(lib, err, "split diagnostics occupancy query")
+    warps, chunk, smem, blocks, regs, local = out
+    return {"warps_per_scenario": warps, "chunk_stages": chunk, "smem_bytes_per_block": smem,
             "scenarios_per_sm": blocks, "registers": regs, "local_bytes": local}
 
 

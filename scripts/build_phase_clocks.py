@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the problem build kernel and the split init kernel spend their
-time, on one NVIDIA GPU.
+"""Where the problem build kernel and the split init and diagnostics
+kernels spend their time, on one NVIDIA GPU.
 
-    python3 scripts/build_phase_clocks.py [--root DIR] [--only build|init]
+    python3 scripts/build_phase_clocks.py [--root DIR] [--only build|init|diagnostics]
 
 The build: compiles a copy of ``DIR/kissmpc_tpu_torch/csrc/problem_build.cu``
 (``DIR`` the checkout by default; another tree, such as an unpacked ``git
@@ -32,6 +32,21 @@ and 164 (float32) and the node (B=1); a family's share is the time it
 adds.  The edits are chosen by
 the source's text: the earlier kernel (lanes over stages) and the kernel with
 a marker comment before each family's loop have a set each.
+
+The diagnostics: the same event timing by family, of copies of
+``csrc/ipm_split.cu`` whose diagnostics kernel skips the box families (the
+states' and the controls' entries), the obstacle constraints, the
+per-stage rows (the linearisation and the defects; in the kernel with
+chunks also the normal terms' sums), the adjoint sweep (lane 0's, or the
+chunks' suffix scans), or all four, at k8_dyn2 B=8192 (float32 and
+float64), 1024, 328 and 164 and the node, on the iterate after
+SPLIT_CHECK_ITERATIONS plain iterations.  The earlier kernel (one warp per
+scenario, lanes over stages) and the kernel with marker comments have a
+set of edits each; their registers and stack come from the copies' ptxas
+lines.  Run with ``--root`` on an unpacked ``git archive`` of an earlier
+commit, in turns with this tree, to compare the two kernels in one call.
+With ``--designs`` the kernel with marker comments is also timed with
+other launch bounds.
 
 Last, one JSON line with the card's name and power limit, the ptxas lines
 of the copies, the clocks and the times.
@@ -112,11 +127,78 @@ INIT_EDITS_WARP = {
 INIT_EDITS_MARKED = {fam: [(f"  // Init family: {fam}.\n", "  if (false)\n")]
                      for fam in ("controls", "states", "obstacles")}
 INIT_BATCHES = (8192, 1024, 328, 164)
+# The earlier diagnostics kernel (one warp per scenario, lanes over stages,
+# lane 0's sweep): each part's code skipped.
+DIAG_EDITS_WARP = {
+    "box": [("#pragma unroll\n      for (int i = 0; i < 3; ++i) {\n        const Bound lo = "
+             "bound(*at<D>(pr.xl, b * 3 + i)), hi = bound(*at<D>(pr.xu, b * 3 + i));",
+             "#pragma unroll\n      for (int i = 0; i < 0; ++i) {\n        const Bound lo = "
+             "bound(*at<D>(pr.xl, b * 3 + i)), hi = bound(*at<D>(pr.xu, b * 3 + i));"),
+            ("#pragma unroll\n        for (int j = 0; j < 2; ++j) {\n          const Bound lo = "
+             "bound(*at<D>(pr.cl, b * 2 + j)), hi = bound(*at<D>(pr.cu, b * 2 + j));",
+             "#pragma unroll\n        for (int j = 0; j < 0; ++j) {\n          const Bound lo = "
+             "bound(*at<D>(pr.cl, b * 2 + j)), hi = bound(*at<D>(pr.cu, b * 2 + j));")],
+    "obstacles": [("      if (t >= 1 && K > 0) {\n        const long long orow",
+                   "      if (false) {\n        const long long orow")],
+    "stage rows": [("        double sth, cth;\n        sincos_rd(X[t * 3 + 2], sth, cth);\n"
+                    "        r[5] = cth * dt;\n        r[6] = sth * dt;\n"
+                    "        r[7] = -v * sth * dt;\n        r[8] = v * cth * dt;\n"
+                    "        const D* X1 = X + (t + 1) * 3;\n"
+                    "        resid = maxp(resid, fabs(X[t * 3] + v * cth * dt - X1[0]));\n"
+                    "        resid = maxp(resid, fabs(X[t * 3 + 1] + v * sth * dt - X1[1]));\n"
+                    "        resid = maxp(resid, fabs(X[t * 3 + 2] + om * dt - X1[2]));\n",
+                    "        r[5] = dt;\n        r[6] = 0.0;\n        r[7] = 0.0;\n"
+                    "        r[8] = v * dt;\n        resid = maxp(resid, om);\n")],
+    "sweep": [("    if (lane == 0) {\n      for (int j = 0; j < kLanes && top - j >= 0; ++j) {",
+               "    if (false) {\n      for (int j = 0; j < kLanes && top - j >= 0; ++j) {")],
+}
+# The diagnostics kernel with marker comments: a family's loop or the stage
+# rows' block behind `if (false)`, the scans' calls taken out.
+DIAG_EDITS_MARKED = {
+    "box": [(f"      // Diagnostics family: {fam}.\n", "      if (false)\n")
+            for fam in ("states", "controls")],
+    "obstacles": [("      // Diagnostics family: obstacles.\n", "      if (false)\n")],
+    "stage rows": [("    // Diagnostics stage rows.\n", "    if (false)\n")],
+    "sweep": [("    block_scan(g, c01, tot01, lane, warp);  // Diagnostics scan.\n", ""),
+              ("    block_scan(h, c2, tot2, lane, warp);  // Diagnostics scan.\n", "")],
+}
+# With --designs, the kernel with marker comments also with its launch
+# bounds asking for another count of resident blocks per SM, and with 1 or
+# 2 warps per scenario in place of kOnceWarps' 4 (the same register cap:
+# 16 or 32 resident blocks per SM).
+DIAG_BOUNDS = "__global__ void __launch_bounds__(kOnceWarps * kLanes, {})\ndiagnostics_kernel("
+
+
+def diag_warps(warps):
+    """An edit of the source: the diagnostics kernel, its helpers, its
+    launcher and its occupancy query with ``warps`` warps per scenario (the
+    init keeps kOnceWarps)."""
+    def edit(text):
+        a = text.index("// Obstacle constraints of a diagnostics chunk at most")
+        z = text.index("template <typename T, bool EL>\ncudaError_t launch_condense")
+        region = text[a:z].replace(DIAG_BOUNDS.format(8), DIAG_BOUNDS.format(32 // warps))
+        text = text[:a] + region.replace("kOnceWarps", str(warps)) + text[z:]
+        for old in ("diagnostics_kernel<T><<<p.B, kOnceWarps * kLanes,",
+                    "&blocks, diagnostics_kernel<T>, kOnceWarps",
+                    "  out[0] = kOnceWarps;\n  out[1] = diag_chunk"):
+            text = edited(text, [(old, old.replace("kOnceWarps", str(warps)))], "ipm_split.cu")
+        return text
+    return edit
+
+
+DIAG_DESIGNS = {"bounds 6": [(DIAG_BOUNDS.format(8), DIAG_BOUNDS.format(6))],
+                "2 warps": [diag_warps(2)], "1 warp": [diag_warps(1)]}
 ROLLED_CYCLES = 1000  # a rollout phase longer than this ran the rollout
 
 
 def edited(text, edits, what):
-    for old, new in edits:
+    """``text`` with each edit applied: a pair (old, new), where ``old``
+    must appear once, or a function of the text."""
+    for edit in edits:
+        if callable(edit):
+            text = edit(text)
+            continue
+        old, new = edit
         if text.count(old) != 1:
             raise SystemExit(f"build_phase_clocks: {old[:60]!r} is not in {what} once")
         text = text.replace(old, new)
@@ -252,11 +334,77 @@ def measure_init(args, cs, torch, tmp):
     return out, ptxas
 
 
+def kernel_ptxas(tmp, name, kernel):
+    """The ptxas lines of the entries of ``kernel`` in the copy ``name``."""
+    out, keep = [], False
+    for line in ptxas_lines(tmp, name):
+        if "Compiling entry" in line:
+            keep = kernel in line
+        if keep:
+            out.append(line)
+    return out
+
+
+def measure_diagnostics(args, cs, torch, tmp):
+    from kissmpc_tpu_torch.ops import _build, ipm_split
+    from kissmpc_tpu_torch.scenarios import obstacle_problems
+    from kissmpc_tpu_torch.solver.problem import Problem, gather
+
+    text = ipm_split.SOURCE.read_text()
+    sets = DIAG_EDITS_MARKED if "    // Diagnostics stage rows.\n" in text else DIAG_EDITS_WARP
+    variants = {"source": []}
+    variants.update({f"no {part}": e for part, e in sets.items()})
+    variants["no part"] = [e for edits in sets.values() for e in edits]
+    if args.designs and sets is DIAG_EDITS_MARKED:
+        variants.update(DIAG_DESIGNS)
+    stems = {name: "diag_" + name.replace(" ", "_") for name in variants}
+    paths = {name: copy_source(tmp, ipm_split.SOURCE, edited(text, edits, "ipm_split.cu"),
+                               stems[name]) for name, edits in variants.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:  # one nvcc per copy
+        list(pool.map(lambda n: _build.build(paths[n], stems[n], build_dir=tmp), paths))
+    libs = {name: ipm_split.bind(_build.load(paths[name], stems[name], build_dir=tmp))
+            for name in variants}
+    ptxas = [f"{name}: {line}" for name in variants
+             for line in kernel_ptxas(tmp, stems[name], "diagnostics_kernel")]
+    for line in ptxas:
+        print(f"ptxas (diagnostics): {line}", flush=True)
+    k8, node = cs.configs("split")["k8_dyn2"], cs.node_config()
+    pool = obstacle_problems(k8, cs.BATCH, seed=0, n_dynamic=2)
+    cases = [(f"k8_dyn2 B={B} float32", k8, gather(pool, torch.arange(B, device="cuda")))
+             for B in INIT_BATCHES]
+    cases.insert(1, ("k8_dyn2 B=8192 float64", k8,
+                     Problem(*(x.to(torch.float64) for x in cases[0][2]))))
+    cases.append(("node B=1 float32", node, obstacle_problems(node, 1, seed=12, n_dynamic=2)))
+    out = {}
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for label, cfg, problems in cases:
+        problems = Problem(*(x.contiguous() for x in problems))
+        it, _ = cs.split_iterate(cfg, problems, cs.SPLIT_CHECK_ITERATIONS)
+        times = {}
+        for turn in range(2):  # every variant twice, in turns
+            for name, lib in libs.items():
+                ms = cs.kernel_ms(lambda: ipm_split._diagnostics(lib, stream(), cfg, problems, it),
+                                  reps=20, graph=True)
+                times.setdefault(name, []).append(ms)
+        best = {name: min(v) for name, v in times.items()}
+        out[label] = {"ms": times, "added_ms": {
+            part: best["source"] - best[f"no {part}"] for part in sets}}
+        if args.designs:
+            out[label]["designs_ms"] = {n: best[n] for n in variants if n in DIAG_DESIGNS}
+        print(f"diagnostics {label}: " + ", ".join(f"{n} {m:.5f}" for n, m in best.items())
+              + " ms (best of two turns); added by " + ", ".join(
+                  f"{part} {v:.5f}" for part, v in out[label]["added_ms"].items()), flush=True)
+    return out, ptxas
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the tree whose package and kernels are measured")
-    ap.add_argument("--only", choices=("build", "init"), help="measure one kernel alone")
+    ap.add_argument("--only", choices=("build", "init", "diagnostics"),
+                    help="measure one kernel alone")
+    ap.add_argument("--designs", action="store_true",
+                    help="also time the diagnostics kernel's design variants (DIAG_DESIGNS)")
     args = ap.parse_args()
     sys.path.insert(0, str(args.root.resolve()))
 
@@ -268,13 +416,17 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        build, build_ptxas, failed = ({}, [], []) if args.only == "init" else \
-            measure_build(args, cs, torch, tmp)
-        init, init_ptxas = ({}, []) if args.only == "build" else measure_init(args, cs, torch, tmp)
+        run = lambda kernel: args.only in (None, kernel)  # noqa: E731
+        build, build_ptxas, failed = measure_build(args, cs, torch, tmp) if run("build") \
+            else ({}, [], [])
+        init, init_ptxas = measure_init(args, cs, torch, tmp) if run("init") else ({}, [])
+        diag, diag_ptxas = measure_diagnostics(args, cs, torch, tmp) if run("diagnostics") \
+            else ({}, [])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"card": smi, "root": str(args.root), "build_ptxas": build_ptxas,
-                      "init_ptxas": init_ptxas, "build": build, "init": init}), flush=True)
+                      "init_ptxas": init_ptxas, "diagnostics_ptxas": diag_ptxas, "build": build,
+                      "init": init, "diagnostics": diag}), flush=True)
     if failed:
         raise SystemExit(f"build_phase_clocks: the instrumented copy fails the gate: {failed}")
     return 0

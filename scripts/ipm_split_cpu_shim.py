@@ -32,7 +32,12 @@ scenario and a block of 2 warps, and one at N=400 takes the step's arena
 in global scratch.
 The init and diagnostics kernels are held against `ipm.init_plain` and
 `ipm.diagnostics_plain` by chip_smoke.py's `once_kernels_check` (cases as
-CASES, one at N=40 for two chunks of the diagnostics' sweep), and the
+CASES, one at N=40 whose stages fill a chunk of 64), the diagnostics also
+in their layouts: a block per scenario at a refine stage's batch, the
+node, and horizons and obstacle counts whose stages take several chunks
+(K=100: chunks of 4 stages; N=200 and N=400 at K=8: chunks of 64, the
+scans' carry across 4 and 7 of them), each launched twice for the same
+bits; and the
 build kernel against `ops/problem_build.py::build_plain` by its
 `build_kernel_check` (repair and completion on and off, K=0, K_all > K, a
 shared stride-0 set, the start tiled; one case at N=50, K=8).  Last, a
@@ -298,8 +303,23 @@ ONCE_CASES = (
     ("k4_exclude_linear", 10, 4, 6, 3, {},
      {"goal_cost_mode": "exclude_terminal", "reverse_penalty_mode": "linear"}),
 )
-# Run by the script alone: 41 stages, two chunks of the diagnostics' sweep.
+# Run by the script alone: 41 stages in one chunk of the diagnostics (64
+# stages at K=3), whose stage threads span two warps.
 ONCE_LONG_CASES = (("k3_n40", 40, 3, 3, 3, {"mu_sigma_max": 0.7}, {}),)
+# The diagnostics kernel's layouts: (name, N, K, batch, iterations before
+# the checked one, solver fields).  A block per scenario at a refine
+# stage's batch (K=8, N=50: one chunk of 64 stages); the node (N=7, B=1:
+# one chunk of 8); K=100 (chunks of 4 stages, 400 obstacle constraints
+# each); N=200 and N=400 at K=8 (chunks of 64: the scans' carry across 4
+# and 7 chunks, each thread several entries of a family).  Each is held by
+# `once_kernels_check`, and a second launch must give the same bits.
+DIAG_LAYOUT_CASES = (
+    ("k8_b164", 50, 8, 164, 2, {"mu_sigma_max": 0.7}),
+    ("node_n7", 7, 4, 1, 3, {}),
+    ("k100", 12, 100, 3, 2, {}),
+    ("k8_n200", 200, 8, 2, 2, {"mu_sigma_max": 0.7}),
+    ("k8_n400", 400, 8, 2, 2, {"mu_sigma_max": 0.7}),
+)
 
 # The init kernel's layouts: (name, N, K, batch, solver fields).  At a
 # refine stage's batch, hard, elastic and "pc"; and where each thread of
@@ -384,6 +404,29 @@ def run_init_layouts(lib, cases=INIT_LAYOUT_CASES, dtypes=None):
                                  f"max|kernel-plain| {g['err']:.3e}, nearest its limit "
                                  f"{g['worst']} at {g['fields'][g['worst']]['ratio']:.3f} of it; "
                                  f"{'passes' if g['ok'] else 'FAILS'}"))
+    return out
+
+
+def run_diag_layouts(lib, cases=DIAG_LAYOUT_CASES, dtypes=None):
+    """The init and diagnostics kernels of each case in each dtype by
+    `once_kernels_check`, the diagnostics launched a second time on the same
+    inputs: (ok, a line for the log) per case."""
+    import torch
+
+    import chip_smoke
+    from kissmpc_tpu_torch.ops import ipm_split
+
+    out = []
+    for name, n, K, batch, iters, solver in cases:
+        cfg = config(n, K, solver, {})
+        for dtype in dtypes or (torch.float32, torch.float64):
+            res = chip_smoke.once_kernels_check(cfg, problems(cfg, batch, dtype), iters, lib, 0)
+            again = ipm_split._diagnostics(lib, 0, cfg, *res["launched"])
+            same = all(torch.equal(x, y) for x, y in zip(res["got"], again))
+            ok = res["ok"] and same
+            out.append((ok, f"diagnostics {name} N={n} K={K} B={batch} {str(dtype)[6:]}: "
+                            f"{chip_smoke.describe_once_check(res)}; a second launch "
+                            f"{'gives the same bits' if same else 'DIFFERS'}"))
     return out
 
 
@@ -530,6 +573,7 @@ def main():
         results += run_cases(lib, GLOBAL_CASES)
         results += run_once_cases(lib, ONCE_CASES + ONCE_LONG_CASES)
         results += run_init_layouts(lib)
+        results += run_diag_layouts(lib)
         blib = build_problem(tmp, args.sanitize)
         results += run_build_cases(blib, BUILD_CASES + BUILD_LONG_CASES)
         if not args.sanitize:  # the copy is built without one

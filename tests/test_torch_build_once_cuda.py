@@ -13,7 +13,9 @@ init and
 diagnostics kernels (`csrc/ipm_split.cu`) against `ipm.init_plain` and
 `ipm.diagnostics_plain` by the same gate (``converged`` flips counted as
 the build's; the init at a refine stage's batch and where each thread
-takes many entries, a second launch the same bits; the
+takes many entries, the diagnostics at a refine stage's batch and where
+its stages take many chunks (N up to 2000, K=100), a second launch the
+same bits for both; the
 build past one warp's lanes, at K = 0, with tied sensor keys and tied
 speed caps, and with its rows in global scratch); `problem_with_obstacles` as one build launch and a split
 `ipm.solve` as 1 init + 3 per iteration + 1 diagnostics launches.
@@ -115,6 +117,30 @@ def test_init_kernel_refine_batch_and_long_rows(cuda, n, K, B, solver, dtype):
     torch.cuda.synchronize()
     assert gates[0]["ok"], (gates[0]["worst"], gates[0]["fields"][gates[0]["worst"]])
     assert torch.equal(gates[0]["mu"], gates[1]["mu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n,K,B,solver", [
+    (50, 8, REFINE_CHECK_BATCH, {}), (50, 8, REFINE_CHECK_BATCH, {"elastic_obstacles": True}),
+    (50, 8, REFINE_CHECK_BATCH, {"mehrotra": "pc"}), (400, 8, 64, {}), (12, 100, 64, {}),
+    (2000, 8, 64, {}),
+], ids=["k8", "k8_elastic", "k8_pc", "n400", "k100", "n2000"])
+def test_diagnostics_kernel_refine_batch_and_long_rows(cuda, n, K, B, solver, dtype):
+    """The diagnostics kernel at a refine stage's batch (hard, elastic,
+    "pc"), and where its stages take many chunks (N = 400 and 2000: the
+    suffix scans' carry across 7 and 32 chunks of 64 stages; K = 100:
+    chunks of 4 stages), within the gate; a second launch gives the same
+    bits."""
+    cfg, _ = _config("k8", **solver)
+    cfg = cfg.replace(horizon=n, max_obstacles=K)
+    problems = obstacle_problems(cfg, B, seed=4, n_dynamic=2, dtype=dtype)
+    lib, stream = ipm_split._library(), torch.cuda.current_stream().cuda_stream
+    res = once_kernels_check(cfg, problems, 2, lib, stream)
+    again = ipm_split._diagnostics(lib, stream, cfg, *res["launched"])
+    torch.cuda.synchronize()
+    assert res["ok"], describe_once_check(res)
+    assert all(torch.equal(x, y) for x, y in zip(res["got"], again))
 
 
 @pytest.mark.cuda

@@ -12,6 +12,11 @@ tensors, held against the plain versions by chip_smoke.py's gates:
 - the init in its layouts (`init_gate`): at a refine stage's batch
   (B=164), hard, elastic and "pc", and where each thread takes several
   entries of a family (K=100; N=200);
+- the diagnostics in their layouts (`once_kernels_check`, and a second
+  launch with the same bits): a block per scenario at a refine stage's
+  batch (K=8, N=50, B=164), the node (N=7, B=1), and stages in several
+  chunks (K=100: chunks of 4 stages; N=200 and N=400 at K=8: the suffix
+  scans' carry across 4 and 7 chunks);
 - init and diagnostics (`once_kernels_check`): hard and elastic, K=0 and
   K=4, "pc", both cost modes; every field of each scenario within 1e-4 of
   its scale plus twice the plain version's own f32-vs-f64 gap in float32,
@@ -86,6 +91,14 @@ def test_shim_init_and_diagnostics_match_plain(shim, case, dtype):
 def test_shim_init_layouts_match_plain(shim, case, dtype):
     module, lib, _ = shim
     [(ok, line)] = module.run_init_layouts(lib, cases=(case,), dtypes=(dtype,))
+    assert ok, line
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", _shim_module().DIAG_LAYOUT_CASES, ids=lambda c: c[0])
+def test_shim_diagnostics_layouts_match_plain(shim, case, dtype):
+    module, lib, _ = shim
+    [(ok, line)] = module.run_diag_layouts(lib, cases=(case,), dtypes=(dtype,))
     assert ok, line
 
 
