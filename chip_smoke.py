@@ -196,9 +196,9 @@ bytes.
    phase 9's synthetic map (written again from its seed), each returning
    0; one fleet tick (B=4096) in `utils.profiling.trace` with an
    `annotate("fleet_tick")` span, whose trace must name the span
-   and the fused kernel; `measure` on `solve_batch` (K=8, B=8192); a
-   `FleetCheckpoint` of the fleet's EnvState saved, restored onto the card
-   bitwise, and its next tick bitwise equal to the uninterrupted one;
+   and the fused kernel; a `FleetCheckpoint` of the fleet's EnvState
+   saved, restored onto the card bitwise, and its next tick bitwise equal
+   to the uninterrupted one;
 16. `make_solver` captured (one CUDA graph) against the eager `ipm.solve`
    on k8_dyn2 (split, N=50, float32, 32 iterations) at B=8192: its program
    under the sync debug mode, the first call (warm-up and capture) timed,
@@ -3721,20 +3721,19 @@ def phase_lqr_pt(cfg, pool):
     return {"rows": rows, "launches_n2000": launches, "runtime_calls_n2000": runtime}
 
 
-def phase_utils_cli(tmpdir, cfg, pool):
+def phase_utils_cli(tmpdir):
     """Phase 15: the CLI's demo, map and lab on the card, a profiler trace
-    of one fleet tick, `measure` on solve_batch, and a checkpoint of the
-    fleet's EnvState resumed bitwise."""
+    of one fleet tick, and a checkpoint of the fleet's EnvState resumed
+    bitwise."""
     import glob
 
     import torch
 
-    from kissmpc_tpu_torch import MPCConfig, cli, environment, solve_batch
+    from kissmpc_tpu_torch import MPCConfig, cli, environment
     from kissmpc_tpu_torch import agent as agent_mod
     from kissmpc_tpu_torch._tree import leaves
     from kissmpc_tpu_torch.agent import AgentParams
     from kissmpc_tpu_torch.solver import graph
-    from kissmpc_tpu_torch.solver.problem import gather
     from kissmpc_tpu_torch.utils import profiling
     from kissmpc_tpu_torch.utils.checkpoint import CheckpointManager, FleetCheckpoint
 
@@ -3808,11 +3807,6 @@ def phase_utils_cli(tmpdir, cfg, pool):
     if "fleet_tick" not in text or "ipm_fused_kernel" not in text:
         fail("the trace names neither the fleet_tick span nor the fused kernel")
     result.update(trace_bytes=len(text), trace_device_ms=device_ms)
-
-    batch = gather(pool, torch.arange(BATCH, device="cuda"))
-    stats = profiling.measure(solve_batch, cfg, batch, warmup=1, reps=5)
-    log(f"[15] measure(solve_batch) k8_dyn2 B={BATCH}: {json.dumps(stats)}")
-    result.update(measure=stats)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     state = FleetCheckpoint(env_state=env, rng_key=gen.get_state(),
@@ -4066,7 +4060,7 @@ def main():
     lqr_pt = phase_lqr_pt(split_cfgs["k8_dyn2"], pools["k8_dyn2"])
     lqr_pt["phase_s"] = t2 = time.perf_counter() - t0 - t1
     with tempfile.TemporaryDirectory() as tmpdir:
-        utils_cli = phase_utils_cli(tmpdir, fused_cfgs["k8_dyn2"], pools["k8_dyn2"])
+        utils_cli = phase_utils_cli(tmpdir)
     utils_cli["phase_s"] = time.perf_counter() - t0 - t1 - t2
     t0 = time.perf_counter()
     captured = phase_captured_solver(split_cfgs["k8_dyn2"], pools["k8_dyn2"])

@@ -42,6 +42,7 @@ from ..config import MPCConfig
 from ..obstacles import ObstacleSet, empty
 from ..solver import graph, ipm
 from ..solver.problem import problem_with_obstacles
+from ..utils.profiling import annotate
 
 
 class Model:
@@ -171,26 +172,32 @@ class Model:
         environment-loop behavior of `mpc/environment.py:77-80`, which the
         reference's merged Model evidently folded in).  The tick's Problem
         (a batch of one, on the model's device) stays in ``last_problem``
-        and its diagnostics, as numpy, in ``last_diagnostics``.
+        and its diagnostics, as numpy, in ``last_diagnostics``.  Spans
+        (`utils/profiling.py::annotate`): ``model.step`` around it;
+        ``model.inputs``, `graph.run`'s, ``model.read`` and
+        ``model.advance`` inside.
         """
-        if not self.use_warm_start:
-            self.reset(matrices_only=True, to_initial_state=False)
-        start = self.initial_state if state_override else self.state
-        inputs = [torch.as_tensor(x, dtype=self.dtype)[None]
-                  for x in (start, self.goal_state, self._states, self._controls)]
-        problem, sol = graph.run(("io.Model", self.cfg, self.params, self.dtype),
-                                 self._program, self.device, *inputs, *self._obstacles)
-        self.last_problem = problem
-        self._states = sol.states[0].cpu().numpy().astype(np.float64)
-        self._controls = sol.controls[0].cpu().numpy().astype(np.float64)
-        self.linear_velocity = float(self._controls[0, 0])
-        self.angular_velocity = float(self._controls[0, 1])
-        self.last_diagnostics = type(sol.diagnostics)(
-            *(x[0].cpu().numpy() for x in sol.diagnostics))
-
-        if self.at_goal and self.waypoint_index < len(self.waypoints) - 1:
-            self.waypoint_index += 1
-            self.update_goal(self.current_waypoint())
+        with annotate("model.step"):
+            if not self.use_warm_start:
+                self.reset(matrices_only=True, to_initial_state=False)
+            start = self.initial_state if state_override else self.state
+            with annotate("model.inputs"):
+                inputs = [torch.as_tensor(x, dtype=self.dtype)[None]
+                          for x in (start, self.goal_state, self._states, self._controls)]
+            problem, sol = graph.run(("io.Model", self.cfg, self.params, self.dtype),
+                                     self._program, self.device, *inputs, *self._obstacles)
+            self.last_problem = problem
+            with annotate("model.read"):
+                self._states = sol.states[0].cpu().numpy().astype(np.float64)
+                self._controls = sol.controls[0].cpu().numpy().astype(np.float64)
+                self.linear_velocity = float(self._controls[0, 0])
+                self.angular_velocity = float(self._controls[0, 1])
+                self.last_diagnostics = type(sol.diagnostics)(
+                    *(x[0].cpu().numpy() for x in sol.diagnostics))
+            with annotate("model.advance"):
+                if self.at_goal and self.waypoint_index < len(self.waypoints) - 1:
+                    self.waypoint_index += 1
+                    self.update_goal(self.current_waypoint())
 
     def _program(self, start, goal, warm_states, warm_controls, *obstacles):
         """The tick on the device: the robot's Problem (a batch of one) and

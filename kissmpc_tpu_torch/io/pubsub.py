@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Callable, Generic, Optional, TypeVar
 
+from ..utils.profiling import annotate
+
 T = TypeVar("T")
 
 
@@ -101,7 +103,24 @@ class ControlLoop:
         self._obs_seen = 0
 
     def tick(self) -> bool:
-        """One control tick; returns True if a command was produced."""
+        """One control tick; returns True if a command was produced.  Its
+        spans (`utils/profiling.py::annotate`): ``node.tick`` around it,
+        ``node.fold`` and ``node.emit`` inside, beside the model's."""
+        with annotate("node.tick"):
+            with annotate("node.fold"):
+                self._fold()
+            if len(self.model.waypoints) == 0:
+                return False
+            self.model.step(state_override=self._odom_seen > 0)
+            with annotate("node.emit"):
+                if self.on_command is not None:
+                    self.on_command(self.model.linear_velocity, self.model.angular_velocity)
+                if self.on_future_states is not None:
+                    self.on_future_states(self.model.states_matrix)
+            return True
+
+    def _fold(self) -> None:
+        """Fold the newest odometry, plan and obstacle set into the model."""
         odom, v = self.odometry.read()
         if odom is not None and v != self._odom_seen:
             self._odom_seen = v
@@ -120,16 +139,6 @@ class ControlLoop:
             if obs is not None and v != self._obs_seen:
                 self._obs_seen = v
                 self.model.set_obstacles(obs)
-
-        if len(self.model.waypoints) == 0:
-            return False
-
-        self.model.step(state_override=self._odom_seen > 0)
-        if self.on_command is not None:
-            self.on_command(self.model.linear_velocity, self.model.angular_velocity)
-        if self.on_future_states is not None:
-            self.on_future_states(self.model.states_matrix)
-        return True
 
     def run(self, rate_hz: float = 100.0, stop: Optional[Callable] = None):
         """Run until ``stop()`` returns True (or forever)."""

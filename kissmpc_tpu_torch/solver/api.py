@@ -121,6 +121,48 @@ def _merge(full: torch.Tensor, new: torch.Tensor, take: torch.Tensor, idx):
     return out
 
 
+# (device, number of stages) -> int64 [stages, 3]: per stage position, the
+# re-solved scenarios that entered it converged, those that entered it
+# unconverged, and those it rescued, summed over every `solve_batch` with
+# that many stages.
+_REFINE_COUNTS: dict = {}
+
+
+def _stage_counts(device: torch.device, stages: int) -> torch.Tensor:
+    """The refine counts of ``stages`` stages on ``device``, made at the
+    first such solve, which `graph.run` runs before it captures one."""
+    key = (device, stages)
+    if key not in _REFINE_COUNTS:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("solve_batch's refine counts must be made outside a "
+                               "capture: run the solve once before capturing it")
+        _REFINE_COUNTS[key] = torch.zeros((stages, 3), dtype=torch.int64, device=device)
+    return _REFINE_COUNTS[key]
+
+
+def refine_counts(device=None) -> list:
+    """Per refine stage position, ``[re-solved, entered unconverged,
+    rescued]``: the sums over every `solve_batch` on ``device`` since the
+    process began, eager calls and replays of captured ones alike, as host
+    numbers (reading them waits for the device, so read them after the
+    work).  Empty where no solve on the device had a stage."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rows: list = []
+    for (where, _), counts in _REFINE_COUNTS.items():
+        if where != dev:
+            continue
+        for s, (converged, unconverged, rescued) in enumerate(counts.tolist()):
+            if s == len(rows):
+                rows.append([0, 0, 0])
+            row = rows[s]
+            row[0] += converged + unconverged
+            row[1] += unconverged
+            row[2] += rescued
+    return rows
+
+
 def solve_batch(cfg: MPCConfig, problems: Problem, *, device=None) -> Solution:
     """Batched solve with staged second-chance refinement.
 
@@ -129,7 +171,9 @@ def solve_batch(cfg: MPCConfig, problems: Problem, *, device=None) -> Solution:
     them), re-solves it warm-started from the current iterates for the
     stage's ``iterations`` at its ``mu_sigma``, and merges back wherever the
     re-solve converged and the running solution had not.  Untouched
-    scenarios come back bit-identical.
+    scenarios come back bit-identical.  Each stage adds what it re-solved,
+    how many of those entered unconverged and how many it rescued to the
+    device's refine counts (`refine_counts`), with no host sync.
 
     ``device=None`` runs on the card; the problems are moved there.
     """
@@ -137,7 +181,10 @@ def solve_batch(cfg: MPCConfig, problems: Problem, *, device=None) -> Solution:
     problems = to_device(problems, dev)
     sol = _dispatch(cfg, problems)
     B = problems.initial_state.shape[0]
-    for frac, iters, mu_sigma in _refine_stages(cfg):
+    stages = _refine_stages(cfg)
+    if stages:
+        counts = _stage_counts(problems.initial_state.device, len(stages))
+    for s, (frac, iters, mu_sigma) in enumerate(stages):
         n = min(B, max(1, int(round(B * frac))))
         score = 1.0 - sol.diagnostics.converged.to(torch.float32)
         idx = torch.sort(score, descending=True, stable=True).indices[:n]
@@ -145,7 +192,13 @@ def solve_batch(cfg: MPCConfig, problems: Problem, *, device=None) -> Solution:
             warm_states=sol.states[idx], warm_controls=sol.controls[idx]
         )
         sol2 = _dispatch(cfg, sub, iterations=iters, mu_sigma=mu_sigma)
-        take = sol2.diagnostics.converged & ~sol.diagnostics.converged[idx]
+        # Per re-solved scenario: entered converged, entered unconverged,
+        # rescued (`take`); their sums go to the stage's row of the counts.
+        flags = torch.empty((n, 3), dtype=torch.bool, device=idx.device)
+        torch.index_select(sol.diagnostics.converged, 0, idx, out=flags[:, 0])
+        torch.logical_not(flags[:, 0], out=flags[:, 1])
+        take = torch.logical_and(sol2.diagnostics.converged, flags[:, 1], out=flags[:, 2])
+        counts[s].add_(flags.sum(0))
         sol = Solution(
             states=_merge(sol.states, sol2.states, take, idx),
             controls=_merge(sol.controls, sol2.controls, take, idx),

@@ -41,6 +41,11 @@ collectives (``.collectives``).  A replay runs no Python, so each such
 counter registers itself with `counter`, and `run` records how far each
 moved while ``fn`` was being captured, puts it back (a capture launches
 nothing), and adds that amount on every replay.
+
+`run` opens the span ``graph.run`` on every path and, on the card,
+``graph.capture`` around a first call or ``graph.copy_in``,
+``graph.replay`` and ``graph.clone_out`` around the steps of a later one
+(`utils/profiling.py::annotate`); a captured region holds no span.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from typing import Any, Callable, Hashable, NamedTuple
 import torch
 
 from .._tree import leaves, tree_map
+from ..utils.profiling import annotate
 
 # (holder, attribute) of every registered counter, in registration order.
 COUNTERS: list = []
@@ -113,24 +119,29 @@ def run(key: Hashable, fn: Callable, device: torch.device, *inputs: torch.Tensor
     (key, device, input shapes and dtypes) and replayed on the card.  The
     key is frozen (`freeze`) and hashed on every path, the CPU's and
     `eager()`'s too, so a key the card cannot look up raises everywhere."""
-    device = torch.device(device)
-    key = freeze(key)
-    hash(key)
-    if device.type != "cuda" or _EAGER:
-        return fn(*(x.to(device) for x in inputs))
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    sig = (key, device, tuple((tuple(x.shape), x.dtype) for x in inputs))
-    entry = _GRAPHS.get(sig)
-    if entry is None:
-        result, _GRAPHS[sig] = _capture(fn, device, inputs)
-        return result
-    for dst, src in zip(entry.inputs, inputs):
-        dst.copy_(src, non_blocking=True)
-    entry.graph.replay()
-    for (holder, attr), n in zip(COUNTERS, entry.counts):
-        setattr(holder, attr, getattr(holder, attr) + n)
-    return tree_map(torch.clone, entry.outputs)
+    with annotate("graph.run"):
+        device = torch.device(device)
+        key = freeze(key)
+        hash(key)
+        if device.type != "cuda" or _EAGER:
+            return fn(*(x.to(device) for x in inputs))
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        sig = (key, device, tuple((tuple(x.shape), x.dtype) for x in inputs))
+        entry = _GRAPHS.get(sig)
+        if entry is None:
+            with annotate("graph.capture"):
+                result, _GRAPHS[sig] = _capture(fn, device, inputs)
+            return result
+        with annotate("graph.copy_in"):
+            for dst, src in zip(entry.inputs, inputs):
+                dst.copy_(src, non_blocking=True)
+        with annotate("graph.replay"):
+            entry.graph.replay()
+        for (holder, attr), n in zip(COUNTERS, entry.counts):
+            setattr(holder, attr, getattr(holder, attr) + n)
+        with annotate("graph.clone_out"):
+            return tree_map(torch.clone, entry.outputs)
 
 
 def _capture(fn: Callable, device: torch.device, inputs) -> tuple:

@@ -1,10 +1,12 @@
-"""Structured metrics: per-tick records with percentile summaries.  A
-port-owned copy of `kissmpc_tpu/utils/metrics.py`.
+"""Structured metrics: per-tick records with percentile summaries, as the
+CLI's `demo` prints them.  A port-owned copy of the aggregator of
+`kissmpc_tpu/utils/metrics.py`.
 
 A host-side aggregator of per-tick records, fed off the critical path:
 diagnostics are copied to the host only when recorded, one copy per field,
 so a `Diagnostics` of tensors on the card is recorded as one on the CPU.
-The summary keys and the JSONL keys are the reference's.
+The summary keys and the JSONL keys are the reference's.  Spans inside a
+tick are the profiler's (`utils/profiling.py::annotate`).
 """
 
 from __future__ import annotations
@@ -110,44 +112,3 @@ class MetricsAggregator:
             )
             for r in self.records
         )
-
-
-class PhaseTimer:
-    """Context-manager wall-clock phase timing (host side).
-
-    Around work on the card, synchronize (``torch.cuda.synchronize()``)
-    inside the span for honest numbers; for on-device phase attribution use
-    `kissmpc_tpu_torch.utils.profiling`.
-    """
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    class _Span:
-        def __init__(self, timer: "PhaseTimer", name: str):
-            self.timer, self.name = timer, name
-
-        def __enter__(self):
-            self.t0 = time.perf_counter()
-            return self
-
-        def __exit__(self, *exc):
-            dt = time.perf_counter() - self.t0
-            t = self.timer
-            t.totals[self.name] = t.totals.get(self.name, 0.0) + dt
-            t.counts[self.name] = t.counts.get(self.name, 0) + 1
-            return False
-
-    def span(self, name: str) -> "_Span":
-        return self._Span(self, name)
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {
-                "total_s": self.totals[name],
-                "count": self.counts[name],
-                "mean_ms": self.totals[name] / self.counts[name] * 1e3,
-            }
-            for name in self.totals
-        }

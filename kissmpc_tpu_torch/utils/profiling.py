@@ -1,11 +1,14 @@
-"""Device profiling helpers: `torch.profiler` integration.  Port of
-`kissmpc_tpu/utils/profiling.py`.
+"""Profiling: `torch.profiler` traces and the program's named spans.  Port
+of `kissmpc_tpu/utils/profiling.py`.
 
-Trace capture around solver calls, written as a Chrome trace for
-inspection in Perfetto or `chrome://tracing`; named spans that show in that
-trace beside the kernels they enclose; and a micro-benchmark utility that
-separates the first call (on the card: the kernels' nvcc build and load)
-from steady-state latency.
+`trace` captures the host and, where CUDA is present, the card around any
+code, written as a Chrome trace for Perfetto or `chrome://tracing`.
+`annotate` is the program's one span API: the node tick, the model step
+and every `graph.run` open spans with it (PERF.md lists them), and each
+span is a host event of whatever profiler records, so it lies on the same
+clock as the device's kernels and copies.  While no profiler records,
+`annotate` returns one shared null context and a span costs a check.
+`block_until_ready` waits for a result's work on the card.
 """
 
 from __future__ import annotations
@@ -13,11 +16,13 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Dict
 
 import torch
 
 from .._tree import leaves
+
+# The context of every span entered while no profiler records.
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -37,8 +42,16 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """Named span visible in `trace`'s output (a context manager)."""
-    return torch.profiler.record_function(name)
+    """A span named ``name`` (a context manager), nested under the span
+    open around it: a host event of the running profiler, or, while none
+    records, the shared null context.  The span is recorded as a plain
+    host range, not as `torch.profiler.record_function`'s user annotation,
+    which CUPTI mirrors on the card as a device event spanning the kernels
+    launched inside: such an event would count as device work in every
+    reading of busy time and kernels."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
 
 
 def block_until_ready(out):
@@ -50,34 +63,3 @@ def block_until_ready(out):
     for device in devices:
         torch.cuda.synchronize(device)
     return out
-
-
-def measure(
-    fn: Callable,
-    *args,
-    warmup: int = 1,
-    reps: int = 5,
-) -> Dict[str, float]:
-    """First-call + steady-state timing of a function.
-
-    Returns dict with ``compile_s`` (the first call; on the card it
-    includes building and loading the kernels it launches) and ``best_s`` /
-    ``mean_s`` over ``reps`` post-warmup calls.
-    """
-    t0 = time.perf_counter()
-    block_until_ready(fn(*args))
-    compile_s = time.perf_counter() - t0
-
-    for _ in range(max(0, warmup - 1)):
-        block_until_ready(fn(*args))
-
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        block_until_ready(fn(*args))
-        times.append(time.perf_counter() - t0)
-    return {
-        "compile_s": compile_s,
-        "best_s": min(times),
-        "mean_s": sum(times) / len(times),
-    }

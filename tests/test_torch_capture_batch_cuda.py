@@ -1,7 +1,8 @@
 """The captured batched path (`kissmpc_tpu_torch/solver/graph.py`) on the
 card: `make_batch_solver` with either backend, the fleet tick, the
 data-parallel fleet on a one-rank NCCL group and the planner's grid fields,
-every replay bitwise equal to the eager path it captured.
+every replay bitwise equal to the eager path it captured, and the refine
+stages' counts moved alike by both.
 
 Marked ``cuda``: it skips without an NVIDIA GPU (a CUDA graph has no CPU
 mode).  It imports neither JAX nor the JAX package, so on a machine with a
@@ -10,6 +11,7 @@ card and no JAX it runs as
     python -m pytest --noconftest -m cuda tests/test_torch_capture_batch_cuda.py
 """
 
+import contextlib
 import dataclasses
 import datetime
 
@@ -27,6 +29,7 @@ from kissmpc_tpu_torch.ops.riccati import solve_lqr_cuda
 from kissmpc_tpu_torch.planner import bottleneck_clearance, plan_waypoint_chain
 from kissmpc_tpu_torch.scenarios import episode_worlds, obstacle_problems
 from kissmpc_tpu_torch.solver import graph
+from kissmpc_tpu_torch.solver.api import refine_counts
 
 STAGES = ((0.25, 8, 0.2), (0.125, 12, 0.7))
 
@@ -111,6 +114,27 @@ def test_launch_counters_move_by_the_captured_count(cuda):
             solve(p)
             moved = (solve_batch_fused.launches - fused, solve_lqr_cuda.launches - riccati)
             assert moved == ((3, 0) if backend == "fused" else (0, 8 + 8 + 12)), backend
+
+
+@pytest.mark.cuda
+def test_refine_counts_move_alike_on_replays(cuda):
+    """The refine stages' counts on the device: the eager call, the first
+    captured call and each replay add the same rows (re-solved, entered
+    unconverged, rescued), the replays with no Python of their own."""
+    cfg = _cfg("fused")
+    p = obstacle_problems(cfg, 48, seed=5, n_dynamic=2)
+    solve = make_batch_solver(cfg)
+    moved = []
+    for eager in (True, False, False, False):
+        before = refine_counts()
+        with graph.eager() if eager else contextlib.nullcontext():
+            solve(p)
+        after = refine_counts()
+        before += [[0, 0, 0]] * (len(after) - len(before))
+        moved.append([[a - b for a, b in zip(x, y)] for x, y in zip(after, before)])
+    assert [row[0] for row in moved[0]] == [12, 6]
+    assert all(row[1] <= row[0] and row[2] <= row[1] for row in moved[0])
+    assert moved[1:] == [moved[0]] * 3
 
 
 @pytest.mark.cuda

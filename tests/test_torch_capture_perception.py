@@ -383,10 +383,17 @@ def _public_names(path: pathlib.Path) -> set:
     return {n for n in names if not n.startswith("_")}
 
 
+# Public names the port leaves out on purpose: the host-clock phase timer
+# and the best-of-5 timer, which nothing of the port read; the port's spans
+# are the profiler's (`utils/profiling.py::annotate`).
+DROPPED = {"utils/metrics.py": {"PhaseTimer"}, "utils/profiling.py": {"measure"}}
+
+
 def test_every_public_name_of_the_reference_is_ported():
     """Every module of `kissmpc_tpu/` has its counterpart in the port, with
     every public top-level name (the Pallas kernels apart: their ports are
-    CUDA sources behind `ops/riccati.py` and `ops/ipm_fused.py`)."""
+    CUDA sources behind `ops/riccati.py` and `ops/ipm_fused.py`; the names
+    of `DROPPED` apart, which the port must not have)."""
     root = pathlib.Path(__file__).resolve().parent.parent
     missing = {}
     for ref in sorted((root / "kissmpc_tpu").rglob("*.py")):
@@ -394,7 +401,10 @@ def test_every_public_name_of_the_reference_is_ported():
         if rel.parts[:2] == ("ops", "pallas"):
             continue
         port = root / "kissmpc_tpu_torch" / rel
-        lost = _public_names(ref) - (_public_names(port) if port.exists() else set())
+        names = _public_names(port) if port.exists() else set()
+        dropped = DROPPED.get(str(rel), set())
+        assert dropped <= _public_names(ref) and not dropped & names, rel
+        lost = _public_names(ref) - names - dropped
         if lost or not port.exists():
             missing[str(rel)] = sorted(lost) or "module"
     assert not missing, missing

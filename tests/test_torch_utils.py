@@ -1,7 +1,7 @@
 """The port's utils (`kissmpc_tpu_torch/utils/`): metrics aggregation
-against the JAX package's aggregator on the same diagnostics, the phase
-timer, `measure`, checkpoint round trips of a fleet state carried across
-from JAX, and profiler traces."""
+against the JAX package's aggregator on the same diagnostics,
+`block_until_ready`, checkpoint round trips of a fleet state carried
+across from JAX, profiler traces and the program's spans."""
 
 import glob
 import json
@@ -21,8 +21,8 @@ from kissmpc_tpu_torch import MPCConfig, bridge, default_problem, environment, m
 from kissmpc_tpu_torch._tree import leaves
 from kissmpc_tpu_torch.agent import AgentParams
 from kissmpc_tpu_torch.utils.checkpoint import CheckpointManager, FleetCheckpoint
-from kissmpc_tpu_torch.utils.metrics import MetricsAggregator, PhaseTimer
-from kissmpc_tpu_torch.utils.profiling import annotate, block_until_ready, measure, trace
+from kissmpc_tpu_torch.utils.metrics import MetricsAggregator
+from kissmpc_tpu_torch.utils.profiling import annotate, block_until_ready, trace
 
 
 @pytest.fixture(autouse=True)
@@ -69,33 +69,9 @@ def test_metrics_without_diagnostics():
     assert np.isnan(s["kkt_stationarity_worst"])
 
 
-def test_phase_timer():
-    t = PhaseTimer()
-    with t.span("a"):
-        time.sleep(0.01)
-    with t.span("a"):
-        time.sleep(0.01)
-    with t.span("b"):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2
-    assert s["a"]["total_s"] >= 0.02
-    assert "b" in s
-
-
-def test_measure():
+def test_block_until_ready_returns_its_argument():
     x = torch.ones((64, 64), dtype=torch.float64)
-    calls = []
-
-    def f(x):
-        calls.append(1)
-        return {"sum": (x @ x).sum(), "parts": ((x + 1,), [x * 2])}
-
-    stats = measure(f, x, warmup=2, reps=3)
-    assert len(calls) == 1 + 1 + 3
-    assert set(stats) == {"compile_s", "best_s", "mean_s"}
-    assert 0 < stats["best_s"] <= stats["mean_s"]
-    out = f(x)
+    out = {"sum": (x @ x).sum(), "parts": ((x + 1,), [x * 2])}
     assert block_until_ready(out) is out
 
 
@@ -162,3 +138,30 @@ def test_trace_names_the_span(tmp_path):
     files = glob.glob(str(tmp_path / "*.json"))
     assert len(files) == 1
     assert "fleet_tick" in open(files[0]).read()
+
+
+def test_annotate_is_one_shared_null_context_while_no_profiler_records():
+    """No profiler: every span is the same null context, entered at no
+    cost beyond the check, whatever its name."""
+    assert not torch.autograd._profiler_enabled()
+    first, second = annotate("node.tick"), annotate("graph.replay")
+    assert first is second
+    with first as entered:
+        assert entered is None
+
+
+def test_annotate_records_nested_host_spans_under_a_profiler():
+    """Under a profiler each span is a host event of its own, under the
+    span around it, and holds the work run inside it."""
+    x = torch.ones(16, 16)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        outer = annotate("test.outer")
+        assert outer is not annotate("test.other")
+        with outer:
+            with annotate("test.inner"):
+                (x @ x).sum()
+    events = {e.name: e for e in prof.events()}
+    inner = events["test.inner"]
+    assert events["test.outer"].device_type.name == inner.device_type.name == "CPU"
+    assert inner.cpu_parent is not None and inner.cpu_parent.name == "test.outer"
+    assert {c.name for c in inner.cpu_children} == {"aten::matmul", "aten::sum"}
