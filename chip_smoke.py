@@ -9,9 +9,10 @@ Phases, each a hard failure with a non-zero exit:
    per source, all started together: the Riccati kernel, the probe, the
    fused IPM kernel, the split solve's four kernels and the problem
    build) and print each
-   ptxas register/spill line; for the fused kernel's instance of each configuration, its
-   registers, local bytes, dynamic shared memory per block and the
-   scenarios resident per SM (`ops/ipm_fused.py::occupancy`); the same for
+   ptxas register/spill line; for the fused kernel's launch at every solve
+   stage of each configuration and of the fleet tick, its width (warps per
+   scenario), registers, local bytes, dynamic shared memory per block and
+   the scenarios resident per SM (`ops/ipm_fused.py::occupancy`); the same for
    the Riccati kernel in float32 and float64 at B=8192 and 164 (its two
    chunk lengths), with its lanes and scenarios per block
    (`ops/riccati.py::occupancy`);
@@ -559,16 +560,19 @@ def phase_build():
                 log(f"  ptxas: {line.strip()}")
     log(f"[1] built {', '.join(lib.name for lib in libs.values())} in {build_s:.3f} s")
     occupancy = {}
-    for name, cfg in configs("fused").items():
-        occupancy[name] = occ = ipm_fused.occupancy(cfg)
-        branch = "elastic" if cfg.solver.elastic_obstacles else "hard"
-        log(f"[1] fused kernel, {name} ({branch} instance): {occ['registers']} registers, "
-            f"{occ['local_bytes']} bytes of local memory per thread (stack frame and spills, "
-            f"as the ptxas lines above split them), {occ['smem_bytes_per_block']} "
-            f"bytes of dynamic shared memory per block of {occ['warps_per_block']} warps, "
-            f"{occ['blocks_per_sm']} blocks = {occ['scenarios_per_sm']} scenarios resident per SM")
-        if occ["blocks_per_sm"] < 1:
-            fail(f"the fused kernel cannot be resident for {name}")
+    cells = [(name, cfg, BATCH) for name, cfg in configs("fused").items()]
+    for name, cfg, size in cells + [("fleet_b4096", fleet_config()[0], FLEET_BATCH)]:
+        for B, _, _ in stage_shapes(cfg, size):
+            occupancy[f"{name}_b{B}"] = occ = ipm_fused.occupancy(cfg, B)
+            branch = "elastic" if cfg.solver.elastic_obstacles else "hard"
+            log(f"[1] fused kernel, {name} B={B} ({branch} instance, {occ['width']} warp(s) per "
+                f"scenario): {occ['registers']} registers, {occ['local_bytes']} bytes of local "
+                f"memory per thread (stack frame and spills, as the ptxas lines above split "
+                f"them), {occ['smem_bytes_per_block']} bytes of dynamic shared memory per block "
+                f"of {occ['warps_per_block']} warps, {occ['blocks_per_sm']} blocks = "
+                f"{occ['scenarios_per_sm']} scenarios resident per SM")
+            if occ["blocks_per_sm"] < 1:
+                fail(f"the fused kernel cannot be resident for {name} at B={B}")
     for dtype in (torch.float32, torch.float64):
         for B in (BATCH, RICCATI_BATCHES[-1]):
             occupancy[f"riccati_{str(dtype)[6:]}_b{B}"] = occ = riccati.occupancy(B, N, dtype)
@@ -2694,7 +2698,7 @@ def phase_horizons(fused_cfgs):
         K = cfg.max_obstacles
         pr = (obstacle_problems(cfg, EDGE_BATCH, seed=3, n_dynamic=2) if K
               else free_problems(cfg, EDGE_BATCH, seed=3))
-        occ = ipm_fused.occupancy(cfg)
+        occ = ipm_fused.occupancy(cfg, EDGE_BATCH)
         got = solve_batch_fused(cfg, pr, iterations=EDGE_ITERATIONS)
         ref = solve_batch_fused_plain(cfg, pr, iterations=EDGE_ITERATIONS)
         ref64 = solve_batch_fused_plain(cfg, Problem(*(x.double() for x in pr)),

@@ -28,40 +28,65 @@
 // of operations per scenario: the condensation, two sweeps, and one merit
 // pass per line-search candidate, each with its sin, cos, sqrt and log.
 //
-// Design.  One warp per scenario, kWarps warps per block (fewer only at
-// long horizons, see below).  The scenario's
-// whole iterate lives in dynamic shared memory for the whole solve (the
-// TPU kernel kept it in VMEM): problem rows and tracks (non-affine tracks
-// too), the trajectory, slacks and duals of every family, elastic e, the
-// Newton direction, and one region that holds the per-time stage rows and
-// the gains during the sweeps (the TPU kernel's stage_ref), the obstacle
-// step from the fraction to the boundary to the update, and the Lagrangian
-// gradient rows of the diagnostics.  Device memory is read once, at the
-// start, and written once, at the end; the layout is sized at run time from
-// (N, K, elastic, affine tracks), ~11 KB per scenario free, ~15 KB with
-// K = 8 at N = 50.  The launcher takes kWarps scenarios per block where
-// they fit in the card's opt-in shared memory per block (227 KB on sm_90),
-// else 2, else 1 (warps_for); the kernel reads its count from blockDim.  At
-// one warp the longest horizon is N = 1036 at K = 0, and at K = 8 805
-// (affine tracks) or 659, 725 or 604 with elastic obstacles
-// (kissmpc_ipm_fused_max_horizon); the wrapper refuses a longer one before
-// any work.  Inputs and outputs are scenario-major ([B, rows]): a
-// warp reads and writes its scenario's contiguous rows.  The stage rows and
-// the stored step each beat their alternative on the card (condensing inside
-// the sweep on lane 0; recomputing the step where it is read): see
-// scripts/fused_design_sweep.py and its readings in PERF.md.
+// Design.  A scenario's work is shared by W warps, its width: 1 at large
+// batches, kWide = 4 where one warp per scenario would leave most of the
+// card's warp slots empty, as at the refine stages.  The launcher picks W
+// from the batch, the problem's shape and the card alone (prepare): the
+// wide W needs its one-scenario block to fit the card's opt-in shared
+// memory and the card's resident blocks of it
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SM count) to
+// hold the whole batch at once.  W is a template parameter beside
+// ELASTIC; a solve stage is one launch at either width.
 //
-// Within an iteration the lanes share the work: the reductions run
-// lane-strided over the elements, then warp shuffles; the condensation
-// computes every time step's stage rows in parallel (lane t, its sum over
-// the obstacles in order k); the backward Riccati sweep and the forward
-// rollout run on lane 0 from those rows while the others wait at
-// __syncwarp(); the fraction to the boundary, each line-search candidate,
-// the updates and the diagnostics run lane-strided, then shuffles; the
-// diagnostics' adjoint sweep runs on lane 0.  Every scalar that steers
-// control flow (mu, rho, alpha, found, keep, reg, sigma) is computed on all
-// lanes from butterfly results, so the warp never diverges around a
-// shuffle.  A warp past the batch leaves at once; nothing syncs the block.
+// At W = 1 a block holds kWarps scenarios, one warp each (fewer only at
+// long horizons, see below).  At W > 1 a block is one scenario.  The
+// scenario's whole iterate lives in dynamic shared memory for the whole
+// solve (the TPU kernel kept it in VMEM): problem rows and tracks
+// (non-affine tracks too), the trajectory, slacks and duals of every
+// family, elastic e, the Newton direction, and one region that holds the
+// per-time stage rows and the gains during the sweeps (the TPU kernel's
+// stage_ref), the obstacle step from the fraction to the boundary to the
+// update, and the Lagrangian gradient rows of the diagnostics.  A wide
+// block adds a scratch: the slots through which warp 0 hands its sums to
+// the other warps, and one region for, in turn, the condensation's
+// obstacle terms and a merit pass's factors.  Device memory is read once,
+// at the start, and written once, at the end; the layout is sized at run
+// time from (N, K, elastic, affine tracks), ~11 KB per scenario free,
+// ~15 KB with K = 8 at N = 50 (~20 KB with the wide scratch).  At W = 1
+// the launcher takes kWarps scenarios per block where they fit in the
+// card's opt-in shared memory per block (227 KB on sm_90), else 2, else 1
+// (warps_for); the kernel reads its count from blockDim.  At one warp the
+// longest horizon is N = 1036 at K = 0, and at K = 8 805 (affine tracks)
+// or 659, 725 or 604 with elastic obstacles (kissmpc_ipm_fused_max_horizon);
+// the wrapper refuses a longer one before any work.  Inputs and outputs
+// are scenario-major ([B, rows]): a scenario's threads read and write its
+// contiguous rows.  The stage rows and the stored step each beat their
+// alternative on the card (condensing inside the sweep on lane 0;
+// recomputing the step where it is read): see scripts/fused_design_sweep.py
+// and its readings in PERF.md.
+//
+// Within an iteration the scenario's W x 32 threads share the work: the
+// condensation computes every time step's stage rows in parallel (thread
+// t, its sum over the obstacles in order k); the backward Riccati sweep
+// and the forward rollout run on thread 0 from those rows while the others
+// wait at the barrier (__syncwarp at W = 1, __syncthreads at W > 1); the
+// fraction to the boundary, each line-search candidate, the updates and
+// the diagnostics run strided over the elements; the diagnostics' adjoint
+// sweep runs on thread 0.  Sums keep the one-warp order at every width, so
+// a wide instance returns the same bits as W = 1: lane l of warp 0 adds
+// elements l, l + 32, l + 64, ... in turn, then a butterfly of shuffles.
+// At W > 1 the costly terms are computed strided into the scratch first
+// (the condensation's obstacle terms, every (t, k) by one thread; a merit
+// pass's logs, defects and obstacle consistencies), and the sums then add
+// them in that order; the sums whose terms are a product or two of rows in
+// shared memory (the mean complementarity, the diagnostics) run on warp 0
+// alone.  Passes with no sum (the init, the fraction to the boundary, the
+// updates) take the box elements (t, f) by one flat index at W > 1.  Max
+// and min take any order (NaN-propagating).  Every scalar that steers
+// control flow (mu, rho, alpha, found, keep, reg, sigma) is computed on
+// every thread from the same reduced values, so no thread diverges around
+// a shuffle or a barrier.  At W = 1 a warp past the batch leaves at once
+// and nothing syncs the block; at W > 1 the grid is the batch.
 //
 // The iteration count is read from device memory (`iters`), and the
 // per-scenario centering sigma is an input row, so one build serves every
@@ -80,6 +105,10 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 // Mirror of ops/ipm_fused.py::_Params: 4-byte fields only.  Outside the
 // anonymous namespace: the exported launcher takes it.
 struct FusedParams {
@@ -91,16 +120,19 @@ struct FusedParams {
   float w0, w1, w2, w_neg, w_pos, w_ang, rho_e;
 };
 
-// ptxas: 128 registers for both instances, a 32-48 byte stack frame
-// (sincosf's argument reduction for huge angles) and, in the elastic
-// instance, 16 bytes of spill stores.
+// ptxas for sm_90a: W = 1 115 registers in both branches and
+// sincosf's 32-byte stack frame for huge angles; W = 4 128 registers, no
+// stack; no instance spills.
 
 namespace {
 
-// Scenarios (warps) per block, chosen against 1, 2 and 8 by
+// Scenarios (warps) per block at W = 1, chosen against 1, 2 and 8 by
 // scripts/fused_design_sweep.py (tied with 1 and 2 at N = 50, 8 slower);
-// the most a block takes: the launcher halves it where a block does not fit.
+// the most a block takes: the launcher halves it where a block does not
+// fit.
 constexpr int kWarps = 4;
+// The wide instance's W (warps per scenario).
+constexpr int kWide = 4;
 // Dynamic shared memory a block may take on sm_90
 // (cudaDevAttrMaxSharedMemoryPerBlockOptin there), for the host-only
 // queries; a launch reads the card's own.
@@ -112,6 +144,12 @@ constexpr float kFloor = 1e-10f;     // slack floor in sigma = nu / s
 constexpr float kSigmaMax = 1e12f;   // sigma safeguard
 constexpr float kKappa = 1e10f;      // dual clamp around mu / s
 constexpr float kEps = 1.1920929e-07f;
+// The wide instances' slots: warp 0's sums of the mean complementarity
+// (4), lam_max (1), a merit pass's sums (4), then each warp's minima and
+// maximum of the fraction to the boundary (3 a warp) and maxima of the
+// diagnostics (3 a warp).
+constexpr int kSlotRed = 0, kSlotLam = 4, kSlotMerit = 5, kSlotStep = 9;
+constexpr int kSlotDiag = kSlotStep + 3 * kWide, kSlots = kSlotDiag + 3 * kWide;
 
 // Float offsets of one scenario's shared-memory rows.
 struct Layout {
@@ -121,7 +159,13 @@ struct Layout {
   int sob, nuob, eob;             // obstacle slacks, duals, elastic e (k-major)
   int dx, du;                     // Newton direction
   int kk, st;                     // shared region: gains (8N), then stage rows
-  int total;
+  int total;                      // one scenario's floats at W = 1
+  // W > 1 only, after the iterate: the slots, then one region that holds in
+  // turn the condensation's obstacle terms and a merit pass's factors
+  // (defects' residuals, box logs, obstacle logs of s and e, and obstacle
+  // consistencies).
+  int slot, cn, me, mlb, ml1, ml2, mc;
+  int wide;                       // one scenario's floats at W > 1
 };
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -158,6 +202,14 @@ __host__ __device__ inline Layout layout(int N, int K, bool elastic, bool affine
   const int step = (elastic ? 3 : 1) * KN;
   const int diag = 3 * T1 + 6 * N;
   L.total = L.kk + imax(sweep, imax(step, diag));
+  L.slot = L.total;
+  L.cn = L.slot + kSlots;
+  L.me = L.cn;
+  L.mlb = L.me + T1;
+  L.ml1 = L.mlb + 10 * T1;
+  L.ml2 = L.ml1 + KN;
+  L.mc = L.ml2 + (elastic ? KN : 0);
+  L.wide = L.cn + imax(6 * KN, L.mc + KN - L.me);
   return L;
 }
 
@@ -166,8 +218,13 @@ __host__ __device__ inline size_t smem_bytes(int N, int K, bool elastic, bool af
   return static_cast<size_t>(layout(N, K, elastic, affine).total) * sizeof(float) * warps;
 }
 
-// Warps per block for a block of at most ``optin`` bytes: kWarps, or the
-// largest of kWarps / 2, ..., 1 that fits; 0 where not even one does.
+// Dynamic shared memory of a block at W > 1 (one scenario, any width).
+__host__ __device__ inline size_t wide_bytes(int N, int K, bool elastic, bool affine) {
+  return static_cast<size_t>(layout(N, K, elastic, affine).wide) * sizeof(float);
+}
+
+// Warps per block at W = 1 for a block of at most ``optin`` bytes: kWarps,
+// or the largest of kWarps / 2, ..., 1 that fits; 0 where not even one does.
 inline int warps_for(int N, int K, bool elastic, bool affine, size_t optin) {
   for (int w = kWarps; w >= 1; w /= 2)
     if (smem_bytes(N, K, elastic, affine, w) <= optin) return w;
@@ -235,8 +292,16 @@ struct Red {  // complementarity sum, mask count, largest dual, box consistency
   float tot, cnt, nu_max, cons_box;
 };
 
-template <bool ELASTIC>
-__global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
+struct ObCond {  // an obstacle element's terms in its stage: normal, gradient, Hessian
+  float nx, ny, gc, h00, h01, h11;
+};
+
+struct ObMerit {  // an obstacle element's merit factors: logs of s and e, e, consistency
+  float log_s, log_e, te, cons;
+};
+
+template <bool ELASTIC, int WIDTH>
+__global__ void __launch_bounds__((WIDTH > 1 ? WIDTH : kWarps) * kLanes) ipm_fused_kernel(
     const int* __restrict__ iters_in, const float* __restrict__ scal_in,
     const float* __restrict__ warm_in, const float* __restrict__ tx_in,
     const float* __restrict__ ty_in, const float* __restrict__ obinfo_in,
@@ -244,16 +309,20 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
     float* __restrict__ th_out, float* __restrict__ v_out,
     float* __restrict__ w_out, float* __restrict__ diag_out, const FusedParams p) {
   extern __shared__ float smem[];
+  constexpr bool kWide = WIDTH > 1;
+  constexpr int NT = WIDTH * kLanes;  // threads per scenario
   const int lane = static_cast<int>(threadIdx.x) % kLanes;
   const int warp = static_cast<int>(threadIdx.x) / kLanes;
+  // The scenario's thread: its lane at W = 1, its place in the block at W > 1.
+  const int tid = kWide ? static_cast<int>(threadIdx.x) : lane;
   const int warps = static_cast<int>(blockDim.x) / kLanes;
-  const int b = static_cast<int>(blockIdx.x) * warps + warp;
-  if (b >= p.B) return;  // the whole warp leaves; nothing below syncs the block
+  const int b = static_cast<int>(blockIdx.x) * (kWide ? 1 : warps) + (kWide ? 0 : warp);
+  if (b >= p.B) return;  // W = 1: the whole warp leaves; nothing below syncs the block
   const int N = p.N, K = p.K, T1 = N + 1, KN = K * N;
   const bool affine = p.affine != 0;
   const float dt = p.dt;
   const Layout L = layout(N, K, ELASTIC, affine);
-  float* const sm = smem + static_cast<size_t>(warp) * L.total;
+  float* const sm = smem + (kWide ? 0 : static_cast<size_t>(warp) * L.total);
   float* const SCAL = sm + L.scal;
   float* const OBI = sm + L.obi;
   float* const TX = sm + L.tx;
@@ -276,6 +345,17 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
   float* const ST = sm + L.st;   // stage rows
   float* const STEP = sm + L.kk; // obstacle step rows ds, de, dnu (K N each)
   float* const GR = sm + L.kk;   // diagnostics rows
+  float* const SL = sm + L.slot; // W > 1: slots
+  float* const CN = sm + L.cn;   // W > 1: the condensation's obstacle terms
+  float* const ME = sm + L.me;   // W > 1: a merit pass's factors
+  float* const MLB = sm + L.mlb;
+  float* const ML1 = sm + L.ml1;
+  float* const ML2 = sm + L.ml2;
+  float* const MC = sm + L.mc;
+  // The barrier between phases: the scenario's warp, or its block.
+  auto sync = [] {
+    if constexpr (kWide) __syncthreads(); else __syncwarp();
+  };
 
   // --- inputs: each read once --------------------------------------------
   {
@@ -283,32 +363,22 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
     const int n_obi = K > 0 ? 2 * K + 1 : 0;
     const int n_warm = 3 * T1 + 2 * N;
     const size_t bb = static_cast<size_t>(b);
-    for (int i = lane; i < kScalRows; i += kLanes) SCAL[i] = scal_in[bb * kScalRows + i];
-    for (int i = lane; i < n_obi; i += kLanes) OBI[i] = obinfo_in[bb * n_obi + i];
-    for (int i = lane; i < n_track; i += kLanes) {
+    for (int i = tid; i < kScalRows; i += NT) SCAL[i] = scal_in[bb * kScalRows + i];
+    for (int i = tid; i < n_obi; i += NT) OBI[i] = obinfo_in[bb * n_obi + i];
+    for (int i = tid; i < n_track; i += NT) {
       TX[i] = tx_in[bb * n_track + i];
       TY[i] = ty_in[bb * n_track + i];
     }
     // x, y, th, v, w lie in the warm start's order.
-    for (int i = lane; i < n_warm; i += kLanes) X[i] = warm_in[bb * n_warm + i];
-    for (int i = lane; i < 3 * T1 + 2 * N; i += kLanes) DX[i] = 0.f;  // DX, DU
-    for (int i = lane; i < (ELASTIC ? 3 : 1) * KN; i += kLanes) STEP[i] = 0.f;
+    for (int i = tid; i < n_warm; i += NT) X[i] = warm_in[bb * n_warm + i];
+    for (int i = tid; i < 3 * T1 + 2 * N; i += NT) DX[i] = 0.f;  // DX, DU
+    for (int i = tid; i < (ELASTIC ? 3 : 1) * KN; i += NT) STEP[i] = 0.f;
   }
-  __syncwarp();
+  sync();
 
   // --- problem rows ----------------------------------------------------
   const float x0 = SCAL[0], y0 = SCAL[1], th0 = SCAL[2];
   const float gx = SCAL[3], gy = SCAL[4], gth = SCAL[5];
-  const float v_lb = SCAL[6], v_ub = SCAL[7], w_lb = SCAL[8], w_ub = SCAL[9];
-  const float m_vl = SCAL[10], m_vu = SCAL[11], m_wl = SCAL[12], m_wu = SCAL[13];
-  float xlb[3], xub[3], m_xl[3], m_xu[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    xlb[i] = SCAL[14 + i];
-    xub[i] = SCAL[17 + i];
-    m_xl[i] = SCAL[20 + i];
-    m_xu[i] = SCAL[23 + i];
-  }
   const float sig_row = SCAL[26];
   const float infl = K > 0 ? OBI[2 * K] : 0.f;
   const float w0 = p.w0, w1 = p.w1, w2 = p.w2;
@@ -340,25 +410,52 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
                X[t] + v * ct * dt - X[t + 1], Y[t] + v * st * dt - Y[t + 1],
                TH[t] + W[t] * dt - TH[t + 1]};
   };
-  // Every box element at the current iterate, lane-strided over t:
-  // fn(c, s, nu, mask, J dz) with s and nu writable.  Family f = 0..3 is
-  // vl, vu, wl, wu of control t; f = 4..9 is xl0..2, xu0..2 of state t.
-  // One call site, so the kernel carries one copy of fn per visit.
-  auto visit_box = [&](auto&& fn) {
-    for (int t = lane; t < T1; t += kLanes) {
+  // Box element (t, f) at the current iterate: fn(c, s, nu, mask, J dz,
+  // slot) with s and nu writable and slot = f (N + 1) + t, the element's
+  // place in a wide merit pass's factors.  Family f = 0..3 is vl, vu, wl,
+  // wu of control t; f = 4..9 is xl0..2, xu0..2 of state t.  A box mask is
+  // 0 or 1 (the bound's finiteness).
+  auto box_at = [&](int t, int f, auto&& fn) {
+    const bool ctrl = f < 4;
+    const int i = ctrl ? f >> 1 : (f - 4) % 3;       // component
+    const bool upper = ctrl ? (f & 1) != 0 : f >= 7;
+    const float z = ctrl ? V[i * N + t] : X[i * T1 + t];
+    const float dz = ctrl ? DU[i * N + t] : DX[i * T1 + t];
+    const float bound = ctrl ? SCAL[6 + f] : SCAL[(upper ? 17 : 14) + i];
+    const float m = ctrl ? SCAL[10 + f] : SCAL[(upper ? 23 : 20) + i];
+    float* const sp = ctrl ? SC + f * N + t : SX + (f - 4) * T1 + t;
+    float* const np = ctrl ? NUC + f * N + t : NUX + (f - 4) * T1 + t;
+    fn(upper ? bound - z : z - bound, *sp, *np, m, upper ? -dz : dz, f * T1 + t);
+  };
+  // Every box element, for t = first, first + stride, ...: the order of a
+  // warp's sums.  One call site, so the kernel carries one copy of fn per
+  // visit; the wide instances' warp 0 unrolls the families.
+  auto visit_box = [&](int first, int stride, auto&& fn) {
+    for (int t = first; t < T1; t += stride) {
+      if constexpr (kWide) {
+        if (t < N) {
+#pragma unroll
+          for (int f = 0; f < 4; ++f) box_at(t, f, fn);
+        }
+#pragma unroll
+        for (int f = 4; f < 10; ++f) box_at(t, f, fn);
+      } else {
 #pragma unroll 1
-      for (int f = t < N ? 0 : 4; f < 10; ++f) {
-        const bool ctrl = f < 4;
-        const int i = ctrl ? f >> 1 : (f - 4) % 3;       // component
-        const bool upper = ctrl ? (f & 1) != 0 : f >= 7;
-        const float z = ctrl ? V[i * N + t] : X[i * T1 + t];
-        const float dz = ctrl ? DU[i * N + t] : DX[i * T1 + t];
-        const float bound = ctrl ? SCAL[6 + f] : SCAL[(upper ? 17 : 14) + i];
-        const float m = ctrl ? SCAL[10 + f] : SCAL[(upper ? 23 : 20) + i];
-        float* const sp = ctrl ? SC + f * N + t : SX + (f - 4) * T1 + t;
-        float* const np = ctrl ? NUC + f * N + t : NUX + (f - 4) * T1 + t;
-        fn(upper ? bound - z : z - bound, *sp, *np, m, upper ? -dz : dz);
+        for (int f = t < N ? 0 : 4; f < 10; ++f) box_at(t, f, fn);
       }
+    }
+  };
+  // Every box element once, in no set order: the scenario's threads take
+  // the elements (t, f) by one flat index at W > 1, and the stages t at
+  // W = 1.
+  auto box_pass = [&](auto&& fn) {
+    if constexpr (kWide) {
+      for (int e = tid; e < 10 * N + 6; e += NT) {
+        const int t = e < 10 * N ? e / 10 : N;
+        box_at(t, e < 10 * N ? e - 10 * t : e - 10 * N + 4, fn);
+      }
+    } else {
+      visit_box(lane, kLanes, fn);
     }
   };
   auto sigma = [&](float nu, float s, float m) {
@@ -406,78 +503,166 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
   // the log barrier of every family and the obstacle consistency.  The box
   // families' consistency is affine along the step, (1 - a) * consist0,
   // and is added by the caller.  ``mu`` enters only the hard step's dnu,
-  // which the merit does not read.
+  // which the merit does not read.  The costly factors, by element: state
+  // t's equality residual, a box element's log, and an obstacle element's
+  // logs of s and e, its e and its consistency.
+  auto eq_term = [&](int t, float a) {
+    const float xs = X[t] + a * DX[t], ys = Y[t] + a * DX[T1 + t];
+    const float ths = TH[t] + a * DX[2 * T1 + t];
+    if (t == 0) return fabsf(x0 - xs) + fabsf(y0 - ys) + fabsf(th0 - ths);
+    const float xp = X[t - 1] + a * DX[t - 1], yp = Y[t - 1] + a * DX[T1 + t - 1];
+    const float thp = TH[t - 1] + a * DX[2 * T1 + t - 1];
+    const float vp = V[t - 1] + a * DU[t - 1], wp = W[t - 1] + a * DU[N + t - 1];
+    float st, ct;
+    sincosf(thp, &st, &ct);
+    return fabsf(xp + vp * ct * dt - xs) + fabsf(yp + vp * st * dt - ys) +
+           fabsf(thp + wp * dt - ths);
+  };
+  auto box_log = [&](float c, float s, float m, float jdz, float a) {
+    return logf(maxp(s + a * (m * (jdz + c - s)), 1e-30f));
+  };
+  auto ob_te = [&](int r, float a, float mu) {  // elastic e along the step
+    return EOB[r] + a * ob_step_now(r, mu).de;
+  };
+  auto ob_merit = [&](int r, float a, float mu) {
+    const int k = r / N, tt = r - k * N;
+    const ObStep st = ob_step_now(r, mu);
+    const float xs = X[tt + 1] + a * DX[tt + 1], ys = Y[tt + 1] + a * DX[T1 + tt + 1];
+    const float ts = SOB[r] + a * st.ds;
+    ObMerit o{logf(maxp(ts, 1e-30f)), 0.f, 0.f, 0.f};
+    if constexpr (ELASTIC) {
+      o.te = ob_te(r, a, mu);
+      o.log_e = logf(maxp(o.te, 1e-30f));
+      o.cons = fabsf(geo(k, tt, xs, ys).c + o.te - ts);
+    } else {
+      o.cons = fabsf(geo(k, tt, xs, ys).c - ts);
+    }
+    return o;
+  };
   auto merit_pass = [&](float a, float mu) {
+    if constexpr (kWide) {  // every thread: its elements' factors
+      for (int t = tid; t < T1; t += NT) ME[t] = eq_term(t, a);
+      box_pass([&](float c, float& s, float&, float m, float jdz, int slot) {
+        MLB[slot] = m * box_log(c, s, m, jdz, a);  // exact: m is 0 or 1
+      });
+      for (int r = tid; r < KN; r += NT) {
+        const ObMerit o = ob_merit(r, a, mu);
+        ML1[r] = o.log_s;
+        if constexpr (ELASTIC) ML2[r] = o.log_e;
+        MC[r] = o.cons;
+      }
+      __syncthreads();
+    }
+    // The sums, on the scenario's warp (warp 0 at W > 1), in its order.
     float obj = 0.f, eq = 0.f, lg = 0.f, cons = 0.f;
-    for (int t = lane; t < T1; t += kLanes) {
-      const float comp[3] = {X[t], Y[t], TH[t]};
-      const float dz[3] = {DX[t], DX[T1 + t], DX[2 * T1 + t]};
-      const float xs = comp[0] + a * dz[0], ys = comp[1] + a * dz[1];
-      const float ths = comp[2] + a * dz[2];
-      const float ex = xs - gx, ey = ys - gy, eth = ths - gth;
-      obj += gm(t) * (w0 * ex * ex + w1 * ey * ey + w2 * eth * eth);
-      if (t == 0) {
-        eq += fabsf(x0 - xs) + fabsf(y0 - ys) + fabsf(th0 - ths);
+    if (!kWide || warp == 0) {
+      for (int t = lane; t < T1; t += kLanes) {
+        const float comp[3] = {X[t], Y[t], TH[t]};
+        const float dz[3] = {DX[t], DX[T1 + t], DX[2 * T1 + t]};
+        const float xs = comp[0] + a * dz[0], ys = comp[1] + a * dz[1];
+        const float ths = comp[2] + a * dz[2];
+        const float ex = xs - gx, ey = ys - gy, eth = ths - gth;
+        obj += gm(t) * (w0 * ex * ex + w1 * ey * ey + w2 * eth * eth);
+        eq += kWide ? ME[t] : eq_term(t, a);
+        if (t < N) {
+          const float vs = V[t] + a * DU[t], ws = W[t] + a * DU[N + t];
+          const float neg = minp(vs, 0.f), pos = maxp(vs, 0.f);
+          obj += p.w_neg * (p.reverse_squared ? neg * neg : neg);
+          obj += p.w_pos * (pos * pos);
+          obj += p.w_ang * (ws * ws);
+        }
+      }
+      if constexpr (kWide) {  // the stored m log, so lg + m log keeps its bits
+        for (int t = lane; t < T1; t += kLanes) {
+          if (t < N) {
+#pragma unroll
+            for (int f = 0; f < 4; ++f) lg += MLB[f * T1 + t];
+          }
+#pragma unroll
+          for (int f = 4; f < 10; ++f) lg += MLB[f * T1 + t];
+        }
       } else {
-        const float xp = X[t - 1] + a * DX[t - 1], yp = Y[t - 1] + a * DX[T1 + t - 1];
-        const float thp = TH[t - 1] + a * DX[2 * T1 + t - 1];
-        const float vp = V[t - 1] + a * DU[t - 1], wp = W[t - 1] + a * DU[N + t - 1];
-        float st, ct;
-        sincosf(thp, &st, &ct);
-        eq += fabsf(xp + vp * ct * dt - xs) + fabsf(yp + vp * st * dt - ys) +
-              fabsf(thp + wp * dt - ths);
+        visit_box(lane, kLanes, [&](float c, float& s, float&, float m, float jdz, int) {
+          lg += m * box_log(c, s, m, jdz, a);
+        });
       }
-      if (t < N) {
-        const float vs = V[t] + a * DU[t], ws = W[t] + a * DU[N + t];
-        const float neg = minp(vs, 0.f), pos = maxp(vs, 0.f);
-        obj += p.w_neg * (p.reverse_squared ? neg * neg : neg);
-        obj += p.w_pos * (pos * pos);
-        obj += p.w_ang * (ws * ws);
+      for (int r = lane; r < KN; r += kLanes) {
+        const float om = OBI[K + r / N];
+        ObMerit o;
+        if constexpr (kWide) {
+          o = ObMerit{ML1[r], 0.f, 0.f, MC[r]};
+          if constexpr (ELASTIC) {
+            o.log_e = ML2[r];
+            o.te = ob_te(r, a, mu);
+          }
+        } else {
+          o = ob_merit(r, a, mu);
+        }
+        lg += om * o.log_s;
+        if constexpr (ELASTIC) {
+          lg += om * o.log_e;
+          obj += p.rho_e * (om * o.te);
+        }
+        cons += om * o.cons;
       }
+      obj = warp_sum(obj);
+      eq = warp_sum(eq);
+      lg = warp_sum(lg);
+      cons = warp_sum(cons);
     }
-    visit_box([&](float c, float& s, float&, float m, float jdz) {
-      lg += m * logf(maxp(s + a * (m * (jdz + c - s)), 1e-30f));
-    });
-    for (int r = lane; r < KN; r += kLanes) {
-      const int k = r / N, tt = r - k * N;
-      const float om = OBI[K + k];
-      const ObStep st = ob_step_now(r, mu);
-      const float xs = X[tt + 1] + a * DX[tt + 1], ys = Y[tt + 1] + a * DX[T1 + tt + 1];
-      const float ts = SOB[r] + a * st.ds;
-      lg += om * logf(maxp(ts, 1e-30f));
-      if constexpr (ELASTIC) {
-        const float te = EOB[r] + a * st.de;
-        lg += om * logf(maxp(te, 1e-30f));
-        obj += p.rho_e * (om * te);
-        cons += om * fabsf(geo(k, tt, xs, ys).c + te - ts);
-      } else {
-        cons += om * fabsf(geo(k, tt, xs, ys).c - ts);
+    if constexpr (kWide) {  // warp 0's sums to every thread
+      if (tid == 0) {
+        SL[kSlotMerit] = obj;
+        SL[kSlotMerit + 1] = eq;
+        SL[kSlotMerit + 2] = lg;
+        SL[kSlotMerit + 3] = cons;
       }
+      __syncthreads();
+      return Merit{SL[kSlotMerit], SL[kSlotMerit + 1], SL[kSlotMerit + 2], SL[kSlotMerit + 3]};
+    } else {
+      return Merit{obj, eq, lg, cons};
     }
-    return Merit{warp_sum(obj), warp_sum(eq), warp_sum(lg), warp_sum(cons)};
   };
 
   // Complementarity sum, mask count, largest dual and box consistency at
-  // the current iterate.
+  // the current iterate: a product or two of rows per element, on the
+  // scenario's warp (warp 0 at W > 1).
   auto reduce = [&]() {
     float tot = 0.f, cnt = 0.f, nu_max = 0.f, cons = 0.f;
-    visit_box([&](float c, float& s, float& nu, float m, float) {
-      tot += m * s * nu;
-      cnt += m;
-      nu_max = maxp(nu_max, m * nu);
-      cons += m * fabsf(c - s);
-    });
-    for (int r = lane; r < KN; r += kLanes) {
-      const float m = OBI[K + r / N], s = SOB[r], nu = NUOB[r];
-      tot += m * s * nu;
-      cnt += m;
-      nu_max = maxp(nu_max, m * nu);
+    if (!kWide || warp == 0) {
+      visit_box(lane, kLanes, [&](float c, float& s, float& nu, float m, float, int) {
+        tot += m * s * nu;
+        cnt += m;
+        nu_max = maxp(nu_max, m * nu);
+        cons += m * fabsf(c - s);
+      });
+      for (int r = lane; r < KN; r += kLanes) {
+        const float m = OBI[K + r / N], s = SOB[r], nu = NUOB[r];
+        tot += m * s * nu;
+        cnt += m;
+        nu_max = maxp(nu_max, m * nu);
+      }
+      tot = warp_sum(tot);
+      cnt = warp_sum(cnt);
+      nu_max = warp_max(nu_max);
+      cons = warp_sum(cons);
     }
-    return Red{warp_sum(tot), warp_sum(cnt), warp_max(nu_max), warp_sum(cons)};
+    if constexpr (kWide) {
+      if (tid == 0) {
+        SL[kSlotRed] = tot;
+        SL[kSlotRed + 1] = cnt;
+        SL[kSlotRed + 2] = nu_max;
+        SL[kSlotRed + 3] = cons;
+      }
+      __syncthreads();
+      return Red{SL[kSlotRed], SL[kSlotRed + 1], SL[kSlotRed + 2], SL[kSlotRed + 3]};
+    } else {
+      return Red{tot, cnt, nu_max, cons};
+    }
   };
 
   // --- init from the warm start ------------------------------------------
-  visit_box([&](float c, float& s, float& nu, float m, float) {
+  box_pass([&](float c, float& s, float& nu, float m, float, int) {
     if (m > 0.f) {
       s = maxp(c, 1e-2f);
       nu = p.mu_init / s;
@@ -486,7 +671,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
       nu = 0.f;
     }
   });
-  for (int r = lane; r < KN; r += kLanes) {
+  for (int r = tid; r < KN; r += NT) {
     const int k = r / N, tt = r - k * N;
     const float m = OBI[K + k];
     const float c = geo(k, tt, X[tt + 1], Y[tt + 1]).c;
@@ -497,7 +682,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
     // sits at mu / rho_e.
     if (ELASTIC) EOB[r] = m > 0.f ? maxp(s - c, p.mu_init / p.rho_e) : 1.f;
   }
-  __syncwarp();
+  sync();
   // Merit components of the current iterate, carried across iterations
   // (the accepted candidate's become the next iteration's).
   float m_obj, m_log, m_eqc;
@@ -509,6 +694,39 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
     m_eqc = m0.eq + (r0.cons_box + m0.cons);
   }
 
+  // Obstacle k's terms in the condensed stage of state tt + 1 at the point
+  // (px, py): its unit normal, gradient coefficient and Hessian block
+  // (Gauss-Newton and damped curvature).
+  auto ob_cond = [&](int k, int tt, float px, float py, float mu) {
+    const int r = k * N + tt;
+    const float om = OBI[K + k];
+    const Geo G = geo(k, tt, px, py);
+    const float s = SOB[r], nu = NUOB[r];
+    float sg, gc;
+    if constexpr (ELASTIC) {
+      const ElCoef q = el_coef(G.c, s, nu, EOB[r], om, mu);
+      sg = q.sig_eff;
+      gc = om * (nu - sg * q.r_c + sg * (q.T / maxp(q.sig_s, kFloor) + q.r_e / q.sig_e));
+    } else {
+      sg = sigma(nu, s, om);
+      gc = om * (mu / maxp(s, kFloor) - sg * (G.c - s));
+    }
+    float h00 = sg * G.nx * G.nx, h01 = sg * G.nx * G.ny, h11 = sg * G.ny * G.ny;
+    if (p.curvature) {
+      const float dsafe = maxp(G.c + (OBI[k] + infl), 1e-2f);
+      const float wc = maxp(-om * nu / dsafe, -0.9f * sg);
+      h00 = h00 + wc * (1.f - G.nx * G.nx);
+      h01 = h01 - wc * G.nx * G.ny;
+      h11 = h11 + wc * (1.f - G.ny * G.ny);
+    }
+    return ObCond{G.nx, G.ny, gc, h00, h01, h11};
+  };
+  // At W > 1 the condensation's obstacle terms are computed beforehand,
+  // every element by one thread, into the scratch (6 rows of K N).
+  auto ob_cond_at = [&](int r) {
+    return ObCond{CN[r], CN[KN + r], CN[2 * KN + r], CN[3 * KN + r], CN[4 * KN + r],
+                  CN[5 * KN + r]};
+  };
   auto state_stage = [&](int t, float mu, float reg) {
     const float comp[3] = {X[t], Y[t], TH[t]};
     const float g = gm(t);
@@ -519,9 +737,12 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
       S.Q[i] = 2.f * g * wgoal[i];
       const int rl = i * T1 + t, ru = (3 + i) * T1 + t;
       const float sl = SX[rl], nul = NUX[rl], su = SX[ru], nuu = NUX[ru];
-      const float sgl = sigma(nul, sl, m_xl[i]), sgu = sigma(nuu, su, m_xu[i]);
-      const float gl = m_xl[i] * (mu / maxp(sl, kFloor) - sgl * ((comp[i] - xlb[i]) - sl));
-      const float gu = m_xu[i] * (mu / maxp(su, kFloor) - sgu * ((xub[i] - comp[i]) - su));
+      // The state bounds and their masks, read where used (as registers
+      // held across the iteration they made the kernel spill).
+      const float m_xl = SCAL[20 + i], m_xu = SCAL[23 + i];
+      const float sgl = sigma(nul, sl, m_xl), sgu = sigma(nuu, su, m_xu);
+      const float gl = m_xl * (mu / maxp(sl, kFloor) - sgl * ((comp[i] - SCAL[14 + i]) - sl));
+      const float gu = m_xu * (mu / maxp(su, kFloor) - sgu * ((SCAL[17 + i] - comp[i]) - su));
       S.q[i] = S.q[i] - gl + gu;
       S.Q[i] = S.Q[i] + sgl + sgu;
     }
@@ -529,31 +750,13 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
     if (t >= 1 && K > 0) {
       float addx = 0.f, addy = 0.f, a00 = 0.f, a01 = 0.f, a11 = 0.f;
       for (int k = 0; k < K; ++k) {
-        const float om = OBI[K + k];
-        const Geo G = geo(k, t - 1, comp[0], comp[1]);
-        const float s = SOB[k * N + t - 1], nu = NUOB[k * N + t - 1];
-        float sg, gc;
-        if constexpr (ELASTIC) {
-          const ElCoef q = el_coef(G.c, s, nu, EOB[k * N + t - 1], om, mu);
-          sg = q.sig_eff;
-          gc = om * (nu - sg * q.r_c + sg * (q.T / maxp(q.sig_s, kFloor) + q.r_e / q.sig_e));
-        } else {
-          sg = sigma(nu, s, om);
-          gc = om * (mu / maxp(s, kFloor) - sg * (G.c - s));
-        }
-        float h00 = sg * G.nx * G.nx, h01 = sg * G.nx * G.ny, h11 = sg * G.ny * G.ny;
-        if (p.curvature) {
-          const float dsafe = maxp(G.c + (OBI[k] + infl), 1e-2f);
-          const float wc = maxp(-om * nu / dsafe, -0.9f * sg);
-          h00 = h00 + wc * (1.f - G.nx * G.nx);
-          h01 = h01 - wc * G.nx * G.ny;
-          h11 = h11 + wc * (1.f - G.ny * G.ny);
-        }
-        addx += -G.nx * gc;
-        addy += -G.ny * gc;
-        a00 += h00;
-        a01 += h01;
-        a11 += h11;
+        const ObCond q =
+            kWide ? ob_cond_at(k * N + t - 1) : ob_cond(k, t - 1, comp[0], comp[1], mu);
+        addx += -q.nx * q.gc;
+        addy += -q.ny * q.gc;
+        a00 += q.h00;
+        a01 += q.h01;
+        a11 += q.h11;
       }
       S.q[0] = S.q[0] + addx;
       S.q[1] = S.q[1] + addy;
@@ -575,8 +778,9 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
     const float v = V[t], w = W[t];
     float Hv = p.reverse_squared ? 2.f * p.w_neg * (v < 0.f ? 1.f : 0.f) : 0.f;
     Hv = Hv + 2.f * p.w_pos * (v > 0.f ? 1.f : 0.f);
-    const float cc[4] = {v - v_lb, v_ub - v, w - w_lb, w_ub - w};
-    const float mm[4] = {m_vl, m_vu, m_wl, m_wu};
+    // The control bounds and masks, read where used (as the state's).
+    const float cc[4] = {v - SCAL[6], SCAL[7] - v, w - SCAL[8], SCAL[9] - w};
+    const float mm[4] = {SCAL[10], SCAL[11], SCAL[12], SCAL[13]};
     float g[4], sg[4];
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
@@ -618,22 +822,41 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
     const float mu = clipp(sig_c * r.tot / maxp(r.cnt, 1.f), p.mu_floor, p.mu_init);
 
     // --- (b) condensation: every stage row in parallel ----------------------
-    for (int t = lane; t < T1; t += kLanes) {
-      if (t < N) {
-        const Dyn D = dyn(t);
-        SD[t] = D.a02;
-        SD[N + t] = D.a12;
-        SD[2 * N + t] = D.b00;
-        SD[3 * N + t] = D.b10;
-        SD[4 * N + t] = D.d0;
-        SD[5 * N + t] = D.d1;
-        SD[6 * N + t] = D.d2;
-        const CtrlQ C = ctrl_stage(t, mu, reg);
-        SCQ[t] = C.Qv;
-        SCQ[N + t] = C.Qw;
-        SCQ[2 * N + t] = C.qv;
-        SCQ[3 * N + t] = C.qw;
+    // The dynamics and control rows of stage t < N.
+    auto dyn_ctrl_rows = [&](int t) {
+      const Dyn D = dyn(t);
+      SD[t] = D.a02;
+      SD[N + t] = D.a12;
+      SD[2 * N + t] = D.b00;
+      SD[3 * N + t] = D.b10;
+      SD[4 * N + t] = D.d0;
+      SD[5 * N + t] = D.d1;
+      SD[6 * N + t] = D.d2;
+      const CtrlQ C = ctrl_stage(t, mu, reg);
+      SCQ[t] = C.Qv;
+      SCQ[N + t] = C.Qw;
+      SCQ[2 * N + t] = C.qv;
+      SCQ[3 * N + t] = C.qw;
+    };
+    if constexpr (kWide) {  // first the obstacle terms and those rows, in parallel
+      for (int e = tid; e < KN + N; e += NT) {
+        if (e < N) {
+          dyn_ctrl_rows(e);
+          continue;
+        }
+        const int r = e - N, k = r / N, tt = r - k * N;
+        const ObCond q = ob_cond(k, tt, X[tt + 1], Y[tt + 1], mu);
+        CN[r] = q.nx;
+        CN[KN + r] = q.ny;
+        CN[2 * KN + r] = q.gc;
+        CN[3 * KN + r] = q.h00;
+        CN[4 * KN + r] = q.h01;
+        CN[5 * KN + r] = q.h11;
       }
+      __syncthreads();
+    }
+    for (int t = tid; t < T1; t += NT) {
+      if (!kWide && t < N) dyn_ctrl_rows(t);
       const StateQ S = state_stage(t, mu, reg);
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -642,11 +865,11 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
       }
       SSQ[3 * T1 + t] = S.Qxy;
     }
-    __syncwarp();
+    sync();
 
-    // --- (c) backward Riccati sweep on lane 0 -------------------------------
+    // --- (c) backward Riccati sweep on thread 0 -----------------------------
     float lam_max = 0.f;
-    if (lane == 0) {
+    if (tid == 0) {
       StateQ S = state_at(N);
       float P00 = S.Q[0], P01 = S.Qxy, P02 = 0.f, P11 = S.Q[1], P12 = 0.f, P22 = S.Q[2];
       float p0 = S.q[0], p1 = S.q[1], p2 = S.q[2];
@@ -712,7 +935,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
         lam_max = maxp(lam_max, maxp(fabsf(l0), maxp(fabsf(l1), fabsf(l2))));
       }
 
-      // --- (d) forward rollout on lane 0 ------------------------------------
+      // --- (d) forward rollout on thread 0 ----------------------------------
       float dx0 = x0 - X[0], dx1 = y0 - Y[0], dx2 = th0 - TH[0];
       DX[0] = dx0;
       DX[T1] = dx1;
@@ -732,22 +955,28 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
         DX[2 * T1 + t + 1] = dx2;
       }
     }
-    __syncwarp();
-    lam_max = __shfl_sync(kFull, lam_max, 0);
+    if constexpr (kWide) {
+      if (tid == 0) SL[kSlotLam] = lam_max;
+      __syncthreads();
+      lam_max = SL[kSlotLam];
+    } else {
+      __syncwarp();
+      lam_max = __shfl_sync(kFull, lam_max, 0);
+    }
 
     // --- (e) slack / dual steps: fraction to the boundary --------------------
     float as = 1.f, an = 1.f, sinf_l = 0.f;
-    for (int t = lane; t < T1; t += kLanes) {
+    for (int t = tid; t < T1; t += NT) {
       sinf_l = maxp(sinf_l, maxp(fabsf(DX[t]), maxp(fabsf(DX[T1 + t]), fabsf(DX[2 * T1 + t]))));
       if (t < N) sinf_l = maxp(sinf_l, maxp(fabsf(DU[t]), fabsf(DU[N + t])));
     }
-    visit_box([&](float c, float& s, float& nu, float m, float jdz) {
+    box_pass([&](float c, float& s, float& nu, float m, float jdz, int) {
       const float ds = m * (jdz + c - s);
       const float dnu = m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds);
       as = minp(as, ftb(s, ds));
       an = minp(an, ftb(nu, dnu));
     });
-    for (int r = lane; r < KN; r += kLanes) {
+    for (int r = tid; r < KN; r += NT) {
       const ObStep st = ob_step(r, mu);
       as = minp(as, ftb(SOB[r], st.ds));
       if constexpr (ELASTIC) {
@@ -760,10 +989,28 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
         STEP[2 * KN + r] = st.dnu;
       }
     }
-    const float alpha_s = warp_min(as);
+    float alpha_s = warp_min(as);
     float alpha_nu = warp_min(an);
-    const float step_inf = warp_max(sinf_l);
-    __syncwarp();
+    float step_inf = warp_max(sinf_l);
+    if constexpr (kWide) {  // the warps' results, in warp order
+      float* const part = SL + kSlotStep;
+      if (lane == 0) {
+        part[3 * warp] = alpha_s;
+        part[3 * warp + 1] = alpha_nu;
+        part[3 * warp + 2] = step_inf;
+      }
+      __syncthreads();
+      alpha_s = part[0];
+      alpha_nu = part[1];
+      step_inf = part[2];
+      for (int w = 1; w < WIDTH; ++w) {
+        alpha_s = minp(alpha_s, part[3 * w]);
+        alpha_nu = minp(alpha_nu, part[3 * w + 1]);
+        step_inf = maxp(step_inf, part[3 * w + 2]);
+      }
+    } else {
+      __syncwarp();
+    }
     // l1 penalty: dominate the inequality duals and the dynamics adjoints.
     const float rho = maxp(p.merit_penalty, 2.f * maxp(r.nu_max, lam_max));
 
@@ -815,19 +1062,19 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
       nu = m * clipp(nu + alpha_nu * dnu, center / kKappa, center * kKappa);
       s = s_new;
     };
-    visit_box([&](float c, float& s, float& nu, float m, float jdz) {
+    box_pass([&](float c, float& s, float& nu, float m, float jdz, int) {
       const float ds = m * (jdz + c - s);
       update(s, nu, m, ds, m * (mu / maxp(s, kFloor) - nu - sigma(nu, s, m) * ds));
     });
-    for (int r = lane; r < KN; r += kLanes) {
+    for (int r = tid; r < KN; r += NT) {
       const ObStep st = ob_step_now(r, mu);
       if constexpr (ELASTIC) {
         EOB[r] = EOB[r] + alpha * st.de;
       }
       update(SOB[r], NUOB[r], OBI[K + r / N], st.ds, st.dnu);
     }
-    __syncwarp();  // every family read the trajectory before it moves
-    for (int t = lane; t < T1; t += kLanes) {
+    sync();  // every family read the trajectory before it moves
+    for (int t = tid; t < T1; t += NT) {
       X[t] = X[t] + alpha * DX[t];
       Y[t] = Y[t] + alpha * DX[T1 + t];
       TH[t] = TH[t] + alpha * DX[2 * T1 + t];
@@ -836,7 +1083,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
         W[t] = W[t] + alpha * DU[N + t];
       }
     }
-    __syncwarp();
+    sync();
     // Grow reg on genuine large-step rejections, decay it otherwise; slow
     // the barrier schedule on throttled steps outside the Newton regime.
     const bool grow = !found || (n_rej >= 4 && !newton);
@@ -849,18 +1096,26 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
   }
 
   // --- exact KKT diagnostics at the final iterate ---------------------------
+  // Sums on the scenario's warp (warp 0 at W > 1) in its order: a product
+  // or two of rows per element; maxima over every thread's elements.
   float nu_sum = 0.f, nu_cnt = 0.f, viol = 0.f, comp = 0.f, tot = 0.f;
-  auto kkt_elem = [&](float c, float s, float nu, float m) {
+  auto kkt_sums = [&](float s, float nu, float m) {
     nu_sum += m * fabsf(nu);
     nu_cnt += m;
-    viol = maxp(viol, m * maxp(-c, 0.f));
-    comp = maxp(comp, m * fabsf(s * nu));
     tot += m * s * nu;
   };
-  visit_box([&](float c, float& s, float& nu, float m, float) { kkt_elem(c, s, nu, m); });
-  for (int r = lane; r < KN; r += kLanes) {
+  auto kkt_max = [&](float c, float s, float nu, float m) {
+    viol = maxp(viol, m * maxp(-c, 0.f));
+    comp = maxp(comp, m * fabsf(s * nu));
+  };
+  box_pass([&](float c, float& s, float& nu, float m, float, int) {
+    if constexpr (!kWide) kkt_sums(s, nu, m);
+    kkt_max(c, s, nu, m);
+  });
+  for (int r = tid; r < KN; r += NT) {
     const int k = r / N, tt = r - k * N;
-    kkt_elem(geo(k, tt, X[tt + 1], Y[tt + 1]).c, SOB[r], NUOB[r], OBI[K + k]);
+    if constexpr (!kWide) kkt_sums(SOB[r], NUOB[r], OBI[K + k]);
+    kkt_max(geo(k, tt, X[tt + 1], Y[tt + 1]).c, SOB[r], NUOB[r], OBI[K + k]);
   }
   // Objective, defects and pins; the Lagrangian gradient of every state
   // with the final duals (stored masked), the control gradients and the
@@ -869,11 +1124,29 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
   float* const GU = GR + 3 * T1;
   float* const LIN = GU + 2 * N;
   float obj = 0.f, feas = 0.f;
-  for (int t = lane; t < T1; t += kLanes) {
+  auto kkt_obj = [&](int t) {
+    const float ex = X[t] - gx, ey = Y[t] - gy, eth = TH[t] - gth;
+    obj += gm(t) * (w0 * ex * ex + w1 * ey * ey + w2 * eth * eth);
+    if (t < N) {
+      const float v = V[t], neg = minp(v, 0.f), pos = maxp(v, 0.f);
+      obj += p.w_neg * (p.reverse_squared ? neg * neg : neg);
+      obj += p.w_pos * (pos * pos);
+      obj += p.w_ang * (W[t] * W[t]);
+    }
+  };
+  if constexpr (kWide) {
+    if (warp == 0) {
+      visit_box(lane, kLanes, [&](float, float& s, float& nu, float m, float, int) {
+        kkt_sums(s, nu, m);
+      });
+      for (int r = lane; r < KN; r += kLanes) kkt_sums(SOB[r], NUOB[r], OBI[K + r / N]);
+      for (int t = lane; t < T1; t += kLanes) kkt_obj(t);
+    }
+  }
+  for (int t = tid; t < T1; t += NT) {
     const float comp_t[3] = {X[t], Y[t], TH[t]};
-    const float ex = comp_t[0] - gx, ey = comp_t[1] - gy, eth = comp_t[2] - gth;
     const float g = gm(t);
-    obj += g * (w0 * ex * ex + w1 * ey * ey + w2 * eth * eth);
+    if constexpr (!kWide) kkt_obj(t);
     float G[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
@@ -898,10 +1171,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
       feas = maxp(feas, fabsf(th0 - TH[0]));
     }
     if (t < N) {
-      const float v = V[t], neg = minp(v, 0.f), pos = maxp(v, 0.f);
-      obj += p.w_neg * (p.reverse_squared ? neg * neg : neg);
-      obj += p.w_pos * (pos * pos);
-      obj += p.w_ang * (W[t] * W[t]);
+      const float v = V[t];
       const Dyn D = dyn(t);
       feas = maxp(feas, maxp(fabsf(D.d0), maxp(fabsf(D.d1), fabsf(D.d2))));
       GU[t] = grad_v(v) - NUC[t] + NUC[N + t];
@@ -918,11 +1188,30 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
   obj = warp_sum(obj);
   viol = warp_max(viol);
   comp = warp_max(comp);
-  feas = maxp(warp_max(feas), viol);
-  __syncwarp();
+  feas = warp_max(feas);
+  if constexpr (kWide) {  // the warps' maxima, in warp order
+    float* const part = SL + kSlotDiag;
+    if (lane == 0) {
+      part[3 * warp] = viol;
+      part[3 * warp + 1] = comp;
+      part[3 * warp + 2] = feas;
+    }
+    __syncthreads();
+    viol = part[0];
+    comp = part[1];
+    feas = part[2];
+    for (int w = 1; w < WIDTH; ++w) {
+      viol = maxp(viol, part[3 * w]);
+      comp = maxp(comp, part[3 * w + 1]);
+      feas = maxp(feas, part[3 * w + 2]);
+    }
+  } else {
+    __syncwarp();
+  }
+  feas = maxp(feas, viol);
 
-  // Adjoint sweep for the control stationarity, on lane 0.
-  if (lane == 0) {
+  // Adjoint sweep for the control stationarity, on thread 0.
+  if (tid == 0) {
     float l0 = G0[N], l1 = G0[T1 + N], l2 = G0[2 * T1 + N], ru_max = 0.f;
     for (int t = N - 1; t >= 0; --t) {
       const float ru0 = GU[t] + LIN[2 * N + t] * l0 + LIN[3 * N + t] * l1;
@@ -950,7 +1239,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) ipm_fused_kernel(
 
   // --- outputs: each written once --------------------------------------------
   const size_t bs = static_cast<size_t>(b) * T1, bc = static_cast<size_t>(b) * N;
-  for (int t = lane; t < T1; t += kLanes) {
+  for (int t = tid; t < T1; t += NT) {
     x_out[bs + t] = X[t];
     y_out[bs + t] = Y[t];
     th_out[bs + t] = TH[t];
@@ -965,23 +1254,78 @@ using KernelFn = void (*)(const int*, const float*, const float*, const float*, 
                           const float*, float*, float*, float*, float*, float*, float*,
                           const FusedParams);
 
-// The instantiation for the branch, its warps per block (from the card's
-// opt-in shared memory per block; one where not even one fits, so that the
-// card refuses the launch) and dynamic shared memory per block, allowed
-// before the launch (needed above 48 KB).
-cudaError_t prepare(int N, int K, bool elastic, bool affine, KernelFn* kernel, int* warps,
-                    size_t* bytes) {
-  *kernel = elastic ? ipm_fused_kernel<true> : ipm_fused_kernel<false>;
-  int device = 0, optin = 0;
+template <bool EL>
+KernelFn instance(int width) {
+  return width == kWide ? ipm_fused_kernel<EL, kWide> : ipm_fused_kernel<EL, 1>;
+}
+
+struct Launch {  // the instance, its width, warps per block, dynamic shared bytes per block
+  KernelFn kernel;
+  int width, warps;
+  size_t bytes;
+  int resident;  // the instance's resident blocks per SM at that launch
+};
+
+// The launch of a (B, N, K, elastic, affine) solve on a card with ``sms``
+// SMs and ``optin`` bytes of shared memory a block may take.  W = 1 takes
+// kWarps scenarios per block where they fit, else 2, else 1 (one where not
+// even one fits, so that the card refuses the launch).  The wide instance
+// (kWide warps per scenario) is taken where its one-scenario block fits
+// and its resident blocks on every SM hold the whole batch at once.
+cudaError_t choose(int B, int N, int K, bool elastic, bool affine, int sms, int optin,
+                   Launch* out) {
+  const size_t wide = wide_bytes(N, K, elastic, affine);
+  if (wide <= static_cast<size_t>(optin)) {
+    const KernelFn kernel = elastic ? instance<true>(kWide) : instance<false>(kWide);
+    int blocks = 0;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(wide));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kWide * kLanes,
+                                                          wide);
+    if (err != cudaSuccess) return err;
+    if (blocks > 0 && B <= sms * blocks) {
+      *out = Launch{kernel, kWide, kWide, wide, blocks};
+      return cudaSuccess;
+    }
+  }
+  const int w = warps_for(N, K, elastic, affine, static_cast<size_t>(optin));
+  *out = Launch{elastic ? instance<true>(1) : instance<false>(1), 1, w > 0 ? w : 1, 0, 0};
+  out->bytes = smem_bytes(N, K, elastic, affine, out->warps);
+  cudaError_t err = cudaFuncSetAttribute(out->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(out->bytes));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out->resident, out->kernel,
+                                                        out->warps * kLanes, out->bytes);
+  return err;
+}
+
+// `choose` for the current card, found once per (card, shape) and kept, so
+// that a launch makes one query of the card's attributes and a lookup.  The
+// chosen instance's shared-memory limit is set on every call: a launch of
+// another shape may have set it lower.
+cudaError_t prepare(int B, int N, int K, bool elastic, bool affine, Launch* out) {
+  using Key = std::tuple<int, int, int, int, int, int, bool, bool>;
+  static std::mutex lock;
+  static std::map<Key, Launch> kept;
+  int device = 0, optin = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) {
-    const int w = warps_for(N, K, elastic, affine, static_cast<size_t>(optin));
-    *warps = w > 0 ? w : 1;
-    *bytes = smem_bytes(N, K, elastic, affine, *warps);
-    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(*bytes));
+    const Key key{device, optin, sms, B, N, K, elastic, affine};
+    std::lock_guard<std::mutex> held(lock);
+    const auto found = kept.find(key);
+    if (found != kept.end()) {
+      *out = found->second;
+      err = cudaFuncSetAttribute(out->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(out->bytes));
+    } else {
+      err = choose(B, N, K, elastic, affine, sms, optin, out);
+      if (err == cudaSuccess) kept.emplace(key, *out);
+    }
   }
   if (err != cudaSuccess) cudaGetLastError();  // clear it; the caller reports it
   return err;
@@ -989,51 +1333,53 @@ cudaError_t prepare(int N, int K, bool elastic, bool affine, KernelFn* kernel, i
 
 }  // namespace
 
+// One batched solve on ``stream``; writes the launch's width (warps per
+// scenario; 1 at B = 0, where nothing is launched) to ``width``.
 extern "C" int kissmpc_ipm_fused_f32(
     const void* iters, const void* scal, const void* warm, const void* tx,
     const void* ty, const void* obinfo, void* x, void* y, void* th, void* v,
-    void* w, void* diag, const FusedParams* params, void* stream) {
+    void* w, void* diag, int* width, const FusedParams* params, void* stream) {
   const FusedParams p = *params;
+  *width = 1;
   if (p.B > 0) {
     const bool elastic = p.elastic && p.K > 0;
-    KernelFn kernel;
-    int warps;
-    size_t bytes;
-    const cudaError_t err = prepare(p.N, p.K, elastic, p.affine != 0, &kernel, &warps, &bytes);
+    Launch s;
+    const cudaError_t err = prepare(p.B, p.N, p.K, elastic, p.affine != 0, &s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int blocks = (p.B + warps - 1) / warps;
-    kernel<<<blocks, warps * kLanes, bytes, static_cast<cudaStream_t>(stream)>>>(
+    const KernelFn kernel = s.kernel;
+    const int per_block = s.width == 1 ? s.warps : 1;  // scenarios per block
+    const int blocks = (p.B + per_block - 1) / per_block;
+    kernel<<<blocks, s.warps * kLanes, s.bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(iters), static_cast<const float*>(scal),
         static_cast<const float*>(warm), static_cast<const float*>(tx),
         static_cast<const float*>(ty), static_cast<const float*>(obinfo),
         static_cast<float*>(x), static_cast<float*>(y), static_cast<float*>(th),
         static_cast<float*>(v), static_cast<float*>(w), static_cast<float*>(diag), p);
+    *width = s.width;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch shape of the instantiation that a (N, K, elastic, affine)
-// solve takes: out = {warps per block, dynamic shared bytes per block,
-// resident blocks per SM, registers per thread, local (spill) bytes per
-// thread}.  Returns a cudaError_t.
-extern "C" int kissmpc_ipm_fused_occupancy(int N, int K, int elastic, int affine, int* out) {
+// The launch a (B, N, K, elastic, affine) solve takes on the current card:
+// out = {width (warps per scenario), warps per block, scenarios per block,
+// dynamic shared bytes per block, resident blocks per SM, registers per
+// thread, local (spill) bytes per thread}.  Returns a cudaError_t.
+extern "C" int kissmpc_ipm_fused_occupancy(int B, int N, int K, int elastic, int affine,
+                                           int* out) {
   const bool el = elastic && K > 0;
-  KernelFn kernel;
-  int warps;
-  size_t bytes;
-  cudaError_t err = prepare(N, K, el, affine != 0, &kernel, &warps, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, warps * kLanes, bytes);
+  Launch s;
+  cudaError_t err = prepare(B, N, K, el, affine != 0, &s);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
+  err = cudaFuncGetAttributes(&attr, s.kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = warps;
-  out[1] = static_cast<int>(bytes);
-  out[2] = blocks;
-  out[3] = attr.numRegs;
-  out[4] = static_cast<int>(attr.localSizeBytes);
+  out[0] = s.width;
+  out[1] = s.warps;
+  out[2] = s.width == 1 ? s.warps : 1;
+  out[3] = static_cast<int>(s.bytes);
+  out[4] = s.resident;
+  out[5] = attr.numRegs;
+  out[6] = static_cast<int>(attr.localSizeBytes);
   return 0;
 }
 

@@ -8,9 +8,19 @@ launch.  It replaces the TPU kernel
 wrapper's contract (`solve_batch_fused`, minus the TPU tile settings
 ``interpret``, ``bt`` and ``sb``).  For problems on the CPU it runs
 `solve_batch_fused_plain`; for CUDA tensors it launches the kernel or
-raises, and counts each launch in ``solve_batch_fused.launches``.  A
+raises, and counts each launch in ``solve_batch_fused.launches`` and each
+launch wider than one warp per scenario in ``launches_wide`` as well.  A
 horizon above ``max_horizon(cfg)`` (the longest whose iterate fits in a
 block of one warp) raises ValueError before any work.
+
+The width is the number of warps that share one scenario.  The launcher
+picks it from the batch, the problem's shape and the card alone: 4 where
+a block of one scenario fits the card's shared memory and the card's
+resident blocks of that width hold the whole batch at once (the refine
+stages' small batches), else 1, with 4 scenarios a block (2 or 1 at long
+horizons).  Both widths return the same bits for a scenario: the wide
+instance keeps the one-warp order of every sum (`csrc/ipm_fused.cu`).
+`occupancy(cfg, batch)` reports the launch a batch takes.
 
 The plain version follows the kernel, not `solver/ipm.py`; the two differ
 where the fused algorithm does:
@@ -740,10 +750,11 @@ def _params(cfg: MPCConfig, B: int) -> _Params:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launcher's signatures on a loaded build of ``SOURCE``."""
     fn = lib.kissmpc_ipm_fused_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_int),
+                                             ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     occ = lib.kissmpc_ipm_fused_occupancy
-    occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    occ.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     occ.restype = ctypes.c_int
     lib.kissmpc_ipm_fused_max_horizon.argtypes = [ctypes.c_int] * 3
     lib.kissmpc_ipm_fused_max_horizon.restype = ctypes.c_int
@@ -764,7 +775,8 @@ def max_horizon(cfg: MPCConfig) -> int:
     """The longest horizon the kernel takes for ``cfg``'s obstacle count,
     branch and track form: the one whose whole iterate fits in a block of
     one warp within the 227 KB of shared memory a block may take on sm_90
-    (the launcher takes 4 warps per block where they fit, else 2, else 1).
+    (at a width of 1 the launcher takes 4 warps per block where they fit,
+    else 2, else 1).
     Builds the kernel; needs nvcc."""
     return _max_horizon(cfg.max_obstacles, _elastic(cfg), _affine(cfg))
 
@@ -835,29 +847,39 @@ def _launch(lib, stream: int, cfg: MPCConfig, problems: Problem,
     f32 = dict(dtype=torch.float32, device=device)
     outs = [torch.empty((B, n), **f32) for n in (N + 1, N + 1, N + 1, N, N, 6)]
     params = _params(cfg, B)
+    width = ctypes.c_int(0)
     err = lib.kissmpc_ipm_fused_f32(
         trips.data_ptr(), *(t.data_ptr() for t in rows),
-        *(t.data_ptr() for t in outs), ctypes.byref(params), stream,
+        *(t.data_ptr() for t in outs), ctypes.byref(width), ctypes.byref(params), stream,
     )
     _build.check_launch(lib, err, "fused IPM kernel")
     solve_batch_fused.launches += 1
+    solve_batch_fused.launches_wide += int(width.value > 1)
     return _solution(inp, *outs)
 
 
 graph.counter(solve_batch_fused)
+graph.counter(solve_batch_fused, "launches_wide")
 
 
-def occupancy(cfg: MPCConfig) -> dict:
-    """The launch shape of the kernel instantiation that ``cfg`` takes on
-    the current card: warps (scenarios) per block as launched (4, or 2 or 1
-    where 4 do not fit), dynamic shared memory per block, resident blocks
-    and scenarios per SM, registers and bytes of local memory (stack frame
-    and spills) per thread.  Builds the kernel; needs CUDA."""
-    lib = _library()
-    out = (ctypes.c_int * 5)()
+def occupancy(cfg: MPCConfig, batch: int) -> dict:
+    """The launch that a solve of ``batch`` scenarios of ``cfg`` takes on the
+    current card: its width (warps per scenario, 1 or 4, as the module
+    docstring says), the instance's warps and scenarios per block (at
+    width 1: 4, or 2 or 1 where 4 do not fit), dynamic shared memory per
+    block, resident blocks and scenarios per SM, registers and bytes of
+    local memory (stack frame and spills) per thread.  Builds the kernel;
+    needs CUDA."""
+    return launch_shape(_library(), cfg, batch)
+
+
+def launch_shape(lib: ctypes.CDLL, cfg: MPCConfig, batch: int) -> dict:
+    """`occupancy` through the loaded build ``lib``."""
+    out = (ctypes.c_int * 7)()
     err = lib.kissmpc_ipm_fused_occupancy(
-        cfg.horizon, cfg.max_obstacles, int(_elastic(cfg)), int(_affine(cfg)), out)
+        batch, cfg.horizon, cfg.max_obstacles, int(_elastic(cfg)), int(_affine(cfg)), out)
     _build.check_launch(lib, err, "fused IPM occupancy query")
-    warps, smem, blocks, regs, local = out
-    return {"warps_per_block": warps, "smem_bytes_per_block": smem, "blocks_per_sm": blocks,
-            "scenarios_per_sm": warps * blocks, "registers": regs, "local_bytes": local}
+    width, warps, per_block, smem, blocks, regs, local = out
+    return {"width": width, "warps_per_block": warps, "scenarios_per_block": per_block,
+            "smem_bytes_per_block": smem, "blocks_per_sm": blocks,
+            "scenarios_per_sm": per_block * blocks, "registers": regs, "local_bytes": local}

@@ -5,12 +5,14 @@ NVIDIA GPU.
     python3 scripts/fused_design_sweep.py
 
 `kissmpc_tpu_torch/csrc/ipm_fused.cu` is written with 4 warps (scenarios)
-per block, the per-time stage rows condensed in parallel before the
-sweep, and the obstacle step stored once per iteration.  This script
-compiles the source as written and one edited copy per alternative into a
+per block at one warp per scenario, 4 warps per scenario at small
+batches, the per-time stage rows condensed in parallel before the sweep,
+and the obstacle step stored once per iteration.  This script compiles
+the source as written and one edited copy per alternative into a
 temporary directory (the checkout is left as it is): 1, 2 and 8 warps per
-block; the stage rows condensed inside the sweep on lane 0 instead (their
-shared-memory rows dropped); the obstacle step recomputed where the line
+block; one warp per scenario at every batch; the stage rows condensed
+inside the sweep on thread 0 instead (their shared-memory rows dropped;
+one warp per scenario at every batch); the obstacle step recomputed where the line
 search and the update read it (its rows still written); the warps per
 block a compile-time constant in the kernel body instead of read from
 blockDim (the body before the launcher chose the count from the horizon).  Each build is
@@ -33,14 +35,22 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 WARPS = "constexpr int kWarps = 4;"
+# The launcher's width rule, edited to take one warp per scenario at every batch.
+ONE_WARP = ("  if (wide <= static_cast<size_t>(optin)) {\n", "  if (false) {\n", 1)
 # name -> [(text of ipm_fused.cu, its replacement, occurrences)].
 VARIANTS = {
     "as written (W=4)": [],
     **{f"W={w}": [(WARPS, f"constexpr int kWarps = {w};", 1)] for w in (1, 2, 8)},
+    "one warp per scenario at every batch": [ONE_WARP],
+    # At one warp per scenario: the wide instance's scratch lies past the
+    # stage rows that this variant drops.
     "stage rows condensed in the sweep": [
+        ONE_WARP,
         ("  const int sweep = 8 * N + 11 * N + 7 * T1;\n", "  const int sweep = 8 * N;\n", 1),
-        ("    // --- (b) condensation: every stage row in parallel ----------------------\n",
-         "    if (false)  // condensed inside the sweep instead\n", 1),
+        ("    for (int t = tid; t < T1; t += NT) {\n      if (!kWide && t < N) dyn_ctrl_rows(t);\n",
+         "    if (false)  // condensed inside the sweep instead\n"
+         "    for (int t = tid; t < T1; t += NT) {\n      if (!kWide && t < N) dyn_ctrl_rows(t);\n",
+         1),
         ("dyn_at(t)", "dyn(t)", 2),
         ("ctrl_at(t)", "ctrl_stage(t, mu, reg)", 1),
         ("state_at(N)", "state_stage(N, mu, reg)", 1),

@@ -34,16 +34,16 @@ sys.path.insert(0, str(ROOT))
 # name -> (text of ipm_fused.cu, its replacement); each text occurs once.
 # The first four plant faults in the elastic branch; the last one in the
 # warp-cooperative design: each lane sums only its own complementarity
-# products, so mu differs from lane to lane.
+# products, so mu differs from lane to lane (at one warp per scenario; in
+# the wide instances every thread takes lane 0's partial sum).
 FAULTS = {
     "as written": (),
     "e update dropped": ("EOB[r] = EOB[r] + alpha * st.de;", "(void)st.de;"),
-    "rho_e * e left out of the merit": ("obj += p.rho_e * (om * te);", ""),
+    "rho_e * e left out of the merit": ("obj += p.rho_e * (om * o.te);", ""),
     "no fraction to the boundary on e": ("as = minp(as, ftb(EOB[r], st.de));", ""),
     "sig_e = mu / e instead of mu / e^2": (
         "clipp(mu / (e_safe * e_safe), 0.f, kSigmaMax)", "clipp(mu / e_safe, 0.f, kSigmaMax)"),
-    "complementarity sum without the shuffle": ("return Red{warp_sum(tot), ",
-                                                "return Red{tot, "),
+    "complementarity sum without the shuffle": ("      tot = warp_sum(tot);\n", ""),
 }
 
 

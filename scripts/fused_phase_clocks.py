@@ -7,9 +7,10 @@ The card's profilers do not run in this setting, so this script compiles a
 copy of `kissmpc_tpu_torch/csrc/ipm_fused.cu` (into a temporary directory;
 the checkout is left as it is) with `clock64()` read by every lane at each
 phase boundary of the iteration: (a) reduce, (b) condensation, (c, d) the
-lane-0 sweep and rollout, (e) fraction to the boundary, (f) the merit line
-search, (g) the updates; then the KKT diagnostics.  Lane 0 of scenario 0 and
-of scenario B/2 store their sums in a device array that the copy exports.
+thread-0 sweep and rollout, (e) fraction to the boundary, (f) the merit line
+search, (g) the updates; then the KKT diagnostics.  Thread 0 of scenario 0
+and of scenario B/2 store their sums in a device array that the copy
+exports (at B=164 the launch takes 4 warps per scenario).
 It runs k8_dyn2, k8_dyn2_elastic and free (N=50, float32) at B=8192 x 32
 iterations (every SM full) and at the last refine stage, B=164 x 128 (about
 one warp per SM), and prints SM cycles per iteration and each phase's
@@ -50,7 +51,7 @@ def instrumented(text):
     end = "  const size_t bs = static_cast<size_t>(b) * T1"
     text = text.replace(start, "  long long clk_[8] = {0}, t_ = clock64();\n" + start)
     text = text.replace(end, (
-        "  if (lane == 0 && (b == 0 || b == p.B / 2))\n"
+        "  if (tid == 0 && (b == 0 || b == p.B / 2))\n"
         "    for (int k = 0; k < 8; ++k) kissmpc_phase_clocks[b == 0 ? 0 : 1][k] = clk_[k];\n")
         + end)
     text = text.replace("namespace {\n", "__device__ long long kissmpc_phase_clocks[2][8];\n\n"

@@ -92,14 +92,15 @@ def regions(monkeypatch):
 
 class _Launcher:
     """Stands in for the fused kernel's library: records each launch's trip
-    count and sigma column, read from the packed inputs' memory, and leaves
-    the outputs as allocated."""
+    count and sigma column, read from the packed inputs' memory, reports a
+    width of one warp per scenario, and leaves the outputs as allocated."""
 
     def __init__(self):
         self.trips, self.sigma = [], []
 
     def kissmpc_ipm_fused_f32(self, trips, scal, *ptrs):
         params = ptrs[-2]._obj
+        ptrs[-3]._obj.value = 1
         self.trips.append(ctypes.c_int32.from_address(trips).value)
         rows = 27  # the scal row: 3 + 3 + 4 + 4 + 6 + 6 + 1
         self.sigma.append([ctypes.c_float.from_address(scal + 4 * (b * rows + rows - 1)).value

@@ -20,6 +20,14 @@ and at the refine stage's B = 164, with its flag noise floor: at a batch of
 a few hundred, round-off alone changes a few flags (PERF.md).  At the
 longest horizon (one warp per block) the kernel holds to the one-iteration
 gate after 3 iterations, and one step more is refused before any launch.
+
+Widths (warps per scenario): the batches above take 4 warps per scenario
+on the card, where its resident one-scenario blocks hold the whole batch.
+Batches solved alone at either width the card gives them (164, 512 and the
+most its resident blocks hold: 4; 1,024: 1) return the bits they get inside
+a batch of 8,192 at one warp per scenario, hard and elastic, and a
+replayed fleet solve (8,192, then 1,024 and 164) moves the wide launches'
+counter by one of its three launches.
 """
 
 import dataclasses
@@ -32,7 +40,8 @@ from kissmpc_tpu_torch.ops import ipm_fused
 from kissmpc_tpu_torch.ops.ipm_fused import solve_batch_fused, solve_batch_fused_plain
 from kissmpc_tpu_torch.ops.probe import dynamic_trip, dynamic_trip_plain
 from kissmpc_tpu_torch.scenarios import free_problems, obstacle_problems
-from kissmpc_tpu_torch.solver.problem import Problem
+from kissmpc_tpu_torch.solver.api import make_batch_solver
+from kissmpc_tpu_torch.solver.problem import Problem, gather
 
 B, N = 64, 12
 
@@ -130,14 +139,21 @@ def test_fused_elastic_kernel_matches_plain_full_solve(cuda, K, affine, batch, e
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,elastic", [(0, False), (8, False), (8, True)])
 def test_fused_kernel_same_scenario_in_every_slot(cuda, K, elastic):
-    """One scenario in each of 300 slots (every lane, warp and block
-    position, a ragged last block): every output bitwise equal."""
+    """One scenario in each of 1,101 slots at one warp per scenario (every
+    lane, warp and block position, a ragged last block) and of 300 slots
+    at 4 warps per scenario (every block of a batch the SMs hold at once):
+    every output bitwise equal, and equal across the two widths."""
     cfg, pr = _case(K, elastic=elastic, n=50, batch=1)
-    many = Problem(*(x.expand(300, *x.shape[1:]).contiguous() for x in pr))
-    sol = solve_batch_fused(cfg, many)
-    torch.cuda.synchronize()
-    for x in (sol.states, sol.controls, *sol.diagnostics):
-        assert torch.equal(x, x[:1].expand_as(x)), "output depends on the slot"
+    outputs = []
+    for batch, width in ((1101, 1), (300, 4)):
+        assert ipm_fused.occupancy(cfg, batch)["width"] == width
+        many = Problem(*(x.expand(batch, *x.shape[1:]).contiguous() for x in pr))
+        sol = solve_batch_fused(cfg, many)
+        torch.cuda.synchronize()
+        for x in (sol.states, sol.controls, *sol.diagnostics):
+            assert torch.equal(x, x[:1].expand_as(x)), "output depends on the slot"
+        outputs.append([x[:1] for x in (sol.states, sol.controls, *sol.diagnostics)])
+    assert all(torch.equal(a, b) for a, b in zip(*outputs)), "output depends on the width"
 
 
 @pytest.mark.cuda
@@ -149,13 +165,73 @@ def test_fused_kernel_at_its_longest_horizon(cuda, K):
     cfg, _ = _case(K, n=50)
     N = ipm_fused.max_horizon(cfg)
     cfg, pr = _case(K, n=N)
-    assert ipm_fused.occupancy(cfg)["warps_per_block"] == 1
+    occ = ipm_fused.occupancy(cfg, 64)
+    assert (occ["width"], occ["warps_per_block"]) == (1, 1)
     _check_one_iteration(cfg, pr, iterations=3)
     cfg, pr = _case(K, n=N + 1, batch=2)
     before = solve_batch_fused.launches
     with pytest.raises(ValueError, match="split"):
         solve_batch_fused(cfg, pr, iterations=1)
     assert solve_batch_fused.launches == before
+
+
+def _fleet(elastic=False):
+    """The fleet solve's configuration (N=50, dt 0.041, K=8 with affine
+    tracks; 32 iterations, then 12.5% of the batch for 64 at sigma 0.2 and
+    2% for 96 at 0.7) and 8,192 of its scenarios, two obstacles moving."""
+    cfg = MPCConfig(horizon=50, time_step=0.041, max_obstacles=8)
+    cfg = cfg.replace(solver=dataclasses.replace(
+        cfg.solver, iterations=32, refine_stages=((0.125, 64, 0.2), (0.02, 96, 0.7)),
+        mu_sigma_max=0.7, fused_affine_tracks=True, elastic_obstacles=elastic))
+    return cfg, obstacle_problems(cfg, 8192, seed=7, n_dynamic=2, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,iterations,mu_sigma,width", [
+    (164, 96, 0.7, 4), (512, 64, 0.2, 4), ("most", 64, 0.2, 4), (1024, 64, 0.2, 1)])
+@pytest.mark.parametrize("elastic", [False, True], ids=["hard", "elastic"])
+def test_fused_wide_instance_returns_the_bits_of_one_warp(cuda, elastic, batch, iterations,
+                                                          mu_sigma, width):
+    """A refine stage's scenarios solved alone (the solve's 1,024 and 164,
+    the fleet tick's 512, and the most that the card's resident blocks of 4
+    warps hold, its SMs times their blocks) and inside a batch of 8,192 (one
+    warp per scenario), the stage's iterations and sigma: every output of
+    every scenario bitwise equal; one scenario more than the most takes one
+    warp per scenario."""
+    cfg, pr = _fleet(elastic)
+    if batch == "most":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        batch = sms * ipm_fused.occupancy(cfg, 1)["blocks_per_sm"]
+        assert ipm_fused.occupancy(cfg, batch + 1)["width"] == 1
+    assert ipm_fused.occupancy(cfg, 8192)["width"] == 1
+    assert ipm_fused.occupancy(cfg, batch)["width"] == width
+    before = (solve_batch_fused.launches, solve_batch_fused.launches_wide)
+    whole = solve_batch_fused(cfg, pr, iterations=iterations, mu_sigma=mu_sigma)
+    alone = solve_batch_fused(cfg, gather(pr, torch.arange(batch, device="cuda")),
+                              iterations=iterations, mu_sigma=mu_sigma)
+    torch.cuda.synchronize()
+    moved = (solve_batch_fused.launches - before[0], solve_batch_fused.launches_wide - before[1])
+    assert moved == (2, int(width == 4))
+    for a, b in zip((alone.states, alone.controls, *alone.diagnostics),
+                    (whole.states, whole.controls, *whole.diagnostics)):
+        assert torch.equal(a, b[:batch])
+
+
+@pytest.mark.cuda
+def test_fused_replay_moves_each_width_counter(cuda):
+    """A captured fleet solve at B=8,192: the base call and the stage of
+    1,024 at one warp per scenario, the stage of 164 at 4; the first call
+    and each replay move the launch counter by 3 and the wide launches' by
+    1."""
+    cfg, pr = _fleet()
+    solve = make_batch_solver(cfg)
+    for _ in range(3):
+        before = (solve_batch_fused.launches, solve_batch_fused.launches_wide)
+        solve(pr)
+        moved = (solve_batch_fused.launches - before[0],
+                 solve_batch_fused.launches_wide - before[1])
+        assert moved == (3, 1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -1,20 +1,27 @@
-"""The fused kernel's own source, rehearsed on the CPU: its warps per block
-and horizon limit.
+"""The fused kernel's own source, rehearsed on the CPU: its warps per block,
+its width rule and horizon limit.
 
 `scripts/fused_cpu_shim.py` compiles `kissmpc_tpu_torch/csrc/ipm_fused.cu`
 with g++ behind a header that stands in for the CUDA runtime (a
-`std::thread` per lane, a `std::barrier` per warp for `__syncwarp`, shared
-memory a NaN-filled vector of the launch's exact size, `blockDim` set, and
-sm_90's 227 KB of opt-in shared memory per block).  Here the build's host
-function gives the longest horizon the kernel takes, for each obstacle
-form, and the launcher's warps per block are held at 4 at N=50 and at 2
-and 1 at longer horizons, where the build is held against the plain
-version `solve_batch_fused_plain` by chip_smoke.py's phase-4 gate at a few
+`std::thread` per thread of a block, a `std::barrier` per warp for
+`__syncwarp` and one per block for `__syncthreads`, shared memory a
+NaN-filled vector of the launch's exact size, `blockDim` set, sm_90's
+227 KB of opt-in shared memory per block, and a stand-in SM of 4 warps
+whose count the tests set).  Here the build's host function gives the
+longest horizon the kernel takes, for each obstacle form, and the
+launcher's warps per block are held at 4 at N=50 and at 2 and 1 at longer
+horizons, where the build is held against the plain version
+`solve_batch_fused_plain` by chip_smoke.py's phase-4 gate at a few
 iterations (within 1e-4 of the solution's scale plus twice the plain
-version's own f32-vs-f64 gap).  The tests skip where g++ is missing; they
-cannot see what only the card shows (ptxas, a refused launch, speed).
+version's own f32-vs-f64 gap).  The wide instance (4 warps per scenario,
+picked where the SMs hold the whole batch at once) is held to the same
+gate, and to the same bits as one warp per scenario; the base batches of
+the fleet keep one warp per scenario and 4 scenarios a block.
+The tests skip where g++ is missing; they cannot see what only the card
+shows (ptxas, a refused launch, speed, the card's own residency).
 """
 
+import contextlib
 import ctypes
 import importlib.util
 import shutil
@@ -53,10 +60,20 @@ def shim(tmp_path_factory):
     return module, module.build(tmp_path_factory.mktemp("fused_shim"), None, False)
 
 
-def _occupancy(lib, N, K, elastic, affine):
-    out = (ctypes.c_int * 5)()
-    assert lib.kissmpc_ipm_fused_occupancy(N, K, int(elastic), int(affine), out) == 0
-    return {"warps": out[0], "smem": out[1]}
+def _occupancy(lib, N, K, elastic, affine, batch=8192):
+    out = (ctypes.c_int * 7)()
+    assert lib.kissmpc_ipm_fused_occupancy(batch, N, K, int(elastic), int(affine), out) == 0
+    return {"width": out[0], "warps": out[1], "per_block": out[2], "smem": out[3]}
+
+
+@contextlib.contextmanager
+def _sms(lib, count):
+    """The shim build's stand-in card with ``count`` SMs."""
+    lib.shim_set_sm_count(count)
+    try:
+        yield
+    finally:
+        lib.shim_set_sm_count(1)
 
 
 # (K, elastic, affine tracks): the longest horizon at one warp per block,
@@ -81,14 +98,45 @@ def test_shim_horizon_limit_at_one_warp(shim, form, most):
 
 
 def _case_id(case):
-    n, K, elastic, affine, batch, _, warps = case
-    return f"N{n}-K{K}{'-el' if elastic else ''}{'-aff' if affine else ''}-B{batch}-W{warps}"
+    n, K, elastic, affine, batch, _, warps, _, width = case
+    wide = f"-width{width}" if width > 1 else ""
+    return f"N{n}-K{K}{'-el' if elastic else ''}{'-aff' if affine else ''}-B{batch}-W{warps}{wide}"
 
 
 @pytest.mark.parametrize("case", _shim_module().CASES, ids=_case_id)
 def test_shim_matches_plain(shim, case):
-    """Ragged batches at 4 warps per block (one iteration), and B=3 at
-    horizons that take 2 and 1 warps per block (three iterations)."""
+    """Ragged batches at 4 warps per block (one iteration), B=3 at horizons
+    that take 2 and 1 warps per block (three iterations), and B=3 at 4
+    warps per scenario."""
     module, lib = shim
     ok, line = module.check(lib, *case, report_full=False)
     assert ok, line
+
+
+@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("elastic", [False, True], ids=["hard", "elastic"])
+def test_shim_wide_instance_returns_the_bits_of_one_warp(shim, elastic, K):
+    """K obstacles, N=12, B=3, 3 iterations: the same scenarios solved at 4
+    warps per scenario (3 SMs hold the batch at once) and at one warp per
+    scenario (1 SM): every output bitwise equal."""
+    module, lib = shim
+    cfg = module.config(12, K, elastic, True)
+    pr = module.problems(cfg, 3)
+    with _sms(lib, 3):
+        wide, got_width = module.run(lib, cfg, pr, 3)
+    one, one_width = module.run(lib, cfg, pr, 3)
+    assert (got_width, one_width) == (4, 1)
+    for a, b in zip((wide.states, wide.controls, *wide.diagnostics),
+                    (one.states, one.controls, *one.diagnostics)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("batch", [8192, 4096, 2048])
+def test_shim_base_batches_keep_one_warp_per_scenario(shim, batch):
+    """On 132 SMs the fleet's base batches (N=50, K=8, affine tracks) take
+    width 1 and the one-warp launch shape: 4 scenarios (warps) a block, each
+    with its 3,701 floats of shared memory."""
+    _, lib = shim
+    with _sms(lib, 132):
+        assert _occupancy(lib, 50, 8, False, True, batch) == {
+            "width": 1, "warps": 4, "per_block": 4, "smem": 4 * 3701 * 4}
